@@ -1,0 +1,10 @@
+"""SplatFields in PyTorch for NVIDIA Hopper GPUs.
+
+A port of ``splatfields_tpu`` (JAX + Pallas), which stays in the repository
+as the reference each module is tested against. Module paths and names
+mirror the JAX package so every counterpart is easy to find. This package
+imports torch and numpy only, never JAX, flax or ``splatfields_tpu``.
+
+Entry points run on the GPU unless the caller passes ``device="cpu"``;
+there is no silent CPU fallback.
+"""

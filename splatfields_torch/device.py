@@ -1,0 +1,15 @@
+"""Device choice for the port's entry points."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` means the GPU. A CUDA device without a GPU raises: the port
+    never drops to the CPU on its own; callers that want the CPU say so."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "splatfields_torch runs on a CUDA GPU by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return dev

@@ -1,0 +1,83 @@
+"""Positional embedding and the GeneralMLP field head (counterpart of
+``splatfields_tpu/models/mlp.py``).
+
+The reference's quirks stay: the embedding is applied to the raw ``xyz``
+with extra features concatenated after; the skip concatenates the embedded
+input in front (``h = cat([h_in, h])``) after layer i in ``skips``; the
+activation (leaky_relu 0.01) follows EVERY layer including the last, and
+``out_activation`` is applied on top of it.
+
+Activations stay f32. The JAX package defaults static fields to bf16
+activations (``SPLATFIELDS_MLP_BF16=auto``); that option is not ported yet
+(ROADMAP).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from splatfields_torch.models.resfields import ResFieldLinear, _out_act
+
+
+def embed_dim(multires: int, input_dims: int = 3) -> int:
+    return input_dims * (1 + 2 * multires)
+
+
+def positional_embed(x: torch.Tensor, multires: int) -> torch.Tensor:
+    """[..., D] -> [..., D (1 + 2 multires)]: x, then (sin, cos) of x * 2^k
+    for k = 0 .. multires-1; identity if multires == 0."""
+    if multires <= 0:
+        return x
+    outs = [x]
+    for k in range(multires):
+        f = float(2.0 ** k)
+        outs.append(torch.sin(x * f))
+        outs.append(torch.cos(x * f))
+    return torch.cat(outs, dim=-1)
+
+
+class GeneralMLP(nn.Module):
+    """Layers ``net_0 .. net_{H+1}``: in -> W, H hidden, W -> out."""
+
+    def __init__(self, in_features: int = 3, out_features: int = 3,
+                 hidden_features: int = 128, num_hidden_layers: int = 8,
+                 skips: Sequence[int] = (4,), multires: int = 6,
+                 out_activation: str = "none", act: str = "relu",
+                 composition_rank: int = 0, n_frames: int = 100, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.multires = multires
+        self.skips = tuple(skips)
+        self.act = _out_act(act)
+        self.out_activation = _out_act(out_activation)
+        emb_in = in_features - 3 + embed_dim(multires, 3)
+        dims = [(emb_in, hidden_features, 0)]
+        for i in range(num_hidden_layers):
+            fin = hidden_features + (emb_in if i in self.skips else 0)
+            rank = composition_rank if i >= 1 else 0
+            cap = n_frames if (rank and n_frames > 0) else 0
+            dims.append((fin, hidden_features, rank if cap else 0))
+        dims.append((hidden_features, out_features, 0))
+        self.n_layers = len(dims)
+        for i, (fin, fout, rank) in enumerate(dims):
+            self.add_module(f"net_{i}", ResFieldLinear(
+                fin, fout, rank, n_frames if rank else 0, generator=generator))
+
+    def forward(self, xyz: torch.Tensor, xyz_feat: torch.Tensor | None = None,
+                xyz_embedded: torch.Tensor | None = None) -> torch.Tensor:
+        """``xyz_embedded``: a shared embedding of xyz at >= this head's
+        multires; its leading columns are this head's embedding."""
+        if xyz_embedded is not None and self.multires > 0:
+            h_in = xyz_embedded[:, : embed_dim(self.multires, xyz.shape[-1])]
+        else:
+            h_in = positional_embed(xyz, self.multires)
+        if xyz_feat is not None:
+            h_in = torch.cat([h_in, xyz_feat], dim=-1)
+        h = h_in
+        for i in range(self.n_layers):
+            h = self.act(getattr(self, f"net_{i}")(h))
+            if i in self.skips and i != self.n_layers - 1:
+                h = torch.cat([h_in, h], dim=-1)
+        return self.out_activation(h)

@@ -1,0 +1,130 @@
+"""The SplatFields network, static path (counterpart of
+``splatfields_tpu/models/splatfields.py``).
+
+Given N points: encoder features (VarTriPlane) refined by two Linear
+layers with a ReLU between; ``mlp_deform`` offsets the points
+(``xyz_can = xyz + deform_weight * delta``); ``mlp_scale`` /
+``mlp_opacity`` (sigmoid) / ``mlp_rotation`` (normalize) / ``mlp_rgb``
+(sigmoid) read (xyz_can, features), sharing one positional embedding of
+xyz_can at the largest multires.
+
+Not ported yet, each raising NotImplementedError: 4-D fields
+(``n_frames > 0``, flow head, ResField ranks; ROADMAP Queue 1 item 6),
+the view-dependent colour head and ``geo_model_disable_pts``, and every
+encoder but VarTriPlane (items 6-7).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from splatfields_torch.models.encoders import VarTriPlaneEncoder
+from splatfields_torch.models.initializers import torch_linear_
+from splatfields_torch.models.mlp import GeneralMLP, positional_embed
+
+# encoders of the JAX package; any other encoder_type means no encoder
+_JAX_ENCODERS = ("VarTriPlaneEncoder", "VarHexPlaneEncoder", "TriPlaneEncoder",
+                 "HexPlaneEncoder", "GridEncoder", "NGPMLP")
+
+
+class SplatFields(nn.Module):
+    def __init__(self, n_frames: int = 0,
+                 encoder_type: str = "", encoder_args: Any = None,
+                 layer_strategy: str = "none", composition_rank: int = 0,
+                 deform_weight: float = 1.0, use_view_dep_rgb: bool = False,
+                 geo_model_disable_pts: bool = False,
+                 deform_w: int = 128, deform_d: int = 6, deform_skips=(3,),
+                 deform_multires: int = 6,
+                 rgb_w: int = 128, rgb_d: int = 6, rgb_skips=(3,),
+                 rgb_multires: int = 6,
+                 scale_w: int = 64, scale_d: int = 4, scale_skips=(2,),
+                 scale_multires: int = 4,
+                 opacity_w: int = 64, opacity_d: int = 4, opacity_skips=(2,),
+                 opacity_multires: int = 3,
+                 rotation_w: int = 64, rotation_d: int = 3,
+                 rotation_skips=(20,), rotation_multires: int = 3, *,
+                 generator: torch.Generator):
+        super().__init__()
+        if n_frames > 0:
+            raise NotImplementedError(
+                "4-D fields (n_frames > 0): ROADMAP Queue 1 item 6")
+        if composition_rank > 0:
+            raise NotImplementedError(
+                "ResField composition_rank > 0: ROADMAP Queue 1 item 6")
+        if use_view_dep_rgb:
+            raise NotImplementedError(
+                "view-dependent colour head: ROADMAP pending items")
+        if geo_model_disable_pts:
+            raise NotImplementedError(
+                "geo_model_disable_pts: ROADMAP pending items")
+        if encoder_type in _JAX_ENCODERS and encoder_type != "VarTriPlaneEncoder":
+            raise NotImplementedError(
+                f"encoder {encoder_type}: ROADMAP Queue 1 items 6-7")
+        gen = generator
+        self.deform_weight = deform_weight
+        self.max_multires = max(rgb_multires, scale_multires,
+                                opacity_multires, rotation_multires)
+        if encoder_type == "VarTriPlaneEncoder":
+            args = dict(encoder_args or {})
+            args.setdefault("n_frames", n_frames)
+            args.setdefault("strategy", layer_strategy)
+            self.encoder = VarTriPlaneEncoder(**args, generator=gen)
+            self.feat_dim = self.encoder.out_dim
+            self.refine0 = nn.Linear(self.feat_dim, self.feat_dim)
+            self.refine1 = nn.Linear(self.feat_dim, self.feat_dim)
+            torch_linear_(self.refine0.weight, self.refine0.bias,
+                          self.feat_dim, gen)
+            torch_linear_(self.refine1.weight, self.refine1.bias,
+                          self.feat_dim, gen)
+        else:
+            self.encoder = None
+            self.feat_dim = 0
+
+        in_feat = 3 + self.feat_dim
+
+        def head(out, w, d, skips, mr, out_act):
+            return GeneralMLP(in_feat, out, w, d, skips, mr, out_act,
+                              "leaky_relu", 0, n_frames, generator=gen)
+
+        # like flax, which creates a head's params only when it runs
+        self.mlp_deform = (head(3, deform_w, deform_d, deform_skips,
+                                deform_multires, "none")
+                           if deform_weight > 0 else None)
+        self.mlp_rgb = head(3, rgb_w, rgb_d, rgb_skips, rgb_multires, "sigmoid")
+        self.mlp_scale = head(3, scale_w, scale_d, scale_skips,
+                              scale_multires, "none")
+        self.mlp_opacity = head(1, opacity_w, opacity_d, opacity_skips,
+                                opacity_multires, "sigmoid")
+        self.mlp_rotation = head(4, rotation_w, rotation_d, rotation_skips,
+                                 rotation_multires, "normalize")
+
+    def generate_planes(self) -> torch.Tensor:
+        """The N-independent plane CNNs only."""
+        return self.encoder.planes()
+
+    def extract_features(self, x: torch.Tensor, planes=None):
+        if self.encoder is None:
+            return None
+        feat = self.encoder(x, planes=planes)
+        return self.refine1(F.relu(self.refine0(feat)))
+
+    def forward(self, xyz_in: torch.Tensor,
+                planes: torch.Tensor | None = None) -> Dict[str, Any]:
+        pts_feat = self.extract_features(xyz_in, planes)
+        xyz_can = xyz_in
+        if self.mlp_deform is not None:
+            xyz_can = xyz_in + self.deform_weight * self.mlp_deform(xyz_in,
+                                                                    pts_feat)
+        # one shared sin/cos sweep; each head slices its prefix
+        can_emb = positional_embed(xyz_can, self.max_multires)
+        return {
+            "scales": self.mlp_scale(xyz_can, pts_feat, can_emb),
+            "opacity": self.mlp_opacity(xyz_can, pts_feat, can_emb),
+            "rotations": self.mlp_rotation(xyz_can, pts_feat, can_emb),
+            "rgb": self.mlp_rgb(xyz_can, pts_feat, can_emb),
+            "flow": None,
+            "means3D": xyz_can,
+        }
