@@ -4,8 +4,9 @@
 
 Phases, each raising on failure:
 
-1. Device: the card's name and power limit; build the blend kernel from
-   ``splatfields_torch/csrc`` with nvcc (sm_90a).
+1. Device: the card's name and power limit; build the blend kernels
+   (forward and backward) from ``splatfields_torch/csrc`` with nvcc
+   (sm_90a), one nvcc per source, started together.
 2. Kernel vs plain on the card: the serving scene at full width (100,000
    splats from ``create_from_pcd``, VarTriPlane field model from seed 0,
    800x800, tile 16, tile_cap 1024, k_chunk 128, dup_factor 5); the
@@ -17,6 +18,21 @@ Phases, each raising on failure:
    blend's ms and the kernel's bound.
 4. A small frame rendered on the card (kernel) and on the CPU (plain
    blend) with the same weights must agree.
+5. Backward kernel vs plain on the card: one training frame's own blend
+   inputs and upstream gradients (captured from a training step of phase
+   6's configuration), plus the early-termination and counts > tile_cap
+   packs with random upstream gradients.
+6. The training slice at full width (``bench.py``'s default training
+   workload: the serving scene's splats and net, one view per step from a
+   different orbit camera, a random target, ``lambda_mask`` 0,
+   ``lambda_norm`` 0.01, D-SSIM 0.2, bench.py's splat learning rates,
+   field lr 1e-3): warm-up steps, then timed steps; finite losses, the
+   field moved, both kernels launched once per render, ``denom`` grew;
+   ms/step, rays/s, the backward kernel's and the plain version's ms and
+   the kernel's bound.
+7. One small training step on the card (kernels) and on the CPU (plain
+   versions) from the same weights, splats, Adam states and batch must
+   agree.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -46,6 +62,22 @@ OPS_EVALUATED, OPS_APPLIED = 20, 8
 # pixel whose T crosses the 1e-4 stop differently moves by < 1e-4 (times
 # z <= ~5 for depth)
 TOL = {"color": 2e-4, "depth": 1e-3, "final_t": 2e-4}
+# float operations per (pixel, row) pair of the backward: ~20 to evaluate
+# alpha, ~50 more for an applied row's ten partials and the prefix sums,
+# and 10 adds to sum the partials over pixels
+OPS_BWD_EVALUATED, OPS_BWD_APPLIED = 20, 60
+# backward kernel vs plain, per column over the column's max abs: the
+# per-pixel sums run in another order, and the suffix sums are totals
+# minus prefixes (cancellation, ~1e-7 of the total, over 1 - alpha >=
+# 0.01); a pixel whose T crosses the 1e-4 stop differently moves only its
+# own rows, by about T ~ 1e-4 of a row's weight
+TOL_BWD = 1e-3
+TIGHT_BWD = 1e-5   # rows past this are counted and printed
+# training: bench.py's splat learning rates (position, feature, opacity,
+# scaling, rotation) and field learning rate; steps of phase 6
+SPLAT_LRS = (1.6e-4, 2.5e-3, 0.05, 1e-3, 1e-3)
+FIELD_LR = 1e-3
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 
 
 @dataclasses.dataclass
@@ -152,6 +184,266 @@ def serving_scene(device=None):
         bg=np.ones(3, np.float32), cams=make_views(N_FRAMES, RES))
 
 
+def column_errs(got, want):
+    """Per column of [D, 10] gradients: max abs error over the column's
+    max abs, and the rows past TIGHT_BWD."""
+    scale = want.abs().amax(dim=0).clamp_min(1e-30)
+    rel = (got - want).abs() / scale
+    return rel.amax(dim=0), int((rel.amax(dim=1) > TIGHT_BWD).sum())
+
+
+def check_bwd(label, got, want):
+    import torch
+    errs, loose = column_errs(got, want)
+    abs_err = float((got - want).abs().max())
+    print(f"{label}: max abs err {abs_err:.3e}; per column over its max "
+          f"{[float(f'{e:.2e}') for e in errs]}; {loose} of {got.shape[0]} "
+          f"rows past {TIGHT_BWD}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite gradient")
+    if not float(errs.max()) <= TOL_BWD:
+        raise AssertionError(f"{label}: column-normalised err "
+                             f"{float(errs.max())} > {TOL_BWD}")
+    return abs_err
+
+
+def train_batch(cam, rng, device):
+    """One view's batch for make_train_step: a random target image."""
+    import torch
+    res = cam.image_width
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    return {"viewmatrix": f32(cam.world_view_transform)[None],
+            "projmatrix": f32(cam.full_proj_transform)[None],
+            "campos": f32(cam.camera_center)[None],
+            "tanfovx": [cam.tanfovx], "tanfovy": [cam.tanfovy], "fid": 0.0,
+            "image": f32(rng.rand(1, 3, res, res)), "bg": f32(np.ones(3))}
+
+
+def train_step_fn(deform, pipe, res):
+    """bench.py's default training step (field mode, one view)."""
+    from splatfields_torch import config, train_lib
+    opt = config.OptimizationConfig(lambda_mask=0.0, lambda_norm=0.01)
+    return train_lib.make_train_step(deform.net, opt, pipe, res, res, 1,
+                                     True, 0, 0)
+
+
+def nonzero_adam(tree, seed):
+    """An Adam state with count 10 and moments from a numpy seed (so a
+    step's update is a smooth function of the gradient)."""
+    import torch
+
+    from splatfields_torch.models import splats
+    rng = np.random.RandomState(seed)
+    items = splats.tree_items(tree)
+
+    def draw(scale, lo=None):
+        return splats.tree_like(tree, {
+            k: torch.as_tensor((rng.randn(*v.shape) * scale if lo is None else
+                                rng.uniform(lo, 1.5, v.shape) * scale
+                                ).astype(np.float32), device=v.device)
+            for k, v in items.items()})
+
+    return splats.AdamState(count=10, mu=draw(1e-3), nu=draw(1e-6, 0.5))
+
+
+def train_phases(sc, dev, smi):
+    """Phases 5-7; returns the backward kernel's entry of the kernels
+    line. ``smi`` is the card's name and power limit."""
+    import torch
+
+    from splatfields_torch.models import splats
+    from splatfields_torch.models.deform_model import DeformModel
+    from splatfields_torch.ops.raster import blend_cuda
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.ops.raster.blend_torch import (
+        blend_bwd_plain,
+        blend_work,
+    )
+
+    step = train_step_fn(sc.deform, sc.pipe, RES)
+    lrs = splats.splat_lr_tree(*SPLAT_LRS)
+    rng = np.random.RandomState(0)
+    cams = make_views(TRAIN_WARMUP + TRAIN_STEPS + 1, RES)
+    batches = [train_batch(c, rng, dev) for c in cams]
+
+    # --- 5. backward kernel vs plain ---------------------------------------
+    captured = []
+
+    def spy(*args):
+        # detached: the saved outputs come back from autograd with grad_fn
+        captured.append(tuple(a.detach() if isinstance(a, torch.Tensor)
+                              else a for a in args))
+        return blend_bwd(*args)
+
+    # the wrapper counts through its module-level name, the spy's here;
+    # phase 6 resets the counts anyway
+    spy.launches = 0
+    blend_cuda.blend_bwd = spy
+    try:
+        step(sc.params, sc.stats, splats.adam_init(sc.params),
+             sc.deform.params, sc.deform.opt_state, batches[-1], lrs,
+             FIELD_LR)
+    finally:
+        blend_cuda.blend_bwd = blend_bwd
+    (bargs,) = captured
+    ts, tc, tk = 16, 1024, 128
+    plain_args = (*bargs[:10], bargs[10], ts, tc, tk)
+    got = blend_bwd(*bargs)
+    torch.cuda.synchronize()
+    bwd_err = check_bwd("backward, training frame", got,
+                        blend_bwd_plain(*plain_args))
+    if not float(got.abs().max()) > 0:
+        raise AssertionError("backward of the training frame is all zero")
+
+    def synthetic_bwd(label, rows, opacity):
+        (pack, start, counts), tx, ty = synthetic_pack(dev, rows, opacity)
+        tile_ids = torch.arange(tx * ty, device=dev, dtype=torch.int32)
+        out = blend_fwd(pack, start, counts, tx, ty, ts, tc, tk)
+        g = np.random.RandomState(rows)
+        gs = [torch.as_tensor(g.rand(*o.shape).astype(np.float32),
+                              device=dev) for o in out]
+        args = (pack, start, counts, tile_ids, *gs, *out)
+        check_bwd(label, blend_bwd(*args, tx, ts, tc),
+                  blend_bwd_plain(*args, tx, ts, tc, tk))
+        return out
+
+    out = synthetic_bwd("backward, early termination", 600, 0.9)
+    if not float(out[2].max()) < 1e-2:
+        raise AssertionError("early-termination case did not saturate")
+    out = synthetic_bwd("backward, counts > tile_cap", 1500, 0.005)
+    if not float(out[2].min()) > 1e-4:
+        raise AssertionError("tile_cap case stopped early: cap untested")
+
+    # --- 6. the training slice at full width -------------------------------
+    sp, st = sc.params, sc.stats
+    sopt, fp, fopt = splats.adam_init(sp), sc.deform.params, sc.deform.opt_state
+    fp0 = {k: v.clone() for k, v in fp.items()}
+    losses = []
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for i, b in enumerate(batches[:TRAIN_WARMUP + TRAIN_STEPS]):
+        if i == TRAIN_WARMUP:
+            start.record()
+        sp, st, sopt, fp, fopt, out = step(sp, st, sopt, fp, fopt, b, lrs,
+                                           FIELD_LR)
+        losses.append(out.loss)
+    end.record()
+    torch.cuda.synchronize()
+    renders = TRAIN_WARMUP + TRAIN_STEPS
+    fwd_launches, bwd_launches = blend_fwd.launches, blend_bwd.launches
+    if (fwd_launches, bwd_launches) != (renders, renders):
+        raise AssertionError(f"{renders} renders launched blend_fwd "
+                             f"{fwd_launches} and blend_bwd {bwd_launches} "
+                             "times")
+    losses = torch.stack(losses)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite training loss: {losses.tolist()}")
+    moved = max(float((fp[k] - fp0[k]).abs().max()) for k in fp)
+    if not moved > 0:
+        raise AssertionError("the field parameters did not move")
+    visible = out.radii > 0
+    if not (bool(visible.any()) and bool((st.denom[visible] >= 1).all())
+            and float(st.denom.max()) <= renders):
+        raise AssertionError("denom did not grow for the visible splats")
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    print("training losses:", [round(x, 6) for x in losses.tolist()])
+    print(f"field moved by up to {moved:.3e}; splats seen: "
+          f"{int((st.denom > 0).sum())}; bin_dropped last step "
+          f"{int(out.loss_dict['bin_dropped'])}")
+    print(f"train ms/step {step_ms:.4f}; rays/s {RES * RES / step_ms * 1e3:.1f} "
+          f"({RES}x{RES}, {N_SPLATS} splats, 1 view, {TRAIN_STEPS} steps after "
+          f"{TRAIN_WARMUP} warm-up; blend_fwd {fwd_launches} and blend_bwd "
+          f"{bwd_launches} launches for {renders} renders; {smi})")
+
+    kernel_ms = cuda_ms(lambda: blend_bwd(*bargs), 50)
+    plain_ms = cuda_ms(lambda: blend_bwd_plain(*plain_args), 3)
+    pack, tile_start, counts = bargs[:3]
+    evaluated, applied = blend_work(pack, tile_start, counts, bargs[10], ts,
+                                    tc, tk)
+    n_tiles, p = counts.shape[0], ts * ts
+    # pack read and grad written once, tile arrays, ten floats per pixel
+    bytes_moved = (2 * pack.numel() * 4 + (tile_start.numel() + 2 * n_tiles)
+                   * 4 + n_tiles * 10 * p * 4)
+    ops = OPS_BWD_EVALUATED * evaluated + OPS_BWD_APPLIED * applied
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS * 1e3
+    print(f"blend_bwd: kernel {kernel_ms:.5f} ms, plain {plain_ms:.4f} ms; "
+          f"sorted_pack {tuple(pack.shape)}, {n_tiles} tiles; "
+          f"{evaluated} pairs evaluated, {applied} applied; {ops} "
+          f"operations, {bytes_moved} bytes; bytes bound {bytes_ms:.5f} ms, "
+          f"ops bound {ops_ms:.5f} ms")
+
+    # --- 7. small step: kernels on the card vs plain versions on the CPU -----
+    cam = make_views(2, 64)[1]
+    pipe = sc.pipe
+    res = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        p_, s_ = splats.create_from_pcd(sc.pts[:2000], sc.cols[:2000], 0,
+                                        device=device)
+        d_ = DeformModel(sc.hidden, radius=1.0, seed=0, device=device)
+        res[name] = train_step_fn(d_, pipe, 64)(
+            p_, s_, nonzero_adam(p_, 1), d_.params, nonzero_adam(d_.params, 2),
+            train_batch(cam, np.random.RandomState(1), device), lrs,
+            FIELD_LR)
+    check_small_step(res["cuda"], res["cpu"])
+
+    return {
+        "name": "blend_bwd",
+        "route": "cuda",
+        "source": "splatfields_torch/csrc/blend_bwd.cu",
+        "replaces": "splatfields_tpu/ops/raster/blend_pallas.py:443",
+        "launches": bwd_launches,
+        "max_abs_err": bwd_err,
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        # no single PyTorch call computes this VJP
+        "library_ms": None,
+    }
+
+
+def check_small_step(card, cpu):
+    """Phase 7's comparison. The card's convolutions and matmuls run in
+    f32 (TF32 off) but sum in another order: the loss agrees to ~1e-6
+    relative (rtol 1e-5); the screen-space gradient, a sum over pixels, to
+    1e-4 of its max; a step moves a parameter by about its lr, so updated
+    parameters get 1e-3 of the lr plus 1e-5 relative."""
+    import torch
+
+    from splatfields_torch.models import splats
+    (sp_g, st_g, _, fp_g, _, out_g), (sp_c, st_c, _, fp_c, _, out_c) = card, cpu
+    loss_g, loss_c = float(out_g.loss), float(out_c.loss)
+    print(f"small step: loss card {loss_g:.7f}, CPU {loss_c:.7f}")
+    if not abs(loss_g - loss_c) <= 1e-5 * abs(loss_c):
+        raise AssertionError("small step: losses differ")
+    if not torch.equal(out_g.radii.cpu(), out_c.radii):
+        raise AssertionError("small step: radii differ between card and CPU")
+    sg_c = out_c.screen_grad
+    sg_err = float((out_g.screen_grad.cpu() - sg_c).abs().max()
+                   / sg_c.abs().max())
+    print(f"small step: screen_grad err over its max {sg_err:.3e}")
+    if not sg_err <= 1e-4:
+        raise AssertionError("small step: screen_grad differs")
+    lrs = splats.tree_items(splats.splat_lr_tree(*SPLAT_LRS))
+    worst = 0.0
+    for tree_g, tree_c, lr_of in (
+            (splats.tree_items(sp_g), splats.tree_items(sp_c), lrs.get),
+            (fp_g, fp_c, lambda _: FIELD_LR)):
+        for k, want in tree_c.items():
+            err = float(((tree_g[k].cpu() - want).abs()
+                         - 1e-5 * want.abs()).max()) if want.numel() else 0.0
+            worst = max(worst, err / lr_of(k))
+    print(f"small step: updated params, worst err over lr {worst:.3e}")
+    if not worst <= 1e-3:
+        raise AssertionError("small step: updated parameters differ")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -182,11 +474,11 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    lib_path, build_s = blend_cuda.build()
-    print(f"blend_fwd built in {build_s:.2f} s: {lib_path.name}")
-    log = lib_path.with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+    for name, (lib_path, build_s) in blend_cuda.build().items():
+        print(f"{name} built in {build_s:.2f} s: {lib_path.name}")
+        log = lib_path.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
 
     # --- 2. kernel vs plain at the serving shape ---------------------------
     sc = serving_scene()
@@ -282,6 +574,9 @@ def main() -> int:
                 [out["cuda"][k].cpu() for k in ("render", "depth", "opacity")],
                 [out["cpu"][k] for k in ("render", "depth", "opacity")])
 
+    # --- 5-7. the training slice -------------------------------------------
+    bwd_entry = train_phases(sc, dev, smi)
+
     kernels = [{
         "name": "blend_fwd",
         "route": "cuda",
@@ -295,7 +590,7 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None,
-    }]
+    }, bwd_entry]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

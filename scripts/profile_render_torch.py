@@ -1,16 +1,23 @@
-"""Where the time of one served frame goes, for the PyTorch port on a GPU.
+"""Where the time of one served frame, or of one training step, goes, for
+the PyTorch port on a GPU.
 
-    python3 scripts/profile_render_torch.py
+    python3 scripts/profile_render_torch.py           # serving frames
+    python3 scripts/profile_render_torch.py --train   # training steps
 
-Renders chip_smoke.py's serving scene (100,000 splats, VarTriPlane field,
-800x800, 8 orbit frames) and prints:
+Serving: chip_smoke.py's serving scene (100,000 splats, VarTriPlane field,
+800x800, 8 orbit frames). Training: chip_smoke.py's phase-6 step on the
+same scene (one view per step, bench.py's loss and learning rates), 8
+steps. Prints:
 
-1. per stage of ``render_camera``, the stream time between CUDA events
-   placed at the stage boundaries, summed over the frames (it includes any
-   time the GPU waits for the host inside the stage);
-2. the wall time of the frames without the profiler, and from
-   ``torch.profiler`` the device-side events (kernels, copies) by self
-   time; their sum over that wall time gives the GPU's idle share.
+1. per stage, the stream time between CUDA events placed at the stage
+   boundaries, summed over the frames or steps (it includes any time the
+   GPU waits for the host inside the stage). Serving stages follow
+   ``render_camera``; training stages follow ``make_train_step``: field
+   forward, render forward, loss, render + loss backward (with the blend
+   backward kernel), field backward, the two Adam updates and the stats;
+2. the wall time without the profiler, and from ``torch.profiler`` the
+   device-side events (kernels, copies) by self time; their sum over that
+   wall time gives the GPU's idle share.
 
 Needs a CUDA card; exits 1 without one.
 """
@@ -77,6 +84,137 @@ def staged_frame(cam, sc, mark):
     mark("compose")
 
 
+def staged_train_step(sc, state, batch, lrs, field_lr, mark):
+    """make_train_step's field-mode body for one view (same calls), with
+    ``mark(name)`` after each stage. The backward is one call, as in the
+    step; hooks on the field's outputs record when their gradients are
+    complete, which ends the render + loss backward (the autograd engine
+    runs the later-created render nodes first)."""
+    import torch
+
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.models import splats as splats_lib
+    sp, st, sopt, fp, fopt = state
+    mark("start")
+    fp_l = {k: v.detach().requires_grad_(True) for k, v in fp.items()}
+    attrs = train_lib.field_attributes(
+        sc.deform.net, sp.xyz, splats_lib.get_scaling(sp), st.valid, 0.0, 0,
+        params=fp_l)
+    mark("field_fwd")
+    offset = torch.zeros(sp.capacity, 2, device=sp.xyz.device,
+                         requires_grad=True)
+    cam = {k: batch[k][0] for k in ("viewmatrix", "projmatrix", "campos",
+                                    "tanfovx", "tanfovy")}
+    res = batch["image"].shape[-1]
+    out = train_lib.render_view(attrs, cam, batch["bg"], res, res, 0,
+                                sc.pipe, screenspace_offset=offset)
+    mark("render_fwd")
+    opt = config.OptimizationConfig(lambda_mask=0.0, lambda_norm=0.01)
+    loss, _ = train_lib.compute_losses([out], batch, attrs, opt, st.valid)
+    mark("loss_fwd")
+    reached = []
+
+    def hook(grad):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        reached.append(ev)
+
+    for k in ("means3d", "opacity", "scales", "rotations", "rgb"):
+        attrs[k].register_hook(hook)
+    *g_fp, g_off = torch.autograd.grad(loss, list(fp_l.values()) + [offset],
+                                       allow_unused=True)
+    mark("render_loss_bwd", reached[-1])
+    mark("field_bwd")
+    g_fp = {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(fp_l.items(), g_fp)}
+    sp, sopt = splats_lib.adam_update(
+        sp, splats_lib.tree_map(torch.zeros_like, sp), sopt, lrs)
+    fp, fopt = splats_lib.adam_update(fp, g_fp, fopt, field_lr)
+    st = splats_lib.add_densification_stats(
+        splats_lib.update_max_radii(st, out.radii), g_off, out.radii)
+    mark("adam_stats")
+    return sp, st, sopt, fp, fopt
+
+
+def profile_train(sc) -> None:
+    import numpy as np
+    import torch
+
+    from chip_smoke import (
+        FIELD_LR,
+        RES,
+        SPLAT_LRS,
+        make_views,
+        train_batch,
+        train_step_fn,
+    )
+    from splatfields_torch.models import splats as splats_lib
+    step = train_step_fn(sc.deform, sc.pipe, RES)
+    lrs = splats_lib.splat_lr_tree(*SPLAT_LRS)
+    rng = np.random.RandomState(0)
+    batches = [train_batch(c, rng, sc.params.xyz.device)
+               for c in make_views(10, RES)]
+    state = (sc.params, sc.stats, splats_lib.adam_init(sc.params),
+             sc.deform.params, sc.deform.opt_state)
+
+    def run(bs, state):
+        for b in bs:
+            sp, st, sopt, fp, fopt, _ = step(*state, b, lrs, FIELD_LR)
+            state = (sp, st, sopt, fp, fopt)
+        return state
+
+    state = run(batches[:2], state)       # warm-up
+    torch.cuda.synchronize()
+    stage_ms = {}
+    for b in batches[2:]:
+        events = []
+
+        def mark(name, ev=None, events=events):
+            if ev is None:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+            events.append((name, ev))
+
+        state = staged_train_step(sc, state, b, lrs, FIELD_LR, mark)
+        torch.cuda.synchronize()
+        for (_, a), (name, e) in zip(events, events[1:]):
+            stage_ms[name] = stage_ms.get(name, 0.0) + a.elapsed_time(e)
+    n = len(batches) - 2
+    print("train stage ms/step:", json.dumps(
+        {k: v / n for k, v in stage_ms.items()}))
+    print(f"sum of stages ms/step: {sum(stage_ms.values()) / n:.4f}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = run(batches[2:], state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(batches[2:], state)
+        torch.cuda.synchronize()
+    report(prof, wall_ms, n, "steps")
+
+
+def report(prof, wall_ms, n, unit) -> None:
+    """The device-side events of a profiled run: busy and idle share,
+    top events by self time."""
+    import torch
+    # device-side events only (kernels, copies): an aten op's row repeats
+    # the device time of the kernels it launched
+    rows = sorted(
+        ((e.self_device_time_total, e.count, e.key)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    print(f"{n} {unit}: wall {wall_ms:.4f} ms without the profiler, GPU "
+          f"busy {busy_ms:.4f} ms (kernels and copies, profiled run), GPU "
+          f"idle share {1 - busy_ms / wall_ms:.4f}")
+    print(f"top device events by self time (ms over the {unit}, calls):")
+    for dev_us, count, key in rows[:25]:
+        print(f"  {dev_us / 1e3:10.4f}  {count:6d}  {key[:110]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -92,6 +230,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip())
     sc = serving_scene()
+    if "--train" in sys.argv[1:]:
+        profile_train(sc)
+        return 0
     with torch.no_grad():
         for cam in sc.cams[:2]:
             render_camera(cam, sc.params, sc.stats, sc.deform, sc.pipe, sc.bg)
@@ -130,19 +271,7 @@ def main() -> int:
                 render_camera(cam, sc.params, sc.stats, sc.deform, sc.pipe,
                               sc.bg)
             torch.cuda.synchronize()
-    # device-side events only (kernels, copies): an aten op's row repeats
-    # the device time of the kernels it launched
-    rows = sorted(
-        ((e.self_device_time_total, e.count, e.key)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"{n} frames: wall {wall_ms:.4f} ms without the profiler, GPU "
-          f"busy {busy_ms:.4f} ms (kernels and copies, profiled run), GPU "
-          f"idle share {1 - busy_ms / wall_ms:.4f}")
-    print("top device events by self time (ms over the frames, calls):")
-    for dev_us, count, key in rows[:25]:
-        print(f"  {dev_us / 1e3:10.4f}  {count:6d}  {key[:110]}")
+    report(prof, wall_ms, n, "frames")
     return 0
 
 

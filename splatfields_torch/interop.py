@@ -11,8 +11,11 @@ leaf; only the layouts differ:
 - the frozen noise buffers NHWC -> NCHW.
 
 Loading is strict: a key the module lacks, a module key the tree lacks,
-or a shape mismatch raises. No flax or msgpack is needed; reading
-``deform.msgpack`` checkpoints without flax is a ROADMAP item.
+or a shape mismatch raises. Gradients and Adam moments, which have the
+params' shape, convert the same way (``flax_to_state_dict``,
+``adam_state_from_numpy``), so both packages can start from one state.
+No flax or msgpack is needed; reading ``deform.msgpack`` checkpoints
+without flax is a ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from splatfields_torch.device import resolve_device
-from splatfields_torch.models.splats import SplatParams
+from splatfields_torch.models.splats import AdamState, SplatParams
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -54,6 +57,19 @@ def _convert(path: tuple, value: np.ndarray, collection: str):
     return ".".join((*mods, leaf)), value
 
 
+def flax_to_state_dict(tree: Mapping, collection: str = "params",
+                       device="cpu") -> dict[str, torch.Tensor]:
+    """One flax collection (nested dicts of numpy arrays) -> ``{state_dict
+    name: f32 tensor}``. Any tree shaped like the params converts the same
+    way: gradients and Adam moments too."""
+    device = resolve_device(device)
+    out = {}
+    for path, value in _flatten(tree):
+        key, value = _convert(path, value, collection)
+        out[key] = torch.tensor(value, dtype=torch.float32, device=device)
+    return out
+
+
 def load_flax_variables(module: torch.nn.Module, tree: Mapping) -> None:
     """Copy a flax variable tree ``{"params": ..., "buffers": ...}`` (nested
     dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray, variables)``)
@@ -64,15 +80,16 @@ def load_flax_variables(module: torch.nn.Module, tree: Mapping) -> None:
     target = module.state_dict()
     loaded = {}
     for collection in ("params", "buffers"):
-        for path, value in _flatten(tree.get(collection, {})):
-            key, value = _convert(path, value, collection)
+        for key, value in flax_to_state_dict(tree.get(collection, {}),
+                                             collection).items():
             if key not in target:
-                raise KeyError(f"{collection}/{'/'.join(path)} has no "
-                               f"counterpart {key!r} in the module")
-            if tuple(target[key].shape) != value.shape:
+                raise KeyError(f"{collection} {key!r} has no counterpart in "
+                               "the module")
+            if target[key].shape != value.shape:
                 raise ValueError(f"{key}: module shape "
-                                 f"{tuple(target[key].shape)} != {value.shape}")
-            loaded[key] = torch.tensor(value, dtype=target[key].dtype)
+                                 f"{tuple(target[key].shape)} != "
+                                 f"{tuple(value.shape)}")
+            loaded[key] = value
     missing = set(target) - set(loaded)
     if missing:
         raise KeyError(f"module keys missing from the tree: {sorted(missing)}")
@@ -90,3 +107,19 @@ def splat_params_from_numpy(p, device=None) -> SplatParams:
                               device=device)
               for f in SplatParams.__dataclass_fields__}
     return SplatParams(**fields)
+
+
+def adam_state_from_numpy(state, device=None) -> AdamState:
+    """The JAX package's ``AdamState`` (count, mu, nu as numpy trees) ->
+    the port's. Moments of the splat tree become ``SplatParams``; moments
+    of the field tree (flax-shaped dicts) become ``{state_dict name:
+    tensor}`` dicts, as ``DeformModel.params``. ``device=None`` means the
+    GPU."""
+    def tree(t):
+        if isinstance(t, Mapping) and set(t) != set(
+                SplatParams.__dataclass_fields__):
+            return flax_to_state_dict(t, device=device)
+        return splat_params_from_numpy(t, device=device)
+
+    return AdamState(count=int(np.asarray(state.count)), mu=tree(state.mu),
+                     nu=tree(state.nu))

@@ -1,13 +1,19 @@
-"""Field-model holder (counterpart of
-``splatfields_tpu/models/deform_model.py``). The optimizer and checkpoint IO
-come with the training slice; ``interop.load_flax_variables`` carries JAX
-weights across."""
+"""Field-model holder: the SplatFields net and its Adam (counterpart of
+``splatfields_tpu/models/deform_model.py``). One Adam (eps 1e-15) over all
+field parameters at ``position_lr_init * 5``, decaying exponentially to
+``position_lr_final`` over ``deform_lr_max_steps``. Checkpoint IO comes
+with the host loop; ``interop.load_flax_variables`` carries JAX weights
+across."""
 from __future__ import annotations
 
 import torch
 
 from splatfields_torch.device import resolve_device
+from splatfields_torch.models import splats as splats_lib
 from splatfields_torch.models.splatfields import SplatFields
+from splatfields_torch.utils.schedules import expon_lr_func
+
+SPATIAL_LR_SCALE = 5.0
 
 
 def build_splatfields(hidden_cfg, *,
@@ -39,3 +45,28 @@ class DeformModel:
         self.net = build_splatfields(hidden_cfg, generator=gen)
         self.net = self.net.to(self.device).eval()
         self.n_frames = hidden_cfg.n_frames
+        self.opt_state = splats_lib.adam_init(self.params)
+        self.scheduler = None
+
+    def train_setting(self, opt_cfg):
+        self.scheduler = expon_lr_func(
+            lr_init=opt_cfg.position_lr_init * SPATIAL_LR_SCALE,
+            lr_final=opt_cfg.position_lr_final,
+            lr_delay_mult=opt_cfg.position_lr_delay_mult,
+            max_steps=opt_cfg.deform_lr_max_steps)
+
+    def learning_rate(self, iteration: int) -> float:
+        return float(self.scheduler(iteration))
+
+    @property
+    def params(self) -> dict[str, torch.Tensor]:
+        """The net's parameters as ``{state_dict name: tensor}``, detached
+        (the tree the train step and Adam take)."""
+        return {k: p.detach() for k, p in self.net.named_parameters()}
+
+    @params.setter
+    def params(self, new_params: dict[str, torch.Tensor]):
+        """Write a parameter tree (a train step's output) into the net."""
+        with torch.no_grad():
+            for k, p in self.net.named_parameters():
+                p.copy_(new_params[k])

@@ -1,13 +1,20 @@
-"""Explicit splat parameters and their activations (counterpart of
-``splatfields_tpu/models/splats.py``; Adam, densification and PLY IO come
-with the training slice).
+"""Explicit splat parameters, their activations, Adam and densification
+(counterpart of ``splatfields_tpu/models/splats.py``; PLY IO comes with the
+host loop).
 
 Parameters live in fixed-capacity tensors with a validity mask, as in the
-JAX package.
+JAX package, and every function here is a plain function on tensors that
+returns new tensors. Adam is hand-rolled rather than ``torch.optim.Adam``
+so that its state stays plain tensors: densification gathers the moments
+with the parameters, and ``interop`` carries the state across from JAX.
+A "tree" is a ``SplatParams`` or a ``{name: tensor}`` dict (the field
+net's parameters).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Any
 
 import numpy as np
 import torch
@@ -15,7 +22,7 @@ import torch
 from splatfields_torch.device import resolve_device
 from splatfields_torch.ops.knn import mean_sq_dist_knn3
 from splatfields_torch.ops.sh import rgb_to_sh
-from splatfields_torch.utils.transforms import inverse_sigmoid
+from splatfields_torch.utils.transforms import inverse_sigmoid, quat_to_rotmat
 
 
 @dataclasses.dataclass
@@ -40,6 +47,14 @@ class SplatStats:
     max_radii2d: torch.Tensor        # [C]
     xyz_gradient_accum: torch.Tensor  # [C]
     denom: torch.Tensor              # [C]
+
+
+@dataclasses.dataclass
+class AdamState:
+    """One step count for the whole tree; moments shaped like the tree."""
+    count: int
+    mu: Any
+    nu: Any
 
 
 def get_scaling(p: SplatParams) -> torch.Tensor:
@@ -100,3 +115,253 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray, sh_degree: int,
     stats = SplatStats(valid=valid, max_radii2d=zeros.clone(),
                        xyz_gradient_accum=zeros.clone(), denom=zeros.clone())
     return params, stats
+
+
+# ---------------------------------------------------------------------------
+# trees
+# ---------------------------------------------------------------------------
+
+def tree_items(tree) -> dict:
+    """A tree's leaves by name."""
+    if isinstance(tree, dict):
+        return dict(tree)
+    return {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
+
+
+def tree_like(tree, leaves: dict):
+    """A tree of ``tree``'s kind holding ``leaves``."""
+    if isinstance(tree, dict):
+        return dict(leaves)
+    return dataclasses.replace(tree, **leaves)
+
+
+def tree_map(fn, tree, *rest):
+    items = tree_items(tree)
+    others = [tree_items(r) for r in rest]
+    return tree_like(tree, {k: fn(v, *(o[k] for o in others))
+                            for k, v in items.items()})
+
+
+# ---------------------------------------------------------------------------
+# Adam (torch.optim.Adam semantics, eps after the sqrt)
+# ---------------------------------------------------------------------------
+
+def adam_init(params) -> AdamState:
+    return AdamState(count=0, mu=tree_map(torch.zeros_like, params),
+                     nu=tree_map(torch.zeros_like, params))
+
+
+@torch.no_grad()
+def adam_update(params, grads, state: AdamState, lrs, b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-15):
+    """One Adam step -> (new params, new state). ``lrs`` is a tree of
+    floats like ``params`` or one float. Bias-corrected moments,
+    denom = sqrt(v_hat) + eps, one ``count`` for the whole tree. The
+    leaves go through ``torch._foreach_*`` ops, a few launches per step
+    for the whole tree."""
+    count = state.count + 1
+    # the JAX package forms the corrections in f32
+    c1 = float(1.0 - np.float32(b1) ** np.float32(count))
+    c2 = float(1.0 - np.float32(b2) ** np.float32(count))
+    names = list(tree_items(params))
+    p, g, m, v = ([tree_items(t)[k] for k in names]
+                  for t in (params, grads, state.mu, state.nu))
+    lr = tree_items(lrs) if isinstance(lrs, (dict, SplatParams)) else None
+    lr = [float(lrs) if lr is None else float(lr[k]) for k in names]
+    m = torch._foreach_add(torch._foreach_mul(m, b1),
+                           torch._foreach_mul(g, 1 - b1))
+    v = torch._foreach_add(torch._foreach_mul(v, b2),
+                           torch._foreach_mul(torch._foreach_mul(g, g),
+                                              1 - b2))
+    denom = torch._foreach_add(
+        torch._foreach_sqrt(torch._foreach_div(v, c2)), eps)
+    step = torch._foreach_mul(
+        torch._foreach_div(torch._foreach_div(m, c1), denom), lr)
+    new_p = torch._foreach_sub(p, step)
+    return (tree_like(params, dict(zip(names, new_p))),
+            AdamState(count=count, mu=tree_like(params, dict(zip(names, m))),
+                      nu=tree_like(params, dict(zip(names, v)))))
+
+
+def splat_lr_tree(position_lr: float, feature_lr: float, opacity_lr: float,
+                  scaling_lr: float, rotation_lr: float,
+                  spatial_lr_scale: float = 5.0) -> SplatParams:
+    """Per-group learning rates (reference ``training_setup``: xyz scaled
+    by spatial_lr_scale 5, f_rest at feature_lr / 20)."""
+    return SplatParams(
+        xyz=position_lr * spatial_lr_scale, features_dc=feature_lr,
+        features_rest=feature_lr / 20.0, scaling=scaling_lr,
+        rotation=rotation_lr, opacity=opacity_lr)
+
+
+# ---------------------------------------------------------------------------
+# densification
+# ---------------------------------------------------------------------------
+
+def add_densification_stats(stats: SplatStats, screen_grad: torch.Tensor,
+                            radii: torch.Tensor, idx=None) -> SplatStats:
+    """Accumulate ||dL/dmeans2D|| ([N, 2] screen-offset gradient) for the
+    visible splats (radii > 0). ``idx`` ([N] indices into the capacity
+    arrays, the ``n_splats`` path) or None for the identity."""
+    norm = torch.linalg.vector_norm(screen_grad, dim=-1)
+    vis = radii > 0
+    add_accum = torch.where(vis, norm, 0.0)
+    add_denom = vis.to(torch.float32)
+    if idx is None:
+        return dataclasses.replace(
+            stats, xyz_gradient_accum=stats.xyz_gradient_accum + add_accum,
+            denom=stats.denom + add_denom)
+    idx = idx.to(torch.int64)
+    return dataclasses.replace(
+        stats,
+        xyz_gradient_accum=stats.xyz_gradient_accum.index_add(0, idx,
+                                                              add_accum),
+        denom=stats.denom.index_add(0, idx, add_denom))
+
+
+def update_max_radii(stats: SplatStats, radii: torch.Tensor,
+                     idx=None) -> SplatStats:
+    """max_radii2D tracking over the visible splats."""
+    r = radii.to(torch.float32)
+    if idx is None:
+        new = torch.where(radii > 0, torch.maximum(stats.max_radii2d, r),
+                          stats.max_radii2d)
+    else:
+        idx = idx.to(torch.int64)
+        cur = stats.max_radii2d[idx]
+        new = stats.max_radii2d.index_copy(
+            0, idx, torch.where(radii > 0, torch.maximum(cur, r), cur))
+    return dataclasses.replace(stats, max_radii2d=new)
+
+
+def _rows(mask: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """[C] mask broadcast over a [C, ...] tensor."""
+    return mask.reshape((-1,) + (1,) * (a.ndim - 1))
+
+
+@torch.no_grad()
+def densify_and_prune(params: SplatParams, stats: SplatStats,
+                      opt_state: AdamState, noise: torch.Tensor,
+                      grad_threshold: float, min_opacity: float,
+                      extent: float, max_screen_size: float,
+                      percent_dense: float = 0.01, n_split: int = 2):
+    """One densification round: clone + split + prune + compaction, at
+    fixed capacity. ``noise`` [C, n_split, 3] is the standard-normal draw
+    for the split children (the JAX package draws it with
+    ``jax.random.normal`` inside; here the caller passes it, from a
+    ``torch.Generator`` or from the JAX draw in a parity test).
+
+    Returns (params, stats, opt_state, n_dropped): n_dropped counts new
+    splats that did not fit (a 0-d tensor). The semantics are the JAX
+    package's, including the reference's effective behaviour that the
+    screen-size prune never fires (only ``max_screen_size`` gating the
+    world-size prune)."""
+    cap = params.capacity
+    dev = params.xyz.device
+    valid = stats.valid
+    grads = torch.where(stats.denom > 0,
+                        stats.xyz_gradient_accum / stats.denom, 0.0)
+    max_scale = get_scaling(params).amax(dim=-1)
+    opacity = get_opacity(params)[:, 0]
+
+    high_grad = (grads >= grad_threshold) & valid
+    small = max_scale <= percent_dense * extent
+    want_clone = high_grad & small
+    want_split = high_grad & ~small
+    prune = opacity < min_opacity
+    if max_screen_size:
+        prune = prune | (max_scale > 0.1 * extent)
+    prune = prune & valid
+    # children are re-tested at their scale (parent / (0.8 n_split));
+    # clones have the parent's values, so the parent's test
+    child_prune = opacity < min_opacity
+    if max_screen_size:
+        child_prune = child_prune | (max_scale / (0.8 * n_split)
+                                     > 0.1 * extent)
+
+    survive = valid & ~prune & ~want_split
+    make_clone = want_clone & ~prune & ~want_split
+    make_child = want_split & ~child_prune
+    n_surv = survive.sum()
+    n_clone = make_clone.sum()
+    total = n_surv + n_clone + make_child.sum() * n_split
+    n_dropped = torch.clamp_min(total - cap, 0)
+
+    # destination slot of every source: survivors, then clones, then the
+    # children of each split parent side by side; slots >= cap drop
+    src = torch.arange(cap, device=dev)
+    surv_pos = torch.cumsum(survive, 0) - 1
+    clone_pos = n_surv + torch.cumsum(make_clone, 0) - 1
+    child_pos0 = n_surv + n_clone + n_split * (torch.cumsum(make_child, 0) - 1)
+    gather_idx = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    is_child_slot = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+    child_rank = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+
+    def scat(buf, pos, val, mask):
+        return buf.index_copy(0, torch.where(mask & (pos < cap), pos, cap),
+                              val)
+
+    # sources that do not land keep writing slot ``cap`` (dropped below);
+    # each landing slot is written by exactly one source
+    gather_idx = scat(gather_idx, surv_pos, src, survive)
+    gather_idx = scat(gather_idx, clone_pos, src, make_clone)
+    for j in range(n_split):
+        posj = child_pos0 + j
+        gather_idx = scat(gather_idx, posj, src, make_child)
+        is_child_slot = scat(is_child_slot, posj,
+                             torch.ones(cap, dtype=torch.bool, device=dev),
+                             make_child)
+        child_rank = scat(child_rank, posj, torch.full_like(src, j),
+                          make_child)
+    gather_idx = gather_idx[:cap]
+    is_child_slot = is_child_slot[:cap]
+    child_rank = child_rank[:cap]
+
+    slot_ids = torch.arange(cap, device=dev)
+    new_valid = slot_ids < torch.clamp_max(total, cap)
+    is_new_slot = slot_ids >= n_surv  # clones and children: fresh Adam state
+
+    new_params = tree_map(lambda a: a[gather_idx], params)
+    # split child: xyz += R (noise * scale); scaling -= log(0.8 n_split)
+    child_noise = noise[gather_idx, child_rank]
+    offset = (quat_to_rotmat(get_rotation(new_params))
+              @ (child_noise * get_scaling(new_params))[..., None])[..., 0]
+    child = is_child_slot[:, None]
+    new_params = dataclasses.replace(
+        new_params,
+        xyz=torch.where(child, new_params.xyz + offset, new_params.xyz),
+        scaling=torch.where(child,
+                            new_params.scaling - math.log(0.8 * n_split),
+                            new_params.scaling))
+    # padding slots hold zeros
+    new_params = tree_map(
+        lambda a: torch.where(_rows(new_valid, a), a, 0.0), new_params)
+
+    # survivors keep their moments; new and padding slots start at zero
+    keep = ~is_new_slot & new_valid
+
+    def surgery(m):
+        g = m[gather_idx]
+        return torch.where(_rows(keep, g), g, 0.0)
+
+    new_opt = AdamState(count=opt_state.count,
+                        mu=tree_map(surgery, opt_state.mu),
+                        nu=tree_map(surgery, opt_state.nu))
+    zeros = torch.zeros(cap, device=dev)
+    new_stats = SplatStats(valid=new_valid, max_radii2d=zeros,
+                           xyz_gradient_accum=zeros.clone(),
+                           denom=zeros.clone())
+    return new_params, new_stats, new_opt, n_dropped
+
+
+@torch.no_grad()
+def reset_opacity(params: SplatParams, opt_state: AdamState):
+    """opacity <- min(opacity, 0.01), with the opacity leaf's Adam moments
+    reset (reference ``reset_opacity``; the training loop never calls
+    it)."""
+    new_op = inverse_sigmoid(torch.clamp_max(get_opacity(params), 0.01))
+    zeros = torch.zeros_like(new_op)
+    return (dataclasses.replace(params, opacity=new_op),
+            AdamState(count=opt_state.count,
+                      mu=dataclasses.replace(opt_state.mu, opacity=zeros),
+                      nu=dataclasses.replace(opt_state.nu, opacity=zeros)))

@@ -7,9 +7,16 @@ no second mask pass), the screen radii and the instances dropped by the
 ``dup_cap`` budget.
 
 Pipeline: preprocess -> bin_gaussians -> pack_attributes + one row gather
-into instance order -> blend (the CUDA kernel for CUDA tensors, the plain
-blend for CPU tensors; ``blend_cuda.blend_fwd`` chooses) -> tiles_to_image
--> background compositing.
+into instance order -> blend (the CUDA kernels for CUDA tensors, the plain
+versions for CPU tensors; ``blend_cuda.blend_fwd`` chooses) ->
+tiles_to_image -> background compositing.
+
+Gradients: one autograd graph from the inputs to the images. The blend's
+backward is its closed-form VJP (``blend_cuda._Blend``); the backward of
+the row gather folds each instance row back onto its Gaussian (an
+``index_add``). For the densification statistics the caller passes a
+zero ``screenspace_offset`` [N, 2] that requires grad: its gradient is
+the CUDA rasterizer's ``means2D`` gradient, in half-resolution NDC units.
 """
 from __future__ import annotations
 
@@ -75,8 +82,8 @@ def rasterize(
 
     tiles_x = -(-image_width // tile_size)
     tiles_y = -(-image_height // tile_size)
-    binning = bin_gaussians(means2d, pre.depths, pre.radii, tiles_x, tiles_y,
-                            tile_size, dup_cap=dup_cap)
+    binning = bin_gaussians(means2d.detach(), pre.depths.detach(), pre.radii,
+                            tiles_x, tiles_y, tile_size, dup_cap=dup_cap)
     pack = pack_attributes(means2d, pre.conics, pre.rgb, pre.opacity,
                            pre.depths)
     sorted_pack = pack[torch.clamp_min(binning.sorted_id, 0).to(torch.int64)]

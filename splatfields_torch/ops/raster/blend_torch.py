@@ -21,6 +21,11 @@ closed form (``blend_jax._blend_chunk``): with s_i the inclusive
 cumulative transmittance, splat i is applied iff ``s_i >= 1e-4``, and the
 pixel's final T is the smallest such s_i. That is exact because s is
 monotone and skipped splats (alpha = 0) leave it unchanged.
+
+``blend_bwd_plain`` is the plain version of the backward kernel
+(``blend_cuda.blend_bwd``): the closed-form VJP of the Pallas backward
+(``blend_pallas._bwd_one_tile``), chunk by chunk over all tiles at once,
+not autograd.
 """
 from __future__ import annotations
 
@@ -111,6 +116,77 @@ def blend_sorted_plain(sorted_pack, tile_start, counts, tiles_x: int,
         t_true = torch.minimum(t_cand.amin(dim=1), t_true)
         t_full = s[:, -1, :]
     return color, depth, t_true
+
+
+def blend_bwd_plain(sorted_pack, tile_start, counts, tile_ids, g_color,
+                    g_depth, g_tfinal, color, depth, final_t, tiles_x: int,
+                    tile_size: int, tile_cap: int, k_chunk: int):
+    """dL/d(sorted_pack) [D, 10] from the upstream gradients of the blend's
+    outputs (``g_color`` [T,3,P], ``g_depth`` and ``g_tfinal`` [T,P]) and
+    the saved outputs ``color``, ``depth``, ``final_t``.
+
+    Per pixel, with w_i = alpha_i T_i over the applied splats (live_i):
+
+        dL/dalpha_i = live_i [T_i (c_i.gC + z_i gD)
+                      - (S_c,i + S_d,i + T_final gT) / (1 - alpha_i)]
+
+    where S_*,i sum w_j (c_j.gC) and w_j z_j gD over applied j > i. They
+    are the totals, in closed form from the saved outputs (C.gC and D gD),
+    minus running prefix sums. The chain through alpha = op exp(power)
+    takes d alpha / d(op exp(power)) = 1 even where the 0.99 clamp
+    applies, and op = max(op, 1e-9), as the Pallas kernel and the
+    reference CUDA rasterizer do. Rows no pixel reaches (past the tile's
+    stop or ``tile_cap``, and padding) get zeros."""
+    d_rows = sorted_pack.shape[0]
+    dev = sorted_pack.device
+    p = tile_size * tile_size
+    grad = torch.zeros(d_rows, PACK_WIDTH, device=dev)
+    g_depth = g_depth[:, None, :]                                  # [T,1,P]
+    tot_c = (color * g_color).sum(dim=1)[:, None, :]               # [T,1,P]
+    tot_d = depth[:, None, :] * g_depth
+    t_gt = (final_t * g_tfinal)[:, None, :]
+    t_full = torch.ones(counts.shape[0], p, device=dev)
+    pre_c = torch.zeros(counts.shape[0], 1, p, device=dev)
+    pre_d = torch.zeros_like(pre_c)
+    px, py = pixel_coords(tile_ids.to(torch.int64), tiles_x, tile_size)
+    starts = tile_start[:counts.shape[0]].to(torch.int64)
+    for chunk, (rows, valid, alpha) in enumerate(_chunks(
+            sorted_pack, tile_start, counts, tile_ids, tiles_x, tile_size,
+            tile_cap, k_chunk)):
+        s = t_full[:, None, :] * torch.cumprod(1.0 - alpha, dim=1)  # [T,K,P]
+        t_excl = torch.cat([t_full[:, None, :], s[:, :-1, :]], dim=1)
+        live = s >= _T_EPS
+        w = alpha * t_excl * live
+        cdot = torch.einsum("tkc,tcp->tkp", rows[..., 6:9], g_color)
+        zdot = rows[..., 9, None] * g_depth
+        contrib_c = w * cdot
+        contrib_d = w * zdot
+        suf_c = tot_c - (pre_c + torch.cumsum(contrib_c, dim=1))
+        suf_d = tot_d - (pre_d + torch.cumsum(contrib_d, dim=1))
+        g_alpha = live * (t_excl * (cdot + zdot) - (suf_c + suf_d + t_gt)
+                          / torch.clamp_min(1.0 - alpha, 1e-6))
+        dx = rows[..., 0, None] - px[:, None, :]
+        dy = rows[..., 1, None] - py[:, None, :]
+        ca, cb, cc = (rows[..., i, None] for i in (2, 3, 4))
+        op = torch.clamp_min(rows[..., 5, None], 1e-9)
+        ga = g_alpha * alpha
+        g_rows = torch.cat([
+            torch.stack([
+                (ga * -(ca * dx + cb * dy)).sum(-1),
+                (ga * -(cc * dy + cb * dx)).sum(-1),
+                (ga * (-0.5 * dx * dx)).sum(-1),
+                (ga * (-dx * dy)).sum(-1),
+                (ga * (-0.5 * dy * dy)).sum(-1),
+                (g_alpha * alpha / op).sum(-1)], dim=-1),
+            torch.einsum("tkp,tcp->tkc", w, g_color),
+            (w * g_depth).sum(-1)[..., None]], dim=-1)           # [T,K,10]
+        pos = (starts[:, None] + chunk * k_chunk
+               + torch.arange(k_chunk, device=dev))
+        grad[pos[valid]] = g_rows[valid]
+        pre_c = pre_c + contrib_c.sum(dim=1, keepdim=True)
+        pre_d = pre_d + contrib_d.sum(dim=1, keepdim=True)
+        t_full = s[:, -1, :]
+    return grad
 
 
 def blend_work(sorted_pack, tile_start, counts, tiles_x: int, tile_size: int,

@@ -1,23 +1,59 @@
-"""Splat attributes for rendering (counterpart of the attribute functions in
-``splatfields_tpu/train_lib.py``; the train step, losses and optimizer
-come with the training slice)."""
+"""The training step (counterpart of ``splatfields_tpu/train_lib.py``).
+
+Two modes, as in the JAX package:
+
+- **static mode** (``--is_static``): the splat parameters render directly
+  with SH colours, the classic-3DGS path;
+- **field mode**: the splats' xyz and scaling are detached, the
+  SplatFields net predicts the attributes, its scale is added to the
+  splats' activated scale, colour comes from the field.
+
+One step = field forward (planes generated once) -> V renders, each with a
+zero screen-space offset that requires grad -> losses -> backward -> two
+Adam updates (splats, field). The densification statistics use the LAST
+view's offset gradient and radii, the reference's loop-variable reuse.
+
+PyTorch runs eagerly, so there is no jit and no scanned twin; the
+``n_splats`` subsample needs the JAX step's rng and is not ported yet, nor
+are the Moran terms or 4-D fields: each raises NotImplementedError with
+its ROADMAP item. The depth-SSIM regularizer runs over the [1, H, W] depth
+map, the JAX package's documented deviation.
+"""
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+from torch.func import functional_call
 
 from splatfields_torch.models import splats as splats_lib
+from splatfields_torch.ops.raster.api import rasterize
+from splatfields_torch.ops.ssim import ssim as ssim_fn
+
+
+class StepOut(NamedTuple):
+    loss: torch.Tensor
+    l1: torch.Tensor
+    loss_dict: dict
+    radii: torch.Tensor          # last view
+    screen_grad: torch.Tensor    # last view [N, 2]
+    means3d: torch.Tensor        # field-predicted means (for overwrite_loc)
 
 
 def field_attributes(net, xyz: torch.Tensor, scaling: torch.Tensor,
-                     valid: torch.Tensor, fid, n_frames: int, planes=None):
+                     valid: torch.Tensor, fid, n_frames: int, planes=None,
+                     params=None):
     """Field forward -> renderable attributes (reference ``train.py:51-85``):
     the net predicts attributes at the detached splat xyz; its scale is
-    added to the splats' activated scale."""
+    added to the splats' activated scale. ``params`` (``{state_dict name:
+    tensor}``) replaces the net's own parameters for this call."""
     if n_frames > 0:
         raise NotImplementedError(
             "4-D field attributes: ROADMAP Queue 1 item 6")
     del fid
-    ret = net(xyz.detach(), planes=planes)
+    args, kwargs = (xyz.detach(),), {"planes": planes}
+    ret = (net(*args, **kwargs) if params is None
+           else functional_call(net, params, args, kwargs))
     return {
         "means3d": ret["means3D"],
         "opacity": ret["opacity"][:, 0],
@@ -38,3 +74,174 @@ def static_attributes(params: splats_lib.SplatParams, valid: torch.Tensor):
         "shs": splats_lib.get_features(params),
         "valid": valid,
     }
+
+
+def render_view(attrs, cam, bg, width, height, sh_degree, pipe,
+                screenspace_offset=None):
+    """One differentiable rasterization of an attribute dict; ``cam`` holds
+    one view's ``viewmatrix``, ``projmatrix``, ``campos`` (tensors on the
+    splats' device) and ``tanfovx``, ``tanfovy`` (numbers)."""
+    return rasterize(
+        attrs["means3d"], attrs["scales"], attrs["rotations"],
+        attrs["opacity"], cam["viewmatrix"], cam["projmatrix"],
+        cam["campos"], bg, float(cam["tanfovx"]), float(cam["tanfovy"]),
+        width, height, colors_precomp=attrs.get("rgb"),
+        shs=attrs.get("shs"), sh_degree=sh_degree,
+        valid_mask=attrs["valid"], screenspace_offset=screenspace_offset,
+        tile_size=pipe.tile_size, tile_cap=pipe.tile_cap,
+        k_chunk=pipe.k_chunk,
+        dup_cap=pipe.dup_factor * attrs["means3d"].shape[0])
+
+
+def _masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    v = valid.to(x.dtype)
+    return (x * v).sum() / torch.clamp_min(v.sum(), 1.0)
+
+
+def compute_losses(render_outs, batch, attrs, opt, valid):
+    """Per-view photometric loss plus the regularizers -> (loss, aux)."""
+    if opt.lambda_corr > 0.0 or opt.lambda_corr_color > 0.0:
+        raise NotImplementedError(
+            "lambda_corr / lambda_corr_color (Moran terms): ROADMAP Queue 1 "
+            "item 8")
+    loss_list, l1_list = [], []
+    mask_l, depth_l, depthl1_l = [], [], []
+    for v, out in enumerate(render_outs):
+        gt = batch["image"][v]
+        l1 = (out.color - gt).abs().mean()
+        loss = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (
+            1.0 - ssim_fn(out.color, gt))
+        if opt.lambda_mask > 0.0:
+            alpha = torch.clamp(out.alpha, 0.0, 1.0)
+            lm = (alpha.reshape(-1) - batch["mask"][v].reshape(-1)).abs().mean()
+            loss = loss + opt.lambda_mask * lm
+            mask_l.append(lm)
+        if opt.lambda_norm > 0.0:
+            ln = _masked_mean(
+                torch.linalg.vector_norm(attrs["means3d"], dim=1), valid)
+            loss = loss + opt.lambda_norm * ln
+        if opt.lambda_norm_mean > 0.0:
+            vf = valid[:, None].to(torch.float32)
+            mean_val = ((attrs["means3d"] * vf).sum(0)
+                        / torch.clamp_min(valid.sum(), 1)).detach()
+            ln = _masked_mean(torch.linalg.vector_norm(
+                attrs["means3d"] - mean_val[None], dim=1), valid)
+            loss = loss + opt.lambda_norm_mean * ln
+        if opt.lambda_depth > 0.0 or opt.lambda_depthl1 > 0.0:
+            gt_depth = batch["depth"][v]
+            dmask = (gt_depth > 0).to(torch.float32)
+        if opt.lambda_depth > 0.0:
+            ld = ssim_fn((out.depth[0] * dmask)[None],
+                         (gt_depth * dmask)[None])
+            loss = loss + opt.lambda_depth * ld
+            depth_l.append(ld)
+        if opt.lambda_depthl1 > 0.0:
+            ld = (out.depth[0] * dmask - gt_depth * dmask).abs().mean()
+            loss = loss + opt.lambda_depthl1 * ld
+            depthl1_l.append(ld)
+        loss_list.append(loss)
+        l1_list.append(l1)
+
+    loss = sum(loss_list) / len(render_outs)
+    aux = {"l1": sum(l1_list) / len(render_outs)}
+    if mask_l:
+        aux["mask"] = sum(mask_l) / len(mask_l)
+    if depth_l:
+        aux["depth"] = sum(depth_l) / len(depth_l)
+    if depthl1_l:
+        aux["depthl1"] = sum(depthl1_l) / len(depthl1_l)
+    if opt.lambda_opacity > 0.0:
+        lo = _masked_mean((attrs["opacity"] - 1.0) ** 2, valid)
+        loss = loss + opt.lambda_opacity * lo
+        aux["opacity"] = lo
+    if opt.lambda_gradient > 0.0 and "gradient_error" in attrs:
+        # once per step, after the view average (reference train.py:247-250)
+        lg = attrs["gradient_error"]
+        loss = loss + opt.lambda_gradient * lg
+        aux["gradient"] = lg
+    return loss, aux
+
+
+def _leaves(tree) -> dict:
+    """Fresh leaves that require grad, sharing the tree's storage."""
+    return {k: v.detach().requires_grad_(True)
+            for k, v in splats_lib.tree_items(tree).items()}
+
+
+def make_train_step(net, opt_cfg, pipe_cfg, width, height, num_views,
+                    field_mode: bool, n_frames: int, sh_degree: int,
+                    n_splats: int = -1, enable_gaussian_opt: bool = True):
+    """The train step for one (mode, V, sh_degree) signature:
+
+        step(splat_params, splat_stats, splat_opt, field_params, field_opt,
+             batch, splat_lrs, field_lr)
+          -> (splat_params, splat_stats, splat_opt, field_params,
+              field_opt, StepOut)
+
+    ``field_params`` is the net's ``{state_dict name: tensor}`` tree
+    (``DeformModel.params``, ``{}`` in static mode) and ``field_opt`` its
+    ``AdamState``; the net's own parameters are not read. ``batch`` holds
+    per-view ``viewmatrix`` [V,4,4], ``projmatrix``, ``campos`` [V,3],
+    ``image`` [V,3,H,W] (and ``mask``, ``depth`` for their losses) on the
+    splats' device, ``tanfovx``/``tanfovy`` [V] numbers, ``fid`` and
+    ``bg`` [3]. Inputs are not modified; every output is new."""
+    if n_frames > 0:
+        raise NotImplementedError("4-D training: ROADMAP Queue 1 item 6")
+    if field_mode and n_splats > 0:
+        raise NotImplementedError(
+            "n_splats subsampling: ROADMAP Queue 1 item 4")
+
+    def step(splat_params, splat_stats, splat_opt, field_params, field_opt,
+             batch, splat_lrs, field_lr):
+        valid = splat_stats.valid
+        sp = _leaves(splat_params)
+        fp = _leaves(field_params)
+        sp_tree = splats_lib.tree_like(splat_params, sp)
+        if field_mode:
+            attrs = field_attributes(net, sp_tree.xyz,
+                                     splats_lib.get_scaling(sp_tree), valid,
+                                     batch["fid"], n_frames, params=fp)
+        else:
+            attrs = static_attributes(sp_tree, valid)
+        n_render = splat_params.capacity
+        offsets = [torch.zeros(n_render, 2, device=valid.device,
+                               requires_grad=True) for _ in range(num_views)]
+        outs = []
+        for v in range(num_views):
+            cam = {k: batch[k][v] for k in ("viewmatrix", "projmatrix",
+                                            "campos", "tanfovx", "tanfovy")}
+            outs.append(render_view(attrs, cam, batch["bg"], width, height,
+                                    sh_degree, pipe_cfg,
+                                    screenspace_offset=offsets[v]))
+        loss, aux = compute_losses(outs, batch, attrs, opt_cfg, attrs["valid"])
+        aux["bin_dropped"] = sum(o.n_dropped for o in outs)
+
+        inputs = [*sp.values(), *fp.values(), offsets[-1]]
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(inputs, grads)]
+        g_sp = dict(zip(sp, grads[:len(sp)]))
+        g_fp = dict(zip(fp, grads[len(sp):len(sp) + len(fp)]))
+        screen_grad = grads[-1]
+
+        new_sp, new_sp_opt = splat_params, splat_opt
+        if enable_gaussian_opt:
+            new_sp, new_sp_opt = splats_lib.adam_update(
+                splat_params, splats_lib.tree_like(splat_params, g_sp),
+                splat_opt, splat_lrs)
+        new_fp, new_f_opt = field_params, field_opt
+        if field_mode:
+            new_fp, new_f_opt = splats_lib.adam_update(
+                field_params, g_fp, field_opt, field_lr)
+
+        radii = outs[-1].radii
+        new_stats = splats_lib.update_max_radii(splat_stats, radii)
+        new_stats = splats_lib.add_densification_stats(new_stats, screen_grad,
+                                                       radii)
+        out = StepOut(loss=loss.detach(), l1=aux["l1"].detach(),
+                      loss_dict={k: v.detach() for k, v in aux.items()},
+                      radii=radii, screen_grad=screen_grad,
+                      means3d=attrs["means3d"].detach())
+        return new_sp, new_stats, new_sp_opt, new_fp, new_f_opt, out
+
+    return step

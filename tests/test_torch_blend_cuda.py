@@ -1,25 +1,36 @@
-"""The CUDA blend kernel against its plain PyTorch version, on the GPU.
+"""The CUDA blend kernels, forward and backward, against their plain
+PyTorch versions, on the GPU.
 
-Needs a CUDA card (and nvcc to build the kernel); skips elsewhere. Imports
+Needs a CUDA card (and nvcc to build the kernels); skips elsewhere. Imports
 no JAX, so on the GPU machine it runs without this directory's conftest:
 
     python -m pytest --noconftest tests/test_torch_blend_cuda.py -q
 
-Tolerance: both compute each alpha with the same f32 operations (the
-kernel is built with --fmad=false); they differ in how the transmittance
-product is associated (a sequential product against a chunked cumprod),
-~1e-7 relative. A pixel whose T crosses the 1e-4 stop between the two can
-differ by one splat's weight, < 1e-4: colour and T 2e-4, depth (z up to 5)
-1e-3.
+Forward tolerance: both compute each alpha with the same f32 operations
+(the kernel is built with --fmad=false); they differ in how the
+transmittance product is associated (a sequential product against a
+chunked cumprod), ~1e-7 relative. A pixel whose T crosses the 1e-4 stop
+between the two can differ by one splat's weight, < 1e-4: colour and T
+2e-4, depth (z up to 5) 1e-3.
+
+Backward tolerance: per column, over the column's max abs, 1e-3
+(chip_smoke.TOL_BWD: sums over pixels in another order, suffix sums as
+total minus prefix, and the same stop-crossing pixels).
 """
+import numpy as np
 import pytest
 import torch
 
-from chip_smoke import synthetic_pack
-from splatfields_torch.ops.raster.blend_cuda import blend_fwd
-from splatfields_torch.ops.raster.blend_torch import blend_sorted_plain
+from chip_smoke import TOL_BWD, column_errs, synthetic_pack
+from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+from splatfields_torch.ops.raster.blend_torch import (
+    blend_bwd_plain,
+    blend_sorted_plain,
+)
 
 TS = 16
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -57,3 +68,57 @@ def test_kernel_matches_plain(cuda, case):
     if case == "tile_cap_overflow":
         # no pixel stops early, so the cap decides what is blended
         assert float(got[2].min()) > 1e-4
+
+
+def _upstream(out, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.as_tensor(rng.rand(*o.shape).astype(np.float32),
+                            device=o.device) for o in out]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_kernel_matches_plain(cuda, case):
+    rows, opacity, tile_cap = CASES[case]
+    (pack, tile_start, counts), tiles_x, tiles_y = synthetic_pack(
+        cuda, rows, opacity, tiles_x=4, tiles_y=3)
+    tile_ids = torch.arange(tiles_x * tiles_y, device=cuda,
+                            dtype=torch.int32)
+    out = blend_fwd(pack, tile_start, counts, tiles_x, tiles_y, TS, tile_cap,
+                    128)
+    args = (pack, tile_start, counts, tile_ids, *_upstream(out, rows), *out)
+    before = blend_bwd.launches
+    got = blend_bwd(*args, tiles_x, TS, tile_cap)
+    torch.cuda.synchronize()
+    assert blend_bwd.launches == before + 1
+    want = blend_bwd_plain(*args, tiles_x, TS, tile_cap, 128)
+    assert got.shape == want.shape == pack.shape
+    errs, _ = column_errs(got, want)
+    assert float(errs.max()) <= TOL_BWD, errs
+    # rows past the cap are never reached, so they stay zero
+    if case == "tile_cap_overflow":
+        past = torch.cat([torch.arange(s + tile_cap, s + rows, device=cuda)
+                          for s in tile_start[:-1].tolist()])
+        assert not bool(got[past].any())
+
+
+def test_autograd_launches_backward_once(cuda):
+    """``blend_fwd``'s autograd function on CUDA tensors: one backward
+    kernel launch per backward(), and its gradient is the plain VJP's."""
+    (pack, tile_start, counts), tiles_x, tiles_y = synthetic_pack(
+        cuda, 300, 0.3, tiles_x=4, tiles_y=3)
+    pack = pack.requires_grad_(True)
+    out = blend_fwd(pack, tile_start, counts, tiles_x, tiles_y, TS, 1024, 128)
+    gs = _upstream(out, 7)
+    # the image path hands in a strided colour gradient
+    gs[0] = gs[0].transpose(1, 2).contiguous().transpose(1, 2)
+    loss = sum((o * g).sum() for o, g in zip(out, gs))
+    before = blend_bwd.launches
+    (grad,) = torch.autograd.grad(loss, pack)
+    torch.cuda.synchronize()
+    assert blend_bwd.launches == before + 1
+    tile_ids = torch.arange(tiles_x * tiles_y, device=cuda,
+                            dtype=torch.int32)
+    want = blend_bwd_plain(pack.detach(), tile_start, counts, tile_ids, *gs,
+                           *[o.detach() for o in out], tiles_x, TS, 1024, 128)
+    errs, _ = column_errs(grad, want)
+    assert float(errs.max()) <= TOL_BWD, errs

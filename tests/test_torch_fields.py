@@ -18,7 +18,7 @@ from splatfields_tpu import config as jax_config
 from splatfields_tpu.models import splats as jax_splats
 from splatfields_tpu.models.deform_model import DeformModel as JaxDeformModel
 from splatfields_torch import config
-from splatfields_torch.interop import load_flax_variables
+from splatfields_torch.interop import flax_to_state_dict, load_flax_variables
 from splatfields_torch.models import splats
 from splatfields_torch.models.deform_model import DeformModel
 
@@ -123,3 +123,53 @@ def test_create_from_pcd_matches_jax():
                                    rtol=1e-5, atol=1e-5, err_msg=name)
     np.testing.assert_array_equal(stats.valid.numpy(),
                                   np.asarray(want_stats.valid))
+
+
+def test_param_grads_match_jax(models):
+    """Every parameter's gradient of one scalar loss over all heads (a
+    fixed random weighting of the outputs, planes generated inside the
+    call as the train step does) against ``jax.grad``. The weights are
+    the init plus noise, so that the zero-initialised layers (each
+    resnet's conv2, the attention's output) pass gradients on. Per leaf,
+    over the leaf's largest gradient: 1e-4 (the backward sums over 256
+    points and the CNN's pixels in another order). Some biases have a zero
+    gradient up to rounding in both packages: a conv bias before a
+    GroupNorm of one channel per group is subtracted again, and the
+    attention's key bias adds one logit to every key of a query, which
+    the softmax ignores. So a bias is held against the larger of its own
+    and its layer's weight gradient."""
+    ref, _, tree = models
+    rng = np.random.RandomState(4)
+    params = jax.tree.map(
+        lambda a: (a + 0.05 * rng.randn(*a.shape)).astype(np.float32),
+        tree["params"])
+    variables = dict(ref.variables, params=jax.tree.map(jnp.asarray, params))
+    port = DeformModel(config.HiddenConfig(
+        encoder_type="VarTriPlaneEncoder", composition_rank=0,
+        encoder_args=ENC), radius=1.0, device="cpu")
+    load_flax_variables(port.net, dict(tree, params=params))
+    x = _points(3)
+    keys = ("means3D", "scales", "opacity", "rotations", "rgb")
+    with torch.no_grad():
+        dims = {k: v.shape[1] for k, v in port.net(torch.as_tensor(x)).items()
+                if k in keys}
+    w = {k: rng.randn(N, d).astype(np.float32) for k, d in dims.items()}
+
+    def jax_loss(p):
+        out = ref.net.apply(dict(variables, params=p), jnp.asarray(x))
+        return sum(jnp.sum(out[k] * w[k]) for k in keys)
+
+    want = flax_to_state_dict(jax.tree.map(
+        np.asarray, jax.jit(jax.grad(jax_loss))(variables["params"])))
+    names, leaves = zip(*port.net.named_parameters())
+    out = port.net(torch.as_tensor(x))
+    loss = sum((out[k] * torch.as_tensor(w[k])).sum() for k in keys)
+    got = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    assert set(got) == set(want)
+    for k, g in want.items():
+        scale = float(g.abs().max())
+        if k.endswith(".bias"):
+            scale = max(scale, float(want[k[:-4] + "weight"].abs().max()))
+        assert scale > 0, k
+        np.testing.assert_allclose(got[k].numpy() / scale, g.numpy() / scale,
+                                   rtol=0, atol=1e-4, err_msg=k)

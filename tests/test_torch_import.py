@@ -12,9 +12,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "splatfields_tpu")
 
 
+MODULES = ("splatfields_torch", "splatfields_torch.render_lib",
+           "splatfields_torch.train_lib", "splatfields_torch.interop",
+           "splatfields_torch.config", "splatfields_torch.ops.ssim",
+           "splatfields_torch.utils.schedules",
+           "splatfields_torch.models.deform_model",
+           "splatfields_torch.ops.raster.blend_cuda", "chip_smoke")
+
+
 def test_import_pulls_in_no_jax():
-    code = ("import sys, splatfields_torch, splatfields_torch.render_lib, "
-            "splatfields_torch.interop; "
+    code = (f"import sys, {', '.join(MODULES)}; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
