@@ -4,9 +4,10 @@
 
 Phases, each raising on failure:
 
-1. Device: the card's name and power limit; build the blend kernels
-   (forward and backward) from ``splatfields_torch/csrc`` with nvcc
-   (sm_90a), one nvcc per source, started together.
+1. Device: the card's name and power limit; build the three kernels
+   (blend forward and backward, segment sum) from
+   ``splatfields_torch/csrc`` with nvcc (sm_90a), one nvcc per source,
+   started together.
 2. Kernel vs plain on the card: the serving scene at full width (100,000
    splats from ``create_from_pcd``, VarTriPlane field model from seed 0,
    800x800, tile 16, tile_cap 1024, k_chunk 128, dup_factor 5); the
@@ -33,6 +34,18 @@ Phases, each raising on failure:
 7. One small training step on the card (kernels) and on the CPU (plain
    versions) from the same weights, splats, Adam states and batch must
    agree.
+8. Segment-sum kernel vs plain on the card: the sorted hash-table ids and
+   gradient rows of one full-width NGP training step (captured from phase
+   9's configuration), plus a hot-row, an out-of-range-id and an
+   empty-rows case; two launches must be bitwise equal.
+9. The NGP training slice at full width (``bench.py --variant ngp``: the
+   same splats, loss and learning rates as phase 6 with the NGPMLP field,
+   16 levels of 2^20 rows): warm-up steps, then timed steps; finite
+   losses, the table moved, each of the three kernels launched once per
+   step; ms/step, rays/s, the segment-sum kernel's, the plain version's
+   and ``index_add_``'s ms and the kernel's bound.
+10. One small NGP training step on the card (kernels) and on the CPU
+    (plain versions) must agree as in phase 7.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -78,6 +91,16 @@ TIGHT_BWD = 1e-5   # rows past this are counted and printed
 SPLAT_LRS = (1.6e-4, 2.5e-3, 0.05, 1e-3, 1e-3)
 FIELD_LR = 1e-3
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# bench.py --variant ngp: HiddenConfig(encoder_type="NGPMLP",
+# composition_rank=0, n_frames=0), so 16 levels of 2^20 rows; phase 10's
+# small net keeps 16 levels at 2^14 rows (levels 0-1 dense, the rest hashed)
+NGP_HIDDEN = dict(encoder_type="NGPMLP", composition_rank=0, n_frames=0)
+NGP_SMALL = dict(log2_hashmap_size=14)
+# segment-sum kernel vs plain, max abs error over the column's max abs:
+# the kernel sums each row in slot order, the plain version's index_add_
+# with atomics in another order (one row of the NGP step takes up to a few
+# hundred terms; the hot case 2,048)
+TOL_SEGSUM = 1e-5
 
 
 @dataclasses.dataclass
@@ -205,6 +228,80 @@ def check_bwd(label, got, want):
         raise AssertionError(f"{label}: column-normalised err "
                              f"{float(errs.max())} > {TOL_BWD}")
     return abs_err
+
+
+def segsum_case(kind, device, d=2, seed=0):
+    """Sorted int32 ids, f32 rows [M, d] and n_rows for a segment-sum
+    check: "random" (2^17 ids over 2^16 rows), "hot" (one row takes 2,048
+    slots amid 20,000 random ones), "out_of_range" (ids from -1,000 to
+    n_rows + 1,000) or "empty" (50 ids over 2^20 rows). The rows are
+    standard normal, the hot case's uniform in [0, 1): a sum of 2,048
+    terms of mixed sign is ill-conditioned, and two summation orders then
+    differ by ~1e-5 of the column's max, whatever the kernel does."""
+    import torch
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        n_rows = 1 << 16
+        ids = rng.randint(0, n_rows, 1 << 17)
+    elif kind == "hot":
+        n_rows = 4096
+        ids = np.concatenate([rng.randint(0, n_rows, 20_000),
+                              np.full(2048, 1234)])
+    elif kind == "out_of_range":
+        n_rows = 5000
+        ids = rng.randint(-1000, n_rows + 1000, 30_000)
+    elif kind == "empty":
+        n_rows = 1 << 20
+        ids = rng.randint(0, n_rows, 50)
+    else:
+        raise ValueError(kind)
+    ids = np.sort(ids).astype(np.int32)
+    vals = (rng.rand(ids.size, d) if kind == "hot"
+            else rng.randn(ids.size, d)).astype(np.float32)
+    return (torch.as_tensor(ids, device=device),
+            torch.as_tensor(vals, device=device), n_rows)
+
+
+def segsum_err(got, want):
+    """The worst column's max abs error over that column's max abs."""
+    scale = want.abs().amax(dim=0).clamp_min(1e-30)
+    return float(((got - want).abs().amax(dim=0) / scale).max())
+
+
+def check_segsum(label, sidx, vals, n_rows):
+    """The kernel twice (bitwise equal) against the plain version; returns
+    the max abs error."""
+    import torch
+
+    from splatfields_torch.ops.segsum import (
+        sorted_segment_sum,
+        sorted_segment_sum_plain,
+    )
+    got = sorted_segment_sum(sidx, vals, n_rows)
+    again = sorted_segment_sum(sidx, vals, n_rows)
+    want = sorted_segment_sum_plain(sidx, vals, n_rows)
+    torch.cuda.synchronize()
+    err = segsum_err(got, want)
+    abs_err = float((got - want).abs().max())
+    print(f"segment sum, {label}: {sidx.shape[0]} slots, {n_rows} rows, "
+          f"D {vals.shape[1]}; max abs err {abs_err:.3e}, worst column over "
+          f"its max {err:.3e}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"segment sum, {label}: two launches differ")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"segment sum, {label}: non-finite output")
+    if not err <= TOL_SEGSUM:
+        raise AssertionError(f"segment sum, {label}: err {err} > "
+                             f"{TOL_SEGSUM}")
+    return abs_err
+
+
+def ngp_model(device=None, **small):
+    """bench.py --variant ngp's field model (seed 0), or a smaller one."""
+    from splatfields_torch import config
+    from splatfields_torch.models.deform_model import DeformModel
+    return DeformModel(config.HiddenConfig(**{**NGP_HIDDEN, **small}),
+                       radius=1.0, seed=0, device=device)
 
 
 def train_batch(cam, rng, device):
@@ -408,6 +505,135 @@ def train_phases(sc, dev, smi):
     }
 
 
+def ngp_phases(sc, dev, smi):
+    """Phases 8-10; returns the segment-sum kernel's entry of the kernels
+    line."""
+    import torch
+
+    from splatfields_torch.models import encoders, splats
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.ops.segsum import (
+        sorted_segment_sum,
+        sorted_segment_sum_plain,
+    )
+
+    deform = ngp_model(dev)
+    step = train_step_fn(deform, sc.pipe, RES)
+    lrs = splats.splat_lr_tree(*SPLAT_LRS)
+    rng = np.random.RandomState(0)
+    cams = make_views(TRAIN_WARMUP + TRAIN_STEPS + 1, RES)
+    batches = [train_batch(c, rng, dev) for c in cams]
+
+    # --- 8. segment-sum kernel vs plain ------------------------------------
+    captured = []
+
+    def spy(sidx, vals, n_rows):
+        captured.append((sidx.detach(), vals.detach(), n_rows))
+        return sorted_segment_sum(sidx, vals, n_rows)
+
+    encoders.sorted_segment_sum = spy
+    try:
+        step(sc.params, sc.stats, splats.adam_init(sc.params), deform.params,
+             deform.opt_state, batches[-1], lrs, FIELD_LR)
+    finally:
+        encoders.sorted_segment_sum = sorted_segment_sum
+    (cap,) = captured
+    sidx, vals, n_rows = cap
+    table = deform.params["encoder.encoding.table"]
+    if (n_rows != table.shape[0] * table.shape[1]
+            or tuple(vals.shape) != (sidx.shape[0], table.shape[2])):
+        raise AssertionError(f"captured segment sum: {tuple(sidx.shape)}, "
+                             f"{tuple(vals.shape)}, {n_rows} rows")
+    seg_err = check_segsum("NGP training step", *cap)
+    if not float(vals.abs().max()) > 0:
+        raise AssertionError("the NGP step's table gradient rows are zero")
+    for kind in ("hot", "out_of_range", "empty"):
+        check_segsum(kind, *segsum_case(kind, dev))
+
+    # --- 9. the NGP training slice at full width ---------------------------
+    sp, st = sc.params, sc.stats
+    sopt, fp, fopt = splats.adam_init(sp), deform.params, deform.opt_state
+    table0 = fp["encoder.encoding.table"].clone()
+    losses = []
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = sorted_segment_sum.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for i, b in enumerate(batches[:TRAIN_WARMUP + TRAIN_STEPS]):
+        if i == TRAIN_WARMUP:
+            start.record()
+        sp, st, sopt, fp, fopt, out = step(sp, st, sopt, fp, fopt, b, lrs,
+                                           FIELD_LR)
+        losses.append(out.loss)
+    end.record()
+    torch.cuda.synchronize()
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    launches = (blend_fwd.launches, blend_bwd.launches,
+                sorted_segment_sum.launches)
+    if launches != (steps,) * 3:
+        raise AssertionError(f"{steps} NGP steps launched blend_fwd, "
+                             f"blend_bwd and sorted_segment_sum {launches} "
+                             "times")
+    losses = torch.stack(losses)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite NGP loss: {losses.tolist()}")
+    moved = float((fp["encoder.encoding.table"] - table0).abs().max())
+    if not moved > 0:
+        raise AssertionError("the hash table did not move")
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    print("NGP training losses:", [round(x, 6) for x in losses.tolist()])
+    print(f"NGP table moved by up to {moved:.3e}; splats seen: "
+          f"{int((st.denom > 0).sum())}; bin_dropped last step "
+          f"{int(out.loss_dict['bin_dropped'])}")
+    print(f"NGP train ms/step {step_ms:.4f}; rays/s "
+          f"{RES * RES / step_ms * 1e3:.1f} ({RES}x{RES}, {N_SPLATS} splats, "
+          f"table {tuple(table0.shape)}, 1 view, {TRAIN_STEPS} steps after "
+          f"{TRAIN_WARMUP} warm-up; blend_fwd, blend_bwd, sorted_segment_sum "
+          f"launches {launches} for {steps} steps; {smi})")
+
+    d = vals.shape[1]
+    kernel_ms = cuda_ms(lambda: sorted_segment_sum(*cap), 20)
+    plain_ms = cuda_ms(lambda: sorted_segment_sum_plain(*cap), 5)
+    library_ms = cuda_ms(lambda: torch.zeros(n_rows, d, device=dev).index_add_(
+        0, sidx, vals), 5)
+    # ids and rows read once, every output row written once; one add a value
+    bytes_moved = sidx.numel() * 4 + vals.numel() * 4 + n_rows * d * 4
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = vals.numel() / F32_FLOPS * 1e3
+    print(f"sorted_segment_sum: kernel {kernel_ms:.5f} ms (with its bounds' "
+          f"searchsorted), plain {plain_ms:.5f} ms, index_add_ "
+          f"{library_ms:.5f} ms; {sidx.numel()} slots, {n_rows} rows, D {d}; "
+          f"{bytes_moved} bytes, bytes bound {bytes_ms:.5f} ms, ops bound "
+          f"{ops_ms:.7f} ms")
+
+    # --- 10. small NGP step: kernels on the card vs plain on the CPU --------
+    cam = make_views(2, 64)[1]
+    res = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        p_, s_ = splats.create_from_pcd(sc.pts[:2000], sc.cols[:2000], 0,
+                                        device=device)
+        d_ = ngp_model(device, **NGP_SMALL)
+        res[name] = train_step_fn(d_, sc.pipe, 64)(
+            p_, s_, nonzero_adam(p_, 1), d_.params, nonzero_adam(d_.params, 2),
+            train_batch(cam, np.random.RandomState(1), device), lrs,
+            FIELD_LR)
+    check_small_step(res["cuda"], res["cpu"])
+
+    return {
+        "name": "sorted_segment_sum",
+        "route": "cuda",
+        "source": "splatfields_torch/csrc/segsum.cu",
+        "replaces": "splatfields_tpu/ops/segsum_pallas.py:110",
+        "launches": launches[2],
+        "max_abs_err": seg_err,
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
 def check_small_step(card, cpu):
     """Phase 7's comparison. The card's convolutions and matmuls run in
     f32 (TF32 off) but sum in another order: the loss agrees to ~1e-6
@@ -576,6 +802,8 @@ def main() -> int:
 
     # --- 5-7. the training slice -------------------------------------------
     bwd_entry = train_phases(sc, dev, smi)
+    # --- 8-10. the NGP training slice ----------------------------------------
+    segsum_entry = ngp_phases(sc, dev, smi)
 
     kernels = [{
         "name": "blend_fwd",
@@ -590,7 +818,7 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None,
-    }, bwd_entry]
+    }, bwd_entry, segsum_entry]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,18 +3,24 @@ the PyTorch port on a GPU.
 
     python3 scripts/profile_render_torch.py           # serving frames
     python3 scripts/profile_render_torch.py --train   # training steps
+    python3 scripts/profile_render_torch.py --train --variant ngp
 
 Serving: chip_smoke.py's serving scene (100,000 splats, VarTriPlane field,
 800x800, 8 orbit frames). Training: chip_smoke.py's phase-6 step on the
 same scene (one view per step, bench.py's loss and learning rates), 8
-steps. Prints:
+steps. ``--variant ngp`` swaps in bench.py --variant ngp's NGPMLP field
+(chip_smoke.py phase 9). Prints:
 
 1. per stage, the stream time between CUDA events placed at the stage
    boundaries, summed over the frames or steps (it includes any time the
    GPU waits for the host inside the stage). Serving stages follow
    ``render_camera``; training stages follow ``make_train_step``: field
    forward, render forward, loss, render + loss backward (with the blend
-   backward kernel), field backward, the two Adam updates and the stats;
+   backward kernel), field backward, the two Adam updates and the stats.
+   With ``--variant ngp`` the field forward splits into the hash encode
+   and the rest (NGP MLP, refiners, heads), and the field backward into
+   the table VJP's sort + payload gather, the segment-sum kernel and the
+   rest;
 2. the wall time without the profiler, and from ``torch.profiler`` the
    device-side events (kernels, copies) by self time; their sum over that
    wall time gives the GPU's idle share.
@@ -23,6 +29,8 @@ Needs a CUDA card; exits 1 without one.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -32,7 +40,7 @@ import time
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 
-def staged_frame(cam, sc, mark):
+def staged_frame(cam, sc, deform, mark):
     """render_camera's field-mode path, with ``mark(name)`` after each
     stage (same calls as render_lib.render_camera and api.rasterize)."""
     import numpy as np
@@ -53,7 +61,7 @@ def staged_frame(cam, sc, mark):
     w = h = cam.image_width
     mark("start")
     attrs = train_lib.field_attributes(
-        sc.deform.net, sc.params.xyz, splats_lib.get_scaling(sc.params),
+        deform.net, sc.params.xyz, splats_lib.get_scaling(sc.params),
         sc.stats.valid, 0.0, 0)
     mark("field")
     pre = preprocess(
@@ -84,7 +92,35 @@ def staged_frame(cam, sc, mark):
     mark("compose")
 
 
-def staged_train_step(sc, state, batch, lrs, field_lr, mark):
+@contextlib.contextmanager
+def ngp_marks(deform, mark):
+    """Marks inside the NGP field: after the hash encode's forward, and
+    around the table VJP's sort + payload gather and its segment sum."""
+    from splatfields_torch.models import encoders
+    sort_rows, segsum = encoders._sort_rows, encoders.sorted_segment_sum
+
+    def sort_spy(*args):
+        mark("field_bwd_rest")
+        out = sort_rows(*args)
+        mark("table_sort_gather")
+        return out
+
+    def segsum_spy(*args):
+        out = segsum(*args)
+        mark("segsum_kernel")
+        return out
+
+    handle = deform.net.encoder.encoding.register_forward_hook(
+        lambda *_: mark("hash_encode_fwd"))
+    encoders._sort_rows, encoders.sorted_segment_sum = sort_spy, segsum_spy
+    try:
+        yield
+    finally:
+        handle.remove()
+        encoders._sort_rows, encoders.sorted_segment_sum = sort_rows, segsum
+
+
+def staged_train_step(sc, deform, ngp, state, batch, lrs, field_lr, mark):
     """make_train_step's field-mode body for one view (same calls), with
     ``mark(name)`` after each stage. The backward is one call, as in the
     step; hooks on the field's outputs record when their gradients are
@@ -98,9 +134,9 @@ def staged_train_step(sc, state, batch, lrs, field_lr, mark):
     mark("start")
     fp_l = {k: v.detach().requires_grad_(True) for k, v in fp.items()}
     attrs = train_lib.field_attributes(
-        sc.deform.net, sp.xyz, splats_lib.get_scaling(sp), st.valid, 0.0, 0,
+        deform.net, sp.xyz, splats_lib.get_scaling(sp), st.valid, 0.0, 0,
         params=fp_l)
-    mark("field_fwd")
+    mark("heads" if ngp else "field_fwd")
     offset = torch.zeros(sp.capacity, 2, device=sp.xyz.device,
                          requires_grad=True)
     cam = {k: batch[k][0] for k in ("viewmatrix", "projmatrix", "campos",
@@ -112,19 +148,11 @@ def staged_train_step(sc, state, batch, lrs, field_lr, mark):
     opt = config.OptimizationConfig(lambda_mask=0.0, lambda_norm=0.01)
     loss, _ = train_lib.compute_losses([out], batch, attrs, opt, st.valid)
     mark("loss_fwd")
-    reached = []
-
-    def hook(grad):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        reached.append(ev)
-
     for k in ("means3d", "opacity", "scales", "rotations", "rgb"):
-        attrs[k].register_hook(hook)
+        attrs[k].register_hook(lambda _: mark("render_loss_bwd"))
     *g_fp, g_off = torch.autograd.grad(loss, list(fp_l.values()) + [offset],
                                        allow_unused=True)
-    mark("render_loss_bwd", reached[-1])
-    mark("field_bwd")
+    mark("field_bwd_rest" if ngp else "field_bwd")
     g_fp = {k: torch.zeros_like(v) if g is None else g
             for (k, v), g in zip(fp_l.items(), g_fp)}
     sp, sopt = splats_lib.adam_update(
@@ -136,7 +164,7 @@ def staged_train_step(sc, state, batch, lrs, field_lr, mark):
     return sp, st, sopt, fp, fopt
 
 
-def profile_train(sc) -> None:
+def profile_train(sc, deform, ngp: bool) -> None:
     import numpy as np
     import torch
 
@@ -149,13 +177,13 @@ def profile_train(sc) -> None:
         train_step_fn,
     )
     from splatfields_torch.models import splats as splats_lib
-    step = train_step_fn(sc.deform, sc.pipe, RES)
+    step = train_step_fn(deform, sc.pipe, RES)
     lrs = splats_lib.splat_lr_tree(*SPLAT_LRS)
     rng = np.random.RandomState(0)
     batches = [train_batch(c, rng, sc.params.xyz.device)
                for c in make_views(10, RES)]
     state = (sc.params, sc.stats, splats_lib.adam_init(sc.params),
-             sc.deform.params, sc.deform.opt_state)
+             deform.params, deform.opt_state)
 
     def run(bs, state):
         for b in bs:
@@ -169,13 +197,14 @@ def profile_train(sc) -> None:
     for b in batches[2:]:
         events = []
 
-        def mark(name, ev=None, events=events):
-            if ev is None:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
+        def mark(name, events=events):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
             events.append((name, ev))
 
-        state = staged_train_step(sc, state, b, lrs, FIELD_LR, mark)
+        with ngp_marks(deform, mark) if ngp else contextlib.nullcontext():
+            state = staged_train_step(sc, deform, ngp, state, b, lrs,
+                                      FIELD_LR, mark)
         torch.cuda.synchronize()
         for (_, a), (name, e) in zip(events, events[1:]):
             stage_ms[name] = stage_ms.get(name, 0.0) + a.elapsed_time(e)
@@ -222,20 +251,28 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    from chip_smoke import serving_scene
+    from chip_smoke import ngp_model, serving_scene
     from splatfields_torch.render_lib import render_camera
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile training steps instead of served frames")
+    ap.add_argument("--variant", choices=("field", "ngp"), default="field",
+                    help="the field model: VarTriPlane (bench.py's default) "
+                         "or NGPMLP (bench.py --variant ngp)")
+    args = ap.parse_args()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip())
     sc = serving_scene()
-    if "--train" in sys.argv[1:]:
-        profile_train(sc)
+    deform = ngp_model() if args.variant == "ngp" else sc.deform
+    if args.train:
+        profile_train(sc, deform, args.variant == "ngp")
         return 0
     with torch.no_grad():
         for cam in sc.cams[:2]:
-            render_camera(cam, sc.params, sc.stats, sc.deform, sc.pipe, sc.bg)
+            render_camera(cam, sc.params, sc.stats, deform, sc.pipe, sc.bg)
         torch.cuda.synchronize()
 
         # 1. stages
@@ -248,7 +285,7 @@ def main() -> int:
                 ev.record()
                 events.append((name, ev))
 
-            staged_frame(cam, sc, mark)
+            staged_frame(cam, sc, deform, mark)
             torch.cuda.synchronize()
             for (_, a), (name, b) in zip(events, events[1:]):
                 stage_ms[name] = stage_ms.get(name, 0.0) + a.elapsed_time(b)
@@ -261,14 +298,14 @@ def main() -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for cam in sc.cams:
-            render_camera(cam, sc.params, sc.stats, sc.deform, sc.pipe, sc.bg)
+            render_camera(cam, sc.params, sc.stats, deform, sc.pipe, sc.bg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             for cam in sc.cams:
-                render_camera(cam, sc.params, sc.stats, sc.deform, sc.pipe,
+                render_camera(cam, sc.params, sc.stats, deform, sc.pipe,
                               sc.bg)
             torch.cuda.synchronize()
     report(prof, wall_ms, n, "frames")

@@ -41,7 +41,7 @@
 // not by memory; the per-row shuffle trees are the part a faster version
 // would cut first.
 //
-// Build (as blend_cuda.py does it):
+// Build (as ops/cuda_build.py does it):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
 //        -shared -Xcompiler -fPIC -o libblend_bwd.so blend_bwd.cu
 // --fmad=false rounds every product on its own, as PyTorch's elementwise

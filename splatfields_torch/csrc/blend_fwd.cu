@@ -30,7 +30,7 @@
 // ellipse misses the pixel before the expf) or the work of idle threads of
 // pixels already done.
 //
-// Build (as blend_cuda.py does it):
+// Build (as ops/cuda_build.py does it):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
 //        -shared -Xcompiler -fPIC -o libblend_fwd.so blend_fwd.cu
 // --fmad=false keeps every product rounded on its own, as PyTorch's

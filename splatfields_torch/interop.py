@@ -8,7 +8,8 @@ leaf; only the layouts differ:
   -> ``weight`` [out, in];
 - conv ``kernel`` HWIO -> ``weight`` OIHW;
 - GroupNorm ``scale`` -> ``weight``;
-- the frozen noise buffers NHWC -> NCHW.
+- the frozen noise buffers NHWC -> NCHW;
+- the NGP hash ``table`` [L, T, F] keeps its layout.
 
 Loading is strict: a key the module lacks, a module key the tree lacks,
 or a shape mismatch raises. Gradients and Adam moments, which have the
@@ -52,7 +53,7 @@ def _convert(path: tuple, value: np.ndarray, collection: str):
         leaf = "weight"
     elif leaf == "scale":
         leaf = "weight"
-    elif leaf != "bias":
+    elif leaf not in ("bias", "table"):
         raise KeyError(f"unknown parameter {'/'.join(path)}")
     return ".".join((*mods, leaf)), value
 

@@ -16,18 +16,20 @@ from splatfields_torch.utils.schedules import expon_lr_func
 SPATIAL_LR_SCALE = 5.0
 
 
-def build_splatfields(hidden_cfg, *,
+def build_splatfields(hidden_cfg, radius: float | None = None, *,
                       generator: torch.Generator) -> SplatFields:
-    """The net from a HiddenConfig (flag surface -> module arguments)."""
+    """The net from a HiddenConfig (flag surface -> module arguments);
+    ``radius`` is the scene radius the NGP encoder normalises by."""
     h = hidden_cfg
     return SplatFields(
-        n_frames=h.n_frames, encoder_type=h.encoder_type,
+        n_frames=h.n_frames, radius=radius, encoder_type=h.encoder_type,
         encoder_args=dict(h.encoder_args or {}),
         layer_strategy=h.layer_strategy,
         composition_rank=h.composition_rank, deform_weight=h.deform_weight,
         use_view_dep_rgb=h.use_view_dep_rgb,
         geo_model_disable_pts=h.geo_model_disable_pts, rgb_w=h.rgb_w,
-        generator=generator)
+        contract_ngp=h.contract_ngp, log2_hashmap_size=h.log2_hashmap_size,
+        n_levels=h.n_levels, generator=generator)
 
 
 class DeformModel:
@@ -36,13 +38,12 @@ class DeformModel:
     The weights are drawn on the CPU from a ``torch.Generator`` and then
     moved, so one seed gives the same net on every device. ``device=None``
     means the GPU. ``radius`` (the scene radius) is read only by the NGP
-    encoder of the JAX package, which is not ported yet."""
+    encoder."""
 
     def __init__(self, hidden_cfg, radius=None, seed: int = 0, device=None):
-        del radius
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
-        self.net = build_splatfields(hidden_cfg, generator=gen)
+        self.net = build_splatfields(hidden_cfg, radius, generator=gen)
         self.net = self.net.to(self.device).eval()
         self.n_frames = hidden_cfg.n_frames
         self.opt_state = splats_lib.adam_init(self.params)

@@ -1,17 +1,17 @@
 """The SplatFields network, static path (counterpart of
 ``splatfields_tpu/models/splatfields.py``).
 
-Given N points: encoder features (VarTriPlane) refined by two Linear
-layers with a ReLU between; ``mlp_deform`` offsets the points
-(``xyz_can = xyz + deform_weight * delta``); ``mlp_scale`` /
-``mlp_opacity`` (sigmoid) / ``mlp_rotation`` (normalize) / ``mlp_rgb``
-(sigmoid) read (xyz_can, features), sharing one positional embedding of
-xyz_can at the largest multires.
+Given N points: encoder features (VarTriPlane, or the NGP hash grid +
+MLP) refined by two Linear layers with a ReLU between; ``mlp_deform``
+offsets the points (``xyz_can = xyz + deform_weight * delta``);
+``mlp_scale`` / ``mlp_opacity`` (sigmoid) / ``mlp_rotation`` (normalize) /
+``mlp_rgb`` (sigmoid) read (xyz_can, features), sharing one positional
+embedding of xyz_can at the largest multires.
 
 Not ported yet, each raising NotImplementedError: 4-D fields
 (``n_frames > 0``, flow head, ResField ranks; ROADMAP Queue 1 item 6),
-the view-dependent colour head and ``geo_model_disable_pts``, and every
-encoder but VarTriPlane (items 6-7).
+the view-dependent colour head and ``geo_model_disable_pts``, and the
+encoders other than VarTriPlane and NGPMLP (item 6).
 """
 from __future__ import annotations
 
@@ -21,17 +21,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from splatfields_torch.models.encoders import VarTriPlaneEncoder
+from splatfields_torch.models.encoders import NGPMLP, VarTriPlaneEncoder
 from splatfields_torch.models.initializers import torch_linear_
 from splatfields_torch.models.mlp import GeneralMLP, positional_embed
 
 # encoders of the JAX package; any other encoder_type means no encoder
 _JAX_ENCODERS = ("VarTriPlaneEncoder", "VarHexPlaneEncoder", "TriPlaneEncoder",
                  "HexPlaneEncoder", "GridEncoder", "NGPMLP")
+_PORTED_ENCODERS = ("VarTriPlaneEncoder", "NGPMLP")
 
 
 class SplatFields(nn.Module):
-    def __init__(self, n_frames: int = 0,
+    def __init__(self, n_frames: int = 0, radius: float | None = None,
                  encoder_type: str = "", encoder_args: Any = None,
                  layer_strategy: str = "none", composition_rank: int = 0,
                  deform_weight: float = 1.0, use_view_dep_rgb: bool = False,
@@ -45,8 +46,9 @@ class SplatFields(nn.Module):
                  opacity_w: int = 64, opacity_d: int = 4, opacity_skips=(2,),
                  opacity_multires: int = 3,
                  rotation_w: int = 64, rotation_d: int = 3,
-                 rotation_skips=(20,), rotation_multires: int = 3, *,
-                 generator: torch.Generator):
+                 rotation_skips=(20,), rotation_multires: int = 3,
+                 contract_ngp: bool = False, log2_hashmap_size: int = 20,
+                 n_levels: int = 16, *, generator: torch.Generator):
         super().__init__()
         if n_frames > 0:
             raise NotImplementedError(
@@ -60,18 +62,26 @@ class SplatFields(nn.Module):
         if geo_model_disable_pts:
             raise NotImplementedError(
                 "geo_model_disable_pts: ROADMAP pending items")
-        if encoder_type in _JAX_ENCODERS and encoder_type != "VarTriPlaneEncoder":
+        if (encoder_type in _JAX_ENCODERS
+                and encoder_type not in _PORTED_ENCODERS):
             raise NotImplementedError(
-                f"encoder {encoder_type}: ROADMAP Queue 1 items 6-7")
+                f"encoder {encoder_type}: ROADMAP Queue 1 item 6")
         gen = generator
         self.deform_weight = deform_weight
         self.max_multires = max(rgb_multires, scale_multires,
                                 opacity_multires, rotation_multires)
+        args = dict(encoder_args or {})
         if encoder_type == "VarTriPlaneEncoder":
-            args = dict(encoder_args or {})
             args.setdefault("n_frames", n_frames)
             args.setdefault("strategy", layer_strategy)
             self.encoder = VarTriPlaneEncoder(**args, generator=gen)
+        elif encoder_type == "NGPMLP":
+            args.setdefault("radius", radius or 1.0)
+            args.setdefault("contract", contract_ngp)
+            args.setdefault("log2_hashmap_size", log2_hashmap_size)
+            args.setdefault("n_levels", n_levels)
+            self.encoder = NGPMLP(**args, generator=gen)
+        if encoder_type in _PORTED_ENCODERS:
             self.feat_dim = self.encoder.out_dim
             self.refine0 = nn.Linear(self.feat_dim, self.feat_dim)
             self.refine1 = nn.Linear(self.feat_dim, self.feat_dim)
@@ -102,13 +112,15 @@ class SplatFields(nn.Module):
                                  rotation_multires, "normalize")
 
     def generate_planes(self) -> torch.Tensor:
-        """The N-independent plane CNNs only."""
+        """The N-independent plane CNNs only (VarTriPlane)."""
         return self.encoder.planes()
 
     def extract_features(self, x: torch.Tensor, planes=None):
         if self.encoder is None:
             return None
-        feat = self.encoder(x, planes=planes)
+        # only the VarTriPlane encoder takes planes
+        feat = self.encoder(x) if planes is None else self.encoder(
+            x, planes=planes)
         return self.refine1(F.relu(self.refine0(feat)))
 
     def forward(self, xyz_in: torch.Tensor,

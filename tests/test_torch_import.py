@@ -17,7 +17,9 @@ MODULES = ("splatfields_torch", "splatfields_torch.render_lib",
            "splatfields_torch.config", "splatfields_torch.ops.ssim",
            "splatfields_torch.utils.schedules",
            "splatfields_torch.models.deform_model",
-           "splatfields_torch.ops.raster.blend_cuda", "chip_smoke")
+           "splatfields_torch.ops.raster.blend_cuda",
+           "splatfields_torch.ops.cuda_build", "splatfields_torch.ops.segsum",
+           "splatfields_torch.models.encoders", "chip_smoke")
 
 
 def test_import_pulls_in_no_jax():

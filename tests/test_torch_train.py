@@ -93,22 +93,24 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _run(mode):
+def _run(mode, hidden=None, n=N):
     """Both packages through max(STEPS) steps; numpy snapshots after each
-    step in STEPS."""
-    field = mode == "field"
+    step in STEPS. Static mode has no net; the field modes take the
+    ``hidden`` config (default: the VarTriPlane net at noise 4x4) and
+    ``n`` splats."""
+    field = mode != "static"
     rng = np.random.RandomState(0)
-    pts = rng.uniform(-0.9, 0.9, (N, 3)).astype(np.float32)
-    cols = rng.rand(N, 3).astype(np.float32)
-    j_params, j_stats = jax_splats.create_from_pcd(pts, cols, 0, capacity=N)
+    pts = rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
+    cols = rng.rand(n, 3).astype(np.float32)
+    j_params, j_stats = jax_splats.create_from_pcd(pts, cols, 0, capacity=n)
     opt = jax_config.OptimizationConfig(lambda_mask=0.0, lambda_norm=0.01)
     pipe = jax_config.PipelineConfig(tile_cap=256, k_chunk=64)
     mu, nu = _moments(_np(j_params), 1)
     # separate count buffers: the JAX step donates both states
     j_sopt = jax_splats.AdamState(count=jnp.asarray(10, jnp.int32), mu=mu,
                                   nu=nu)
-    hidden = dict(encoder_type="VarTriPlaneEncoder", composition_rank=0,
-                  encoder_args=ENC)
+    hidden = hidden or dict(encoder_type="VarTriPlaneEncoder",
+                            composition_rank=0, encoder_args=ENC)
     if field:
         ref = JaxDeformModel(jax_config.HiddenConfig(**hidden), radius=1.0)
         j_vars, net = ref.variables, ref.net
@@ -196,9 +198,7 @@ def _trees(snap, key):
     return ({k: v.detach().numpy() for k, v in pt.items()}, _field_dict(jt))
 
 
-@pytest.mark.parametrize("after", STEPS)
-def test_loss_and_aux_match(runs, after):
-    _, snaps = runs
+def check_loss_and_aux(snaps, after):
     j, p = snaps[after]["jax"]["out"], snaps[after]["port"]["out"]
     np.testing.assert_allclose(float(p.loss), float(j.loss), rtol=1e-5)
     assert set(p.loss_dict) == set(j.loss_dict)
@@ -210,9 +210,7 @@ def test_loss_and_aux_match(runs, after):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("after", STEPS)
-def test_screen_grad_radii_and_stats_match(runs, after):
-    _, snaps = runs
+def check_screen_grad_radii_and_stats(snaps, after):
     j, p = snaps[after]["jax"], snaps[after]["port"]
     np.testing.assert_array_equal(p["out"].radii.numpy(),
                                   np.asarray(j["out"].radii))
@@ -239,10 +237,7 @@ def _param_lr(tree, name):
     return getattr(splats.splat_lr_tree(*SPLAT_LRS), name)
 
 
-@pytest.mark.parametrize("after", STEPS)
-@pytest.mark.parametrize("tree", ["params", "fparams"])
-def test_parameters_match(runs, after, tree):
-    mode, snaps = runs
+def check_parameters(mode, snaps, after, tree):
     got, want = _trees(snaps[after], tree)
     assert set(got) == set(want)
     if mode == "static" and tree == "fparams":
@@ -253,10 +248,7 @@ def test_parameters_match(runs, after, tree):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("after", STEPS)
-@pytest.mark.parametrize("tree", ["sopt_mu", "sopt_nu", "fopt_mu", "fopt_nu"])
-def test_adam_states_match(runs, after, tree):
-    mode, snaps = runs
+def check_adam_states(snaps, after, tree):
     got, want = _trees(snaps[after], tree)
     assert set(got) == set(want)
     s = snaps[after]
@@ -266,3 +258,25 @@ def test_adam_states_match(runs, after, tree):
         scale = np.abs(want[k]).max() if want[k].size else 1.0
         np.testing.assert_allclose(got[k] / scale, want[k] / scale,
                                    atol=1e-5, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("after", STEPS)
+def test_loss_and_aux_match(runs, after):
+    check_loss_and_aux(runs[1], after)
+
+
+@pytest.mark.parametrize("after", STEPS)
+def test_screen_grad_radii_and_stats_match(runs, after):
+    check_screen_grad_radii_and_stats(runs[1], after)
+
+
+@pytest.mark.parametrize("after", STEPS)
+@pytest.mark.parametrize("tree", ["params", "fparams"])
+def test_parameters_match(runs, after, tree):
+    check_parameters(*runs, after, tree)
+
+
+@pytest.mark.parametrize("after", STEPS)
+@pytest.mark.parametrize("tree", ["sopt_mu", "sopt_nu", "fopt_mu", "fopt_nu"])
+def test_adam_states_match(runs, after, tree):
+    check_adam_states(runs[1], after, tree)
