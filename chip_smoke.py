@@ -4,8 +4,9 @@
 
 Phases, each raising on failure:
 
-1. Device: the card's name and power limit; build the three kernels
-   (blend forward and backward, segment sum) from
+1. Device: the card's name and power limit; build the kernels (blend
+   forward and backward, segment sum, fused heads forward, fused heads
+   backward with its reduction) from the five sources in
    ``splatfields_torch/csrc`` with nvcc (sm_90a), one nvcc per source,
    started together.
 2. Kernel vs plain on the card: the serving scene at full width (100,000
@@ -46,17 +47,34 @@ Phases, each raising on failure:
    and ``index_add_``'s ms and the kernel's bound.
 10. One small NGP training step on the card (kernels) and on the CPU
     (plain versions) must agree as in phase 7.
+11. Fused-heads kernels vs plain on the card, at f32 and bf16: both plans'
+    inputs and cotangents of one full-width fused training step (phase
+    12's configuration), plus a ragged N, an F = 0 plan and a plan whose
+    skip input layer is its last-but-one; two backward launches must be
+    bitwise equal; the reduction against ``sum(0)``.
+12. The fused slice at full width: phase 6's workload with
+    ``fused_pallas="on"`` (bf16 heads): warm-up steps, then timed steps;
+    finite losses, every head parameter moved, the fused forward,
+    backward and reduction launched twice per step (deform and downstream
+    plans), no ``GeneralMLP.forward`` call; then 8 serving frames with two
+    forward launches each. ms/step, rays/s, ms/frame, each kernel's, its
+    plain version's and its bound's ms, and the heads alone, fused against
+    the unfused GeneralMLP chain, forward and forward + backward.
+13. One small fused training step on the card (kernels) and on the CPU
+    (plain version), both at f32, must agree as in phase 7.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
-rest of the repository beside it, the script exits non-zero before
-printing any result.
+rest of the repository beside it, or with ``SPLATFIELDS_FUSED_MLP`` set
+(it would override each phase's choice of head path), the script exits
+non-zero before printing any result.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 
@@ -101,6 +119,32 @@ NGP_SMALL = dict(log2_hashmap_size=14)
 # with atomics in another order (one row of the NGP step takes up to a few
 # hundred terms; the hot case 2,048)
 TOL_SEGSUM = 1e-5
+# fused heads, kernel vs plain: forward, max abs error over the output's max
+# abs (per head); backward, for each gradient tensor (d_emb, d_feat, each
+# layer's weight and bias), max abs error over the tensor's max abs
+# ("worst") and mean abs error over mean abs ("mean"). Both sides sum the
+# same rounded products in other orders (~1e-7 relative in f32). A
+# pre-activation within that of 0 takes the other leaky_relu slope on one
+# side, which moves its point's gradient terms by 99%: rare, so the mean
+# stays near the summation-order level while the worst tensor may move by
+# ~1e-2. In bf16 a sum that lands on the other side of a bf16 rounding
+# boundary moves that value by one bf16 step (2^-8 relative) and the next
+# layers carry it on, hence the looser bf16 bounds. Per-column scaling is
+# not used: cancellation leaves some columns of dW near 0.
+TOL_FUSED = {"float32": dict(fwd=1e-5, mean=1e-4, worst=5e-2),
+             "bfloat16": dict(fwd=1e-2, mean=2e-2, worst=1e-1)}
+# fused-heads bounds: the bf16 dense tensor-core rate (the path's compute
+# type on the card) and f32 outside the tensor cores
+BF16_FLOPS = 989e12
+# bench.py's heads at published widths on the VarTriPlane features (F =
+# 48): build_plan configurations of the downstream plan (E = 39)
+DOWNSTREAM_CFGS = (
+    dict(name="mlp_rgb", emb_cols=39, hidden=128, depth=6, skips=(3,), out=3),
+    dict(name="mlp_scale", emb_cols=27, hidden=64, depth=4, skips=(2,), out=3),
+    dict(name="mlp_opacity", emb_cols=21, hidden=64, depth=4, skips=(2,),
+         out=1),
+    dict(name="mlp_rotation", emb_cols=21, hidden=64, depth=3, skips=(20,),
+         out=4))
 
 
 @dataclasses.dataclass
@@ -294,6 +338,101 @@ def check_segsum(label, sidx, vals, n_rows):
         raise AssertionError(f"segment sum, {label}: err {err} > "
                              f"{TOL_SEGSUM}")
     return abs_err
+
+
+def fused_case(kind, device, n=1037, seed=0):
+    """A plan and its inputs (emb, feat, w, b, per-head cotangents) for a
+    fused-heads check: "ragged" (the published-width downstream plan on n
+    points, F = 48), "no_features" (the same plan with F = 0) or
+    "skip_last_but_one" (two heads whose skip input layer is the
+    last-but-one). Weights as torch's Linear init, inputs and cotangents
+    standard normal."""
+    import torch
+
+    from splatfields_torch.ops import fused_mlp as fm
+    cfgs = DOWNSTREAM_CFGS
+    if kind == "skip_last_but_one":
+        cfgs = (dict(name="a", emb_cols=39, hidden=64, depth=3, skips=(2,),
+                     out=3),
+                dict(name="b", emb_cols=21, hidden=32, depth=2, skips=(1,),
+                     out=4))
+    elif kind not in ("ragged", "no_features"):
+        raise ValueError(kind)
+    plan = fm.build_plan(cfgs, 39, 0 if kind == "no_features" else 48)
+    rng = np.random.RandomState(seed)
+    w = np.zeros((plan.n_rows, fm.COLS), np.float32)
+    b = np.zeros((plan.n_bias, fm.COLS), np.float32)
+    for head in plan.heads:
+        for L in head.layers:
+            bound = 1 / math.sqrt(L.fin)
+            w[L.row_off:L.row_off + L.fin, :L.fout] = rng.uniform(
+                -bound, bound, (L.fin, L.fout))
+            b[L.bias_idx, :L.fout] = rng.uniform(-bound, bound, L.fout)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    gs = [t(rng.randn(n, h.out_dim)) for h in plan.heads]
+    return (plan, t(rng.randn(n, plan.emb_dim)),
+            t(rng.randn(n, plan.feat_dim)), t(w), t(b), gs)
+
+
+def fused_errs(plan, got, want):
+    """Backward errors as TOL_FUSED reads them, for (d_emb, d_feat, dw, db)
+    tuples: {"worst", "mean"} over the gradient tensors."""
+    from splatfields_torch.ops.fused_mlp import unpack_grads
+    tensors = []
+    for grads in (got, want):
+        named = unpack_grads(grads[2], grads[3], plan)
+        named.update(d_emb=grads[0], d_feat=grads[1])
+        tensors.append(named)
+    worst = mean = 0.0
+    for k, w in tensors[1].items():
+        if not w.numel() or not float(w.abs().max()) > 0:
+            continue
+        err = (tensors[0][k] - w).abs()
+        worst = max(worst, float(err.max() / w.abs().max()))
+        mean = max(mean, float(err.mean() / w.abs().mean()))
+    return {"worst": worst, "mean": mean}
+
+
+def check_fused(label, plan, emb, feat, w, b, gs, cdt):
+    """The fused kernels (forward, backward twice: bitwise equal) against
+    the plain version at compute type ``cdt``; returns the forward's and
+    the backward's max abs errors."""
+    import torch
+
+    from splatfields_torch.ops import fused_mlp as fm
+    with torch.no_grad():
+        got = fm.fused_heads(plan, emb, feat, w, b, cdt)
+        want = fm.fused_heads_plain(plan, emb, feat, w, b, cdt)
+    got_b = fm.fused_heads_bwd(plan, emb, feat, w, b, gs, cdt)
+    again = fm.fused_heads_bwd(plan, emb, feat, w, b, gs, cdt)
+    want_b = fm.fused_heads_bwd_plain(plan, emb, feat, w, b, gs, cdt)
+    torch.cuda.synchronize()
+    tol = TOL_FUSED[str(cdt).split(".")[-1]]
+    errs = {"fwd": max(float((g - w_).abs().max() / w_.abs().max())
+                       for g, w_ in zip(got, want)),
+            **fused_errs(plan, got_b, want_b)}
+    abs_err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+    bwd_abs = max(float((g - w_).abs().max()) if w_.numel() else 0.0
+                  for g, w_ in zip(got_b, want_b))
+    print(f"fused heads, {label}, {str(cdt).split('.')[-1]}: "
+          f"{[h.name for h in plan.heads]}, N {emb.shape[0]}, E "
+          f"{plan.emb_dim}, F {plan.feat_dim}; forward max abs err "
+          f"{abs_err:.3e}; " + ", ".join(f"{k} {v:.3e}"
+                                          for k, v in errs.items()))
+    for x in (*got, *got_b):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"fused heads, {label}: non-finite output")
+    if not all(torch.equal(x, y) for x, y in zip(got_b, again)):
+        raise AssertionError(f"fused heads, {label}: two backward launches "
+                             "differ")
+    for k, v in errs.items():
+        if not v <= tol[k]:
+            raise AssertionError(f"fused heads, {label}: {k} err {v} > "
+                                 f"{tol[k]}")
+    return abs_err, bwd_abs
 
 
 def ngp_model(device=None, **small):
@@ -634,6 +773,314 @@ def ngp_phases(sc, dev, smi):
     }
 
 
+def heads_flops(plans, n):
+    """Multiply-adds x 2 of the plans' forward on n points."""
+    return 2 * n * sum(L.fin * L.fout for plan in plans for h in plan.heads
+                       for L in h.layers)
+
+
+def fused_phases(sc, dev, smi):
+    """Phases 11-13; returns the kernels-line entries of the fused
+    forward, backward and reduction kernels."""
+    import torch
+
+    from splatfields_torch.models import splats
+    from splatfields_torch.models.deform_model import DeformModel
+    from splatfields_torch.models.mlp import GeneralMLP
+    from splatfields_torch.ops import fused_mlp as fm
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.render_lib import (
+        render_camera,
+        render_cameras_batched,
+    )
+
+    bf16 = torch.bfloat16
+    net = sc.deform.net
+    net.fused_pallas = "on"   # bf16 on the card, as the JAX package runs it
+    step = train_step_fn(sc.deform, sc.pipe, RES)
+    lrs = splats.splat_lr_tree(*SPLAT_LRS)
+    rng = np.random.RandomState(0)
+    cams = make_views(TRAIN_WARMUP + TRAIN_STEPS + 1, RES)
+    batches = [train_batch(c, rng, dev) for c in cams]
+
+    # --- 11. fused kernels vs plain -----------------------------------------
+    captured = []
+    fused_bwd = fm.fused_heads_bwd
+
+    def spy(plan, emb, feat, w, b, gs, cdt):
+        captured.append((plan, emb.detach(), feat.detach(), w.detach(),
+                         b.detach(), [g.detach() for g in gs]))
+        if cdt != bf16:
+            raise AssertionError(f"the fused step ran in {cdt}")
+        return fused_bwd(plan, emb, feat, w, b, gs, cdt)
+
+    # the backward counts through its module-level name, the spy's here;
+    # phase 12 resets the counts anyway
+    spy.launches = 0
+    fm.fused_heads_bwd = spy
+    try:
+        step(sc.params, sc.stats, splats.adam_init(sc.params),
+             sc.deform.params, sc.deform.opt_state, batches[-1], lrs,
+             FIELD_LR)
+    finally:
+        fm.fused_heads_bwd = fused_bwd
+    plans = {c[0].heads[0].name: c for c in captured}
+    if len(captured) != 2 or set(plans) != {"mlp_deform", "mlp_rgb"}:
+        raise AssertionError("the fused step's backward ran for "
+                             f"{[c[0].heads[0].name for c in captured]}")
+    cases = [plans["mlp_deform"], plans["mlp_rgb"]]
+    fwd_err, bwd_err = 0.0, 0.0
+    for case in cases:
+        for cdt in (torch.float32, bf16):
+            errs = check_fused(f"training step, {case[0].heads[0].name}",
+                               *case, cdt)
+            if cdt == bf16:
+                fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err,
+                                                              errs[1])
+        if not float(case[5][0].abs().max()) > 0:
+            raise AssertionError("the fused step's cotangents are zero")
+    for kind in ("ragged", "no_features", "skip_last_but_one"):
+        for cdt in (torch.float32, bf16):
+            check_fused(kind, *fused_case(kind, dev), cdt)
+    # the reduction at the step's partial shapes, random values
+    parts = []
+    for plan, *_ in cases:
+        _, smem = fm.bwd_layout(plan)
+        n = sc.params.xyz.shape[0]
+        g = min(fm.n_partials(dev, smem), -(-n // fm.bwd_layout(plan)[0]))
+        parts.append(torch.as_tensor(np.random.RandomState(g).randn(
+            g, (plan.n_rows + plan.n_bias) * fm.COLS).astype(np.float32),
+            device=dev))
+    red_err = 0.0
+    for p in parts:
+        got = fm.reduce_partials(p)
+        want = p.sum(0)
+        torch.cuda.synchronize()
+        red_err = max(red_err, float((got - want).abs().max()))
+        rel = float((got - want).abs().max() / want.abs().max())
+        print(f"reduce_partials: [{p.shape[0]}, {p.shape[1]}]; max abs err "
+              f"{red_err:.3e}, over the max {rel:.3e}")
+        if not rel <= TOL_SEGSUM:
+            raise AssertionError(f"reduce_partials: err {rel} > {TOL_SEGSUM}")
+
+    # --- 12. the fused slice at full width -----------------------------------
+    mlp_calls = [0]
+    mlp_forward = GeneralMLP.forward
+
+    def counting_forward(self, *args, **kwargs):
+        mlp_calls[0] += 1
+        return mlp_forward(self, *args, **kwargs)
+
+    sp, st = sc.params, sc.stats
+    sopt, fp, fopt = splats.adam_init(sp), sc.deform.params, sc.deform.opt_state
+    fp0 = {k: v.clone() for k, v in fp.items()}
+    losses = []
+    GeneralMLP.forward = counting_forward
+    try:
+        torch.cuda.synchronize()
+        blend_fwd.launches = blend_bwd.launches = 0
+        fm.fused_heads.launches = fm.fused_heads_bwd.launches = 0
+        fm.reduce_partials.launches = 0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for i, b in enumerate(batches[:TRAIN_WARMUP + TRAIN_STEPS]):
+            if i == TRAIN_WARMUP:
+                start.record()
+            sp, st, sopt, fp, fopt, out = step(sp, st, sopt, fp, fopt, b, lrs,
+                                               FIELD_LR)
+            losses.append(out.loss)
+        end.record()
+        torch.cuda.synchronize()
+        steps = TRAIN_WARMUP + TRAIN_STEPS
+        launches = (fm.fused_heads.launches, fm.fused_heads_bwd.launches,
+                    fm.reduce_partials.launches, blend_fwd.launches,
+                    blend_bwd.launches)
+        step_calls = mlp_calls[0]
+        # serving frames through the fused forward
+        fm.fused_heads.launches = 0
+        frames = list(render_cameras_batched(sc.cams, sc.params, sc.stats,
+                                             sc.deform, sc.pipe, sc.bg))
+        torch.cuda.synchronize()
+        frame_launches, frame_calls = fm.fused_heads.launches, mlp_calls[0]
+    finally:
+        GeneralMLP.forward = mlp_forward
+    if launches != (2 * steps,) * 3 + (steps,) * 2:
+        raise AssertionError(f"{steps} fused steps launched the fused "
+                             "forward, backward, reduction, blend_fwd and "
+                             f"blend_bwd {launches} times")
+    if step_calls or frame_calls:
+        raise AssertionError(f"GeneralMLP.forward ran {frame_calls} times on "
+                             "the fused path")
+    if frame_launches != 2 * N_FRAMES:
+        raise AssertionError(f"{N_FRAMES} fused frames launched the forward "
+                             f"{frame_launches} times")
+    losses = torch.stack(losses)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite fused loss: {losses.tolist()}")
+    moved = {k: float((fp[k] - fp0[k]).abs().max()) for k in fp}
+    if not all(moved[k] > 0 for k in moved if k.startswith("mlp_")):
+        raise AssertionError("a head parameter did not move")
+    for i, f in enumerate(frames):
+        if not bool(torch.isfinite(f["render"]).all()):
+            raise AssertionError(f"fused frame {i}: non-finite render")
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    print("fused training losses:", [round(x, 6) for x in losses.tolist()])
+    print(f"fused: field moved by up to {max(moved.values()):.3e}")
+    print(f"fused train ms/step {step_ms:.4f}; rays/s "
+          f"{RES * RES / step_ms * 1e3:.1f} ({RES}x{RES}, {N_SPLATS} splats, "
+          f"1 view, bf16 heads, {TRAIN_STEPS} steps after {TRAIN_WARMUP} "
+          f"warm-up; fused forward, backward, reduction, blend_fwd, blend_bwd "
+          f"launches {launches} for {steps} steps; GeneralMLP.forward calls "
+          f"{step_calls}; {smi})")
+
+    def render_all():
+        for cam in sc.cams:
+            render_camera(cam, sc.params, sc.stats, sc.deform, sc.pipe, sc.bg)
+
+    frame_ms = cuda_ms(render_all, 3) / N_FRAMES
+    print(f"fused render ms/frame {frame_ms:.4f} ({N_FRAMES} frames, fused "
+          f"forward launches {frame_launches}, GeneralMLP.forward calls "
+          f"{frame_calls})")
+
+    # each kernel at the step's shapes (both plans: one step's launches)
+    def per_plan(fn):
+        return lambda: [fn(plan, emb, feat, w, b, gs)
+                        for plan, emb, feat, w, b, gs in cases]
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(per_plan(lambda *a: fm.fused_heads(*a[:5], bf16)), 10)
+        fwd_plain_ms = cuda_ms(per_plan(
+            lambda *a: fm.fused_heads_plain(*a[:5], bf16)), 3)
+    bwd_ms = cuda_ms(per_plan(lambda *a: fm.launch_bwd(*a, bf16)), 5)
+    bwd_plain_ms = cuda_ms(per_plan(
+        lambda *a: fm.fused_heads_bwd_plain(*a, bf16)), 3)
+    red_ms = cuda_ms(lambda: [fm.reduce_partials(p) for p in parts], 20)
+    red_lib_ms = cuda_ms(lambda: [p.sum(0) for p in parts], 20)
+    n = sc.params.xyz.shape[0]
+    flops = heads_flops([c[0] for c in cases], n)
+    in_bytes = sum((emb.numel() + feat.numel() + w.numel() + b.numel()) * 4
+                   for _, emb, feat, w, b, _ in cases)
+    out_bytes = sum(g.numel() * 4 for c in cases for g in c[5])
+    part_bytes = sum(p.numel() * 4 for p in parts)
+    fwd_bytes = in_bytes + out_bytes
+    # the backward reads the inputs and cotangents and writes d_emb,
+    # d_feat and its partials
+    bwd_bytes = in_bytes + out_bytes + sum(
+        (emb.numel() + feat.numel()) * 4 for _, emb, feat, *_ in cases
+    ) + part_bytes
+    red_bytes = part_bytes + sum(p.shape[1] * 4 for p in parts)
+    bounds = {}
+    for name, ops, nbytes, rate in (
+            ("fwd", flops, fwd_bytes, BF16_FLOPS),
+            ("bwd", 3 * flops, bwd_bytes, BF16_FLOPS),
+            ("reduce", sum(p.numel() for p in parts), red_bytes, F32_FLOPS)):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / rate * 1e3
+        bounds[name] = (max(bytes_ms, ops_ms),
+                        "bytes" if bytes_ms > ops_ms else "operations")
+        print(f"fused {name}: {ops} operations, {nbytes} bytes; bytes bound "
+              f"{bytes_ms:.5f} ms, ops bound {ops_ms:.5f} ms "
+              f"({'bf16 tensor-core' if rate == BF16_FLOPS else 'f32'} rate; "
+              f"f32 rate {ops / F32_FLOPS * 1e3:.5f} ms)")
+    print(f"fused_heads forward (2 plans, bf16): kernel {fwd_ms:.5f} ms, "
+          f"plain {fwd_plain_ms:.5f} ms; backward kernel {bwd_ms:.5f} ms, "
+          f"plain {bwd_plain_ms:.5f} ms; reduce_partials {red_ms:.5f} ms, "
+          f"sum(0) {red_lib_ms:.5f} ms; {flops} forward FLOP on {n} points")
+
+    # the heads alone from (xyz, features): fused (bf16 kernels) against
+    # the port's GeneralMLP chain (f32 F.linear), forward and fwd + bwd
+    with torch.no_grad():
+        xyz = sc.params.xyz.detach()
+        feat = net.extract_features(xyz)
+    keys = ("means3D", "scales", "opacity", "rotations", "rgb")
+    head_params = [p for k, p in net.named_parameters() if k.startswith("mlp_")]
+
+    def heads(call, backward):
+        def run():
+            with torch.set_grad_enabled(backward):
+                o = call(xyz, feat)
+                if backward:
+                    loss = sum(o[k].sum() for k in keys)
+                    torch.autograd.grad(loss, head_params)
+        return run
+
+    head_ms = {}
+    for name, call in (("fused", net._call_fused),
+                       ("unfused", net._call_unfused)):
+        for backward in (False, True):
+            head_ms[(name, backward)] = cuda_ms(heads(call, backward), 5)
+    print(f"heads alone, {n} points: fused forward "
+          f"{head_ms[('fused', False)]:.5f} ms, fused forward + backward "
+          f"{head_ms[('fused', True)]:.5f} ms; unfused (GeneralMLP, f32) "
+          f"forward {head_ms[('unfused', False)]:.5f} ms, forward + backward "
+          f"{head_ms[('unfused', True)]:.5f} ms")
+    net.fused_pallas = "auto"
+
+    # --- 13. small fused step: kernels on the card vs plain on the CPU ------
+    cam = make_views(2, 64)[1]
+    res = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        p_, s_ = splats.create_from_pcd(sc.pts[:2000], sc.cols[:2000], 0,
+                                        device=device)
+        d_ = DeformModel(sc.hidden, radius=1.0, seed=0, device=device)
+        # f32 on both sides: one rounding type, so the two agree as in
+        # phase 7 (bf16 is phase 11's and 12's)
+        d_.net.fused_pallas, d_.net.fused_compute_dtype = "on", torch.float32
+        before = (fm.fused_heads.launches, fm.fused_heads_bwd.launches)
+        res[name] = train_step_fn(d_, sc.pipe, 64)(
+            p_, s_, nonzero_adam(p_, 1), d_.params, nonzero_adam(d_.params, 2),
+            train_batch(cam, np.random.RandomState(1), device), lrs,
+            FIELD_LR)
+        ran = (fm.fused_heads.launches - before[0],
+               fm.fused_heads_bwd.launches - before[1])
+        if ran != ((2, 2) if name == "cuda" else (0, 0)):
+            raise AssertionError(f"small fused step on {name}: launches {ran}")
+    check_small_step(res["cuda"], res["cpu"])
+
+    common = {"route": "cuda", "library_ms": None}
+    return [{
+        **common,
+        "name": "fused_heads_fwd",
+        "source": "splatfields_torch/csrc/fused_mlp_fwd.cu",
+        "replaces": "splatfields_tpu/ops/fused_mlp.py:308",
+        "launches": launches[0],
+        "max_abs_err": fwd_err,
+        "ms": fwd_ms,
+        "kernel_ms": fwd_ms,
+        "plain_ms": fwd_plain_ms,
+        "bound_ms": bounds["fwd"][0],
+        "bound_by": bounds["fwd"][1],
+        # no single PyTorch call computes these heads; the GeneralMLP chain
+        "unfused_heads_fwd_ms": head_ms[("unfused", False)],
+    }, {
+        **common,
+        "name": "fused_heads_bwd",
+        "source": "splatfields_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "splatfields_tpu/ops/fused_mlp.py:338",
+        "launches": launches[1],
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms,
+        "kernel_ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": bounds["bwd"][0],
+        "bound_by": bounds["bwd"][1],
+        "unfused_heads_fwd_bwd_ms": head_ms[("unfused", True)],
+    }, {
+        "name": "reduce_partials",
+        "route": "cuda",
+        "source": "splatfields_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "splatfields_tpu/ops/fused_mlp.py:338",
+        "launches": launches[2],
+        "max_abs_err": red_err,
+        "ms": red_ms,
+        "kernel_ms": red_ms,
+        # the plain version is the library call, partials.sum(0)
+        "plain_ms": red_lib_ms,
+        "bound_ms": bounds["reduce"][0],
+        "bound_by": bounds["reduce"][1],
+        "library_ms": red_lib_ms,
+    }]
+
+
 def check_small_step(card, cpu):
     """Phase 7's comparison. The card's convolutions and matmuls run in
     f32 (TF32 off) but sum in another order: the loss agrees to ~1e-6
@@ -674,6 +1121,10 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if "SPLATFIELDS_FUSED_MLP" in os.environ:
+        # it would override every phase's choice of head path
+        print("chip_smoke: unset SPLATFIELDS_FUSED_MLP", file=sys.stderr)
         return 1
     # the reference numbers are f32: keep cuDNN convs and matmuls off TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -804,6 +1255,8 @@ def main() -> int:
     bwd_entry = train_phases(sc, dev, smi)
     # --- 8-10. the NGP training slice ----------------------------------------
     segsum_entry = ngp_phases(sc, dev, smi)
+    # --- 11-13. the fused heads ----------------------------------------------
+    fused_entries = fused_phases(sc, dev, smi)
 
     kernels = [{
         "name": "blend_fwd",
@@ -818,7 +1271,7 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None,
-    }, bwd_entry, segsum_entry]
+    }, bwd_entry, segsum_entry, *fused_entries]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@ the PyTorch port on a GPU.
     python3 scripts/profile_render_torch.py           # serving frames
     python3 scripts/profile_render_torch.py --train   # training steps
     python3 scripts/profile_render_torch.py --train --variant ngp
+    python3 scripts/profile_render_torch.py --train --fused
 
 Serving: chip_smoke.py's serving scene (100,000 splats, VarTriPlane field,
 800x800, 8 orbit frames). Training: chip_smoke.py's phase-6 step on the
@@ -20,7 +21,11 @@ steps. ``--variant ngp`` swaps in bench.py --variant ngp's NGPMLP field
    With ``--variant ngp`` the field forward splits into the hash encode
    and the rest (NGP MLP, refiners, heads), and the field backward into
    the table VJP's sort + payload gather, the segment-sum kernel and the
-   rest;
+   rest. ``--fused`` runs the heads through the fused CUDA kernels
+   (``fused_pallas="on"``, bf16); in training the field forward and
+   backward then split into the fused kernels' calls (both plans summed)
+   and the rest ("field_fwd" and "field_bwd" are then what follows the
+   last fused call);
 2. the wall time without the profiler, and from ``torch.profiler`` the
    device-side events (kernels, copies) by self time; their sum over that
    wall time gives the GPU's idle share.
@@ -120,6 +125,35 @@ def ngp_marks(deform, mark):
         encoders._sort_rows, encoders.sorted_segment_sum = sort_rows, segsum
 
 
+@contextlib.contextmanager
+def fused_marks(mark):
+    """Marks around each fused forward call (the kernel and its output
+    allocation) and each fused backward (the kernel and its reduction)."""
+    import splatfields_torch.models.splatfields as sfm
+    from splatfields_torch.ops import fused_mlp as fm
+    fwd, bwd = sfm.fused_heads, fm.fused_heads_bwd
+
+    def fwd_spy(*args):
+        mark("field_fwd_before_fused")
+        out = fwd(*args)
+        mark("fused_fwd_kernel")
+        return out
+
+    def bwd_spy(*args):
+        mark("field_bwd_before_fused")
+        out = bwd(*args)
+        mark("fused_bwd_kernel")
+        return out
+
+    # the wrappers count through their module-level names
+    bwd_spy.launches = fm.fused_heads_bwd.launches
+    sfm.fused_heads, fm.fused_heads_bwd = fwd_spy, bwd_spy
+    try:
+        yield
+    finally:
+        sfm.fused_heads, fm.fused_heads_bwd = fwd, bwd
+
+
 def staged_train_step(sc, deform, ngp, state, batch, lrs, field_lr, mark):
     """make_train_step's field-mode body for one view (same calls), with
     ``mark(name)`` after each stage. The backward is one call, as in the
@@ -164,7 +198,7 @@ def staged_train_step(sc, deform, ngp, state, batch, lrs, field_lr, mark):
     return sp, st, sopt, fp, fopt
 
 
-def profile_train(sc, deform, ngp: bool) -> None:
+def profile_train(sc, deform, ngp: bool, fused: bool) -> None:
     import numpy as np
     import torch
 
@@ -202,7 +236,11 @@ def profile_train(sc, deform, ngp: bool) -> None:
             ev.record()
             events.append((name, ev))
 
-        with ngp_marks(deform, mark) if ngp else contextlib.nullcontext():
+        with contextlib.ExitStack() as marks:
+            if ngp:
+                marks.enter_context(ngp_marks(deform, mark))
+            if fused:
+                marks.enter_context(fused_marks(mark))
             state = staged_train_step(sc, deform, ngp, state, b, lrs,
                                       FIELD_LR, mark)
         torch.cuda.synchronize()
@@ -260,6 +298,9 @@ def main() -> int:
     ap.add_argument("--variant", choices=("field", "ngp"), default="field",
                     help="the field model: VarTriPlane (bench.py's default) "
                          "or NGPMLP (bench.py --variant ngp)")
+    ap.add_argument("--fused", action="store_true",
+                    help='the heads through the fused CUDA kernels '
+                         '(fused_pallas="on", bf16)')
     args = ap.parse_args()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -267,8 +308,10 @@ def main() -> int:
         timeout=60, check=True).stdout.strip())
     sc = serving_scene()
     deform = ngp_model() if args.variant == "ngp" else sc.deform
+    if args.fused:
+        deform.net.fused_pallas = "on"
     if args.train:
-        profile_train(sc, deform, args.variant == "ngp")
+        profile_train(sc, deform, args.variant == "ngp", args.fused)
         return 0
     with torch.no_grad():
         for cam in sc.cams[:2]:

@@ -8,6 +8,12 @@ offsets the points (``xyz_can = xyz + deform_weight * delta``);
 ``mlp_rgb`` (sigmoid) read (xyz_can, features), sharing one positional
 embedding of xyz_can at the largest multires.
 
+``fused_pallas="on"`` (or ``SPLATFIELDS_FUSED_MLP=on``, which overrides
+the attribute) runs the heads through ``ops/fused_mlp.py``: one fused call
+for ``mlp_deform`` on pe(xyz) and one for the other four heads on
+pe(xyz_can), hand-written CUDA kernels on the card. ``"auto"`` means off,
+as in the JAX package.
+
 Not ported yet, each raising NotImplementedError: 4-D fields
 (``n_frames > 0``, flow head, ResField ranks; ROADMAP Queue 1 item 6),
 the view-dependent colour head and ``geo_model_disable_pts``, and the
@@ -15,6 +21,7 @@ encoders other than VarTriPlane and NGPMLP (item 6).
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import torch
@@ -24,6 +31,12 @@ import torch.nn.functional as F
 from splatfields_torch.models.encoders import NGPMLP, VarTriPlaneEncoder
 from splatfields_torch.models.initializers import torch_linear_
 from splatfields_torch.models.mlp import GeneralMLP, positional_embed
+from splatfields_torch.models.resfields import _normalize
+from splatfields_torch.ops.fused_mlp import (
+    fused_heads,
+    pack_params,
+    plan_from_module,
+)
 
 # encoders of the JAX package; any other encoder_type means no encoder
 _JAX_ENCODERS = ("VarTriPlaneEncoder", "VarHexPlaneEncoder", "TriPlaneEncoder",
@@ -32,6 +45,13 @@ _PORTED_ENCODERS = ("VarTriPlaneEncoder", "NGPMLP")
 
 
 class SplatFields(nn.Module):
+    """``fused_pallas``: "on", "off" or "auto" (= off), re-read with the
+    ``SPLATFIELDS_FUSED_MLP`` override on every forward.
+    ``fused_compute_dtype``: the fused path's matrix operand type; None
+    means as the JAX package, bf16 on the card and f32 on the CPU.
+    ``fused_block`` is kept for signature parity and is inert: the TPU
+    kernel's grid block has no counterpart in the CUDA kernels."""
+
     def __init__(self, n_frames: int = 0, radius: float | None = None,
                  encoder_type: str = "", encoder_args: Any = None,
                  layer_strategy: str = "none", composition_rank: int = 0,
@@ -48,8 +68,13 @@ class SplatFields(nn.Module):
                  rotation_w: int = 64, rotation_d: int = 3,
                  rotation_skips=(20,), rotation_multires: int = 3,
                  contract_ngp: bool = False, log2_hashmap_size: int = 20,
-                 n_levels: int = 16, *, generator: torch.Generator):
+                 n_levels: int = 16, fused_pallas: str = "auto",
+                 fused_block: int = 2048, fused_compute_dtype=None, *,
+                 generator: torch.Generator):
         super().__init__()
+        self.fused_pallas = fused_pallas
+        self.fused_block = fused_block
+        self.fused_compute_dtype = fused_compute_dtype
         if n_frames > 0:
             raise NotImplementedError(
                 "4-D fields (n_frames > 0): ROADMAP Queue 1 item 6")
@@ -67,6 +92,8 @@ class SplatFields(nn.Module):
             raise NotImplementedError(
                 f"encoder {encoder_type}: ROADMAP Queue 1 item 6")
         gen = generator
+        self.n_frames = n_frames
+        self.geo_model_disable_pts = geo_model_disable_pts
         self.deform_weight = deform_weight
         self.max_multires = max(rgb_multires, scale_multires,
                                 opacity_multires, rotation_multires)
@@ -126,6 +153,13 @@ class SplatFields(nn.Module):
     def forward(self, xyz_in: torch.Tensor,
                 planes: torch.Tensor | None = None) -> Dict[str, Any]:
         pts_feat = self.extract_features(xyz_in, planes)
+        if self._fused_pallas_active():
+            return self._call_fused(xyz_in, pts_feat)
+        return self._call_unfused(xyz_in, pts_feat)
+
+    def _call_unfused(self, xyz_in: torch.Tensor,
+                      pts_feat: torch.Tensor | None) -> Dict[str, Any]:
+        """The heads one GeneralMLP at a time."""
         xyz_can = xyz_in
         if self.mlp_deform is not None:
             xyz_can = xyz_in + self.deform_weight * self.mlp_deform(xyz_in,
@@ -137,6 +171,39 @@ class SplatFields(nn.Module):
             "opacity": self.mlp_opacity(xyz_can, pts_feat, can_emb),
             "rotations": self.mlp_rotation(xyz_can, pts_feat, can_emb),
             "rgb": self.mlp_rgb(xyz_can, pts_feat, can_emb),
+            "flow": None,
+            "means3D": xyz_can,
+        }
+
+    def _fused_pallas_active(self) -> bool:
+        """The fused path covers the static rank-0 point-conditioned
+        configuration; "auto" is off, as in the JAX package."""
+        mode = os.environ.get("SPLATFIELDS_FUSED_MLP", self.fused_pallas)
+        return (mode == "on" and self.n_frames <= 0
+                and not self.geo_model_disable_pts)
+
+    def _call_fused(self, xyz_in: torch.Tensor,
+                    pts_feat: torch.Tensor | None) -> Dict[str, Any]:
+        cdt = self.fused_compute_dtype or (
+            torch.bfloat16 if xyz_in.is_cuda else torch.float32)
+        feat = (pts_feat if pts_feat is not None
+                else xyz_in.new_zeros(xyz_in.shape[0], 0))
+        xyz_can = xyz_in
+        if self.mlp_deform is not None:
+            plan = plan_from_module(self, "deform")
+            emb = positional_embed(xyz_in, self.mlp_deform.multires)
+            (delta,) = fused_heads(plan, emb, feat,
+                                   *pack_params(self, plan), cdt)
+            xyz_can = xyz_in + self.deform_weight * delta
+        plan = plan_from_module(self, "downstream")
+        emb = positional_embed(xyz_can, self.max_multires)
+        rgb, scales, opacity, rotations = fused_heads(
+            plan, emb, feat, *pack_params(self, plan), cdt)
+        return {
+            "scales": scales,
+            "opacity": torch.sigmoid(opacity),
+            "rotations": _normalize(rotations),
+            "rgb": torch.sigmoid(rgb),
             "flow": None,
             "means3D": xyz_can,
         }

@@ -1,17 +1,18 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Every kernel is one source ``splatfields_torch/csrc/<name>.cu`` with a
-plain C interface: ``int <name>_launch(..., void* stream)`` returns the
-``cudaError_t`` of its launch, ``const char* <name>_error_string(int)``
-names it. ``KERNELS`` is the registry of ``{name: (source, argtypes)}``.
+Every kernel has a plain C interface in a source under
+``splatfields_torch/csrc/``: ``int <name>_launch(..., void* stream)``
+returns the ``cudaError_t`` of its launch, ``const char*
+<name>_error_string(int)`` names it. ``KERNELS`` is the registry of
+``{name: (source, argtypes)}``; one source may hold several kernels.
 
 ``build()`` compiles every registered source whose library for this
 source and these flags does not exist yet, all at once (one ``nvcc`` each,
 started together), for sm_90a into ``build/kernels/`` at the repository
-root, each library named by a hash of its source and the flags. The first
-launch of any kernel builds them all. ``run(name, ...)`` launches on
-PyTorch's current stream and raises on a launch error; nothing here falls
-back to a plain version.
+root, each library named by its source and a hash of the source and the
+flags. The first launch of any kernel builds them all. ``run(name, ...)``
+launches on PyTorch's current stream and raises on a launch error;
+nothing here falls back to a plain version.
 """
 from __future__ import annotations
 
@@ -42,6 +43,14 @@ KERNELS = {
                    _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr]),
     "segsum": (CSRC / "segsum.cu",
                [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _ptr]),
+    "fused_mlp_fwd": (CSRC / "fused_mlp_fwd.cu",
+                      [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32,
+                       _i32, _i32, _ptr]),
+    "fused_mlp_bwd": (CSRC / "fused_mlp_bwd.cu",
+                      [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                       _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr]),
+    "fused_mlp_reduce": (CSRC / "fused_mlp_bwd.cu",
+                         [_ptr, _ptr, _i32, _i32, _ptr]),
 }
 _libs: dict = {}
 
@@ -54,47 +63,48 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(KERNELS[name][0].read_bytes()
+def _lib_path(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
 def build() -> dict[str, tuple[Path, float]]:
-    """Compile every kernel whose library does not exist, all at once.
-    Returns ``{name: (library path, seconds spent compiling)}``. The
-    compiler's report (registers, shared memory, spills) goes to
+    """Compile every source whose library does not exist, all at once.
+    Returns ``{source stem: (library path, seconds spent compiling)}``.
+    The compiler's report (registers, shared memory, spills) goes to
     ``<library>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, running = {}, {}
     t0 = time.perf_counter()
-    for name, (src, _) in KERNELS.items():
-        lib_path = _lib_path(name)
+    for src in dict.fromkeys(src for src, _ in KERNELS.values()):
+        lib_path = _lib_path(src)
         if lib_path.exists():
-            out[name] = (lib_path, 0.0)
+            out[src.stem] = (lib_path, 0.0)
             continue
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        running[name] = (lib_path, tmp, subprocess.Popen(
+        running[src] = (lib_path, tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, (lib_path, tmp, proc) in running.items():
+    for src, (lib_path, tmp, proc) in running.items():
         report, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {KERNELS[name][0]}:\n{report}")
+            raise RuntimeError(f"nvcc failed on {src}:\n{report}")
         lib_path.with_suffix(".log").write_text(report)
         os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
-        out[name] = (lib_path, time.perf_counter() - t0)
+        out[src.stem] = (lib_path, time.perf_counter() - t0)
     return out
 
 
 def _load(name: str):
     if name not in _libs:
-        for n, (path, _) in build().items():
+        paths = build()
+        for n, (src, argtypes) in KERNELS.items():
             if n in _libs:
                 continue
-            lib = ctypes.CDLL(str(path))
+            lib = ctypes.CDLL(str(paths[src.stem][0]))
             launch = getattr(lib, f"{n}_launch")
-            launch.argtypes = KERNELS[n][1]
+            launch.argtypes = argtypes
             launch.restype = _i32
             err = getattr(lib, f"{n}_error_string")
             err.argtypes = [_i32]

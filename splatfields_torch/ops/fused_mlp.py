@@ -1,0 +1,407 @@
+"""All rank-0 MLP heads of a field in one pass (counterpart of
+``splatfields_tpu/ops/fused_mlp.py``).
+
+Semantics are GeneralMLP's, quirks kept: each head reads a prefix of one
+shared positional embedding plus the feature block (``h_in``); a skip
+concatenates ``h_in`` in front (``h = [h_in, h]``); leaky_relu(0.01)
+follows every layer, the last included (the caller applies
+``out_activation``).
+
+A ``Plan`` lays the heads' weights out as the JAX package does: layer
+``i`` of a head is a block of ``_round8(fin)`` rows of one [R, 128] matrix
+(``weight.T``, zero-padded) and one row of a [L, 128] bias matrix.
+``pack_params`` builds both with one ``torch.cat`` from the heads'
+``nn.Parameter``s, so autograd carries dW and db back to them.
+
+``fused_heads(plan, emb, feat, w, b, compute_dtype)``: on CUDA tensors
+an ``autograd.Function`` whose forward launches ``csrc/fused_mlp_fwd.cu``
+and whose backward launches ``csrc/fused_mlp_bwd.cu`` (recompute, VJP,
+per-CTA dW/db partials) and then its fixed-order reduction; only the
+inputs are saved. On CPU tensors it runs ``fused_heads_plain``, an
+autograd graph with the same rounding points. Matrix operands go to
+``compute_dtype`` (bf16 or f32) and every product sums in f32:
+
+- forward: every layer input and weight block is rounded, the bias is
+  added in f32;
+- backward: the cotangent ``g`` is rounded before both the dW and the dX
+  product, db sums the unrounded ``g``, and the leaky_relu mask is the
+  sign of the layer's output.
+
+``fused_heads.launches``, ``fused_heads_bwd.launches`` and
+``reduce_partials.launches`` count kernel launches, and nothing else.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from splatfields_torch.ops.cuda_build import check, run
+
+ALPHA = 0.01   # GeneralMLP's leaky_relu slope
+COLS = 128     # columns of the packed weight and bias matrices
+# limits of the kernels' plan table (csrc/fused_mlp_*.cu kMaxHeads/Layers)
+MAX_HEADS, MAX_LAYERS = 8, 48
+POINTS_FWD = 32          # kPoints in csrc/fused_mlp_fwd.cu
+THREADS_BWD = 256        # kThreads in csrc/fused_mlp_bwd.cu
+SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on sm_90
+
+
+class LayerSpec(NamedTuple):
+    fin: int
+    fout: int
+    row_off: int      # row offset into the packed [R, 128] weight matrix
+    bias_idx: int     # row into the packed [L, 128] bias matrix
+    skip_after: bool  # concat the embedded input after this layer
+
+
+class HeadSpec(NamedTuple):
+    name: str         # the head's module name, e.g. "mlp_deform"
+    emb_cols: int     # prefix of the shared embedding this head consumes
+    layers: tuple     # tuple[LayerSpec]
+    out_dim: int
+
+
+class Plan(NamedTuple):
+    heads: tuple      # tuple[HeadSpec]
+    n_rows: int       # packed weight rows (multiple of 8 per block)
+    n_bias: int
+    emb_dim: int
+    feat_dim: int
+
+
+def _round8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def build_plan(head_cfgs: Sequence[dict], emb_dim: int, feat_dim: int) -> Plan:
+    """head_cfgs: dicts with name, emb_cols, hidden, depth, skips, out.
+
+    Layers as GeneralMLP's at rank 0: net_0: h_in -> W; net_{1+i}: W (+h_in
+    after a skip) -> W; net_last: W -> out; the skip after layer s for s in
+    skips, never after the last layer."""
+    heads = []
+    row = bias = 0
+    for cfg in head_cfgs:
+        h_in = cfg["emb_cols"] + feat_dim
+        width, depth, out = cfg["hidden"], cfg["depth"], cfg["out"]
+        skips = set(cfg["skips"])
+        dims = [(h_in, width)]
+        for i in range(depth):
+            dims.append((width + (h_in if i in skips else 0), width))
+        dims.append((width, out))
+        if max(fout for _, fout in dims) > COLS:
+            raise ValueError(f"{cfg['name']}: a layer wider than {COLS}")
+        layers = []
+        for i, (fin, fout) in enumerate(dims):
+            skip_after = i in skips and i != len(dims) - 1
+            layers.append(LayerSpec(fin, fout, row, bias, skip_after))
+            row += _round8(fin)
+            bias += 1
+        heads.append(HeadSpec(cfg["name"], cfg["emb_cols"], tuple(layers),
+                              dims[-1][1]))
+    return Plan(tuple(heads), row, bias, emb_dim, feat_dim)
+
+
+def _head_cfg(name: str, mlp) -> dict:
+    """A GeneralMLP's shape as ``build_plan`` reads it."""
+    from splatfields_torch.models.mlp import embed_dim
+    return dict(name=name, emb_cols=embed_dim(mlp.multires),
+                hidden=mlp.net_0.weight.shape[0], depth=mlp.n_layers - 2,
+                skips=mlp.skips,
+                out=getattr(mlp, f"net_{mlp.n_layers - 1}").weight.shape[0])
+
+
+def plan_from_module(net, mode: str) -> Plan:
+    """The fused plan of a SplatFields module. mode: 'deform' (the
+    canonicalization head, on pe(xyz_in)) or 'downstream' (rgb and the
+    geometry heads, on pe(xyz_can) at the largest multires)."""
+    from splatfields_torch.models.mlp import embed_dim
+    if mode == "deform":
+        cfg = _head_cfg("mlp_deform", net.mlp_deform)
+        return build_plan([cfg], cfg["emb_cols"], net.feat_dim)
+    if mode != "downstream":
+        raise ValueError(f"mode {mode!r}: 'deform' or 'downstream'")
+    names = ("mlp_rgb", "mlp_scale", "mlp_opacity", "mlp_rotation")
+    return build_plan([_head_cfg(n, getattr(net, n)) for n in names],
+                      embed_dim(net.max_multires), net.feat_dim)
+
+
+def pack_params(net, plan: Plan) -> tuple[torch.Tensor, torch.Tensor]:
+    """The heads of ``net`` (modules named as the plan's heads, layers
+    ``net_i`` with ``weight`` [out, in]) -> packed [R, 128] weights
+    (``weight.T``, zero-padded) and [L, 128] biases, each one
+    ``torch.cat``: differentiable in every head parameter."""
+    w_parts, b_parts = [], []
+    for head in plan.heads:
+        mlp = getattr(net, head.name)
+        for i, L in enumerate(head.layers):
+            layer = getattr(mlp, f"net_{i}")
+            w_parts.append(F.pad(layer.weight.t(), (
+                0, COLS - L.fout, 0, _round8(L.fin) - L.fin)))
+            b_parts.append(F.pad(layer.bias, (0, COLS - L.fout))[None])
+    return torch.cat(w_parts, 0), torch.cat(b_parts, 0)
+
+
+def unpack_grads(dw: torch.Tensor, db: torch.Tensor, plan: Plan) -> dict:
+    """Packed [R, 128] / [L, 128] gradients -> ``{"<head>.net_<i>.weight":
+    [out, in], "<head>.net_<i>.bias": [out]}`` in the port's layout."""
+    out = {}
+    for head in plan.heads:
+        for i, L in enumerate(head.layers):
+            key = f"{head.name}.net_{i}"
+            out[f"{key}.weight"] = dw[L.row_off:L.row_off + L.fin, :L.fout].t()
+            out[f"{key}.bias"] = db[L.bias_idx, :L.fout]
+    return out
+
+
+# --- the plain version ----------------------------------------------------
+
+class _Round(torch.autograd.Function):
+    """Round to ``dtype`` and back to f32; the gradient passes unrounded."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _RoundGrad(torch.autograd.Function):
+    """Identity; the gradient is rounded to ``dtype`` (and back to f32)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(torch.float32), None
+
+
+def _leaky(x):
+    # the gradient's mask is x >= 0, the sign of the layer's output
+    return torch.where(x >= 0, x, ALPHA * x)
+
+
+def fused_heads_plain(plan: Plan, emb, feat, w, b,
+                      compute_dtype=torch.float32) -> tuple:
+    """The plain version of both kernels: every head of ``plan`` on [N, E]
+    embeddings and [N, F] features, as an autograd graph of matmuls with
+    the kernels' rounding points. Returns the per-head outputs [N, out]
+    (after the last leaky_relu)."""
+    rounding = compute_dtype != torch.float32
+
+    def rnd(x):
+        return _Round.apply(x, compute_dtype) if rounding else x
+
+    outs = []
+    for head in plan.heads:
+        h_in = emb[:, :head.emb_cols]
+        if plan.feat_dim:
+            h_in = torch.cat([h_in, feat], 1)
+        h = h_in
+        for L in head.layers:
+            y = rnd(h) @ rnd(w[L.row_off:L.row_off + L.fin, :L.fout])
+            if rounding:
+                y = _RoundGrad.apply(y, compute_dtype)
+            h = _leaky(y + b[L.bias_idx, :L.fout])
+            if L.skip_after:
+                h = torch.cat([h_in, h], 1)
+        outs.append(h)
+    return tuple(outs)
+
+
+def fused_heads_bwd_plain(plan: Plan, emb, feat, w, b, gs,
+                          compute_dtype=torch.float32):
+    """The plain version of the backward kernel: (d_emb, d_feat, dw, db)
+    for the cotangents ``gs`` of the heads' outputs."""
+    xs = [x.detach().requires_grad_(True) for x in (emb, feat, w, b)]
+    with torch.enable_grad():
+        outs = fused_heads_plain(plan, *xs, compute_dtype)
+        grads = torch.autograd.grad(outs, xs, gs, allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for x, g in zip(xs, grads))
+
+
+# --- the kernels ----------------------------------------------------------
+
+def plan_table(plan: Plan) -> torch.Tensor:
+    """The plan as the kernels read it, an int32 CPU tensor: n_heads,
+    emb_dim, feat_dim, then per head emb_cols, out_dim, n_layers and per
+    layer fin, fout, row_off, bias_idx, skip_after."""
+    n_layers = sum(len(h.layers) for h in plan.heads)
+    if len(plan.heads) > MAX_HEADS or n_layers > MAX_LAYERS:
+        raise ValueError(f"{len(plan.heads)} heads, {n_layers} layers: the "
+                         f"kernels take {MAX_HEADS} and {MAX_LAYERS}")
+    vals = [len(plan.heads), plan.emb_dim, plan.feat_dim]
+    for h in plan.heads:
+        vals += [h.emb_cols, h.out_dim, len(h.layers)]
+        for L in h.layers:
+            vals += [L.fin, L.fout, L.row_off, L.bias_idx, int(L.skip_after)]
+    return torch.tensor(vals, dtype=torch.int32)
+
+
+def _widths(plan: Plan):
+    """(widest h_in, widest layer input or output, widest sum of a head's
+    layer inputs), the kernels' shared-memory strides."""
+    hin = max(h.emb_cols + plan.feat_dim for h in plan.heads)
+    width = max(max(L.fin, L.fout + (h.emb_cols + plan.feat_dim
+                                     if L.skip_after else 0))
+                for h in plan.heads for L in h.layers)
+    inputs = max(sum(L.fin for L in h.layers) for h in plan.heads)
+    return hin, width, inputs
+
+
+def fwd_smem_bytes(plan: Plan) -> int:
+    """csrc/fused_mlp_fwd.cu: h_in and two activation buffers per point."""
+    hin, width, _ = _widths(plan)
+    return POINTS_FWD * (hin + 2 * width) * 4
+
+
+def bwd_layout(plan: Plan) -> tuple[int, int]:
+    """(points per chunk, dynamic shared memory bytes) of
+    csrc/fused_mlp_bwd.cu: per point every layer input of the widest head,
+    the cotangent [128], the dX buffer, d_h_in, d_emb and d_feat. The
+    largest chunk of 32, 16, 8 or 4 points that fits."""
+    hin, width, inputs = _widths(plan)
+    per_point = (inputs + COLS + width + hin + plan.emb_dim
+                 + plan.feat_dim) * 4
+    for points in (32, 16, 8, 4):
+        if points * per_point <= SMEM_LIMIT:
+            return points, points * per_point
+    raise ValueError(f"plan needs {4 * per_point} bytes of shared memory "
+                     "for 4 points")
+
+
+def n_partials(device: torch.device, smem: int) -> int:
+    """CTAs of the backward kernel: as many as fit on the card at once,
+    each owning one dW/db partial."""
+    props = torch.cuda.get_device_properties(device)
+    per_sm = max(1, min(228 * 1024 // (smem + 1024), 2048 // THREADS_BWD))
+    return props.multi_processor_count * per_sm
+
+
+def _dtype_flag(compute_dtype) -> int:
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
+    return int(compute_dtype == torch.bfloat16)
+
+
+def _check_inputs(plan, emb, feat, w, b):
+    dev, n = emb.device, emb.shape[0]
+    check("emb", emb, torch.float32, (n, plan.emb_dim), dev)
+    check("feat", feat, torch.float32, (n, plan.feat_dim), dev)
+    check("w", w, torch.float32, (plan.n_rows, COLS), dev)
+    check("b", b, torch.float32, (plan.n_bias, COLS), dev)
+    if n >= 2 ** 31 // COLS:
+        raise ValueError(f"{n} points: offsets must fit in int32")
+    return dev, n
+
+
+def _launch_fwd(plan, emb, feat, w, b, compute_dtype):
+    dev, n = _check_inputs(plan, emb, feat, w, b)
+    hin, width, _ = _widths(plan)
+    outs = [torch.empty(n, h.out_dim, device=dev) for h in plan.heads]
+    ptrs = torch.tensor([o.data_ptr() for o in outs], dtype=torch.int64)
+    if n:
+        run("fused_mlp_fwd", emb, feat, w, b, plan_table(plan), ptrs, n, hin,
+            width, fwd_smem_bytes(plan), _dtype_flag(compute_dtype))
+        fused_heads.launches += 1
+    return tuple(outs)
+
+
+def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
+    """The fixed-order sum over the first axis of [G, M] f32 partials ->
+    [M] (csrc/fused_mlp_bwd.cu, ``fused_mlp_reduce``); CUDA tensors only.
+    ``partials.sum(0)`` is its plain version."""
+    g, m = partials.shape
+    check("partials", partials, torch.float32, (g, m), partials.device)
+    out = torch.empty(m, device=partials.device)
+    run("fused_mlp_reduce", partials, out, g, m)
+    reduce_partials.launches += 1
+    return out
+
+
+def launch_bwd(plan: Plan, emb, feat, w, b, gs, compute_dtype):
+    """The backward kernel alone: (d_emb [N, E], d_feat [N, F], partials
+    [G, (R + L) 128]), one dW/db partial per CTA. CUDA tensors only."""
+    dev, n = _check_inputs(plan, emb, feat, w, b)
+    for h, g in zip(plan.heads, gs, strict=True):
+        check(f"g[{h.name}]", g, torch.float32, (n, h.out_dim), dev)
+    hin, width, inputs = _widths(plan)
+    points, smem = bwd_layout(plan)
+    d_emb = torch.empty(n, plan.emb_dim, device=dev)
+    d_feat = torch.empty(n, plan.feat_dim, device=dev)
+    ctas = min(n_partials(dev, smem), max(1, -(-n // points)))
+    # zeros: the padded rows and columns of every partial stay zero
+    partials = torch.zeros(ctas, (plan.n_rows + plan.n_bias) * COLS,
+                           device=dev)
+    ptrs = torch.tensor([g.data_ptr() for g in gs], dtype=torch.int64)
+    if n:
+        run("fused_mlp_bwd", emb, feat, w, b, plan_table(plan), ptrs, d_emb,
+            d_feat, partials, n, hin, width, inputs, points, smem, ctas,
+            _dtype_flag(compute_dtype))
+        fused_heads_bwd.launches += 1
+    return d_emb, d_feat, partials
+
+
+def fused_heads_bwd(plan: Plan, emb, feat, w, b, gs,
+                    compute_dtype=torch.float32):
+    """The backward kernel and its reduction: (d_emb [N, E], d_feat [N, F],
+    dw [R, 128], db [L, 128]) for the cotangents ``gs`` [N, out] of the
+    heads' outputs. CUDA tensors only; ``fused_heads_bwd_plain`` is its
+    plain version. Deterministic: each CTA sums its fixed share of the
+    points into its own dW/db partial, the partials are summed in CTA
+    order."""
+    d_emb, d_feat, partials = launch_bwd(plan, emb, feat, w, b, gs,
+                                         compute_dtype)
+    total = reduce_partials(partials)
+    split = plan.n_rows * COLS
+    return (d_emb, d_feat, total[:split].view(plan.n_rows, COLS),
+            total[split:].view(plan.n_bias, COLS))
+
+
+class _FusedHeads(torch.autograd.Function):
+    """The kernels: forward on the inputs, backward recomputing from them
+    (only the inputs are saved)."""
+
+    @staticmethod
+    def forward(ctx, plan, compute_dtype, emb, feat, w, b):
+        ctx.plan, ctx.compute_dtype = plan, compute_dtype
+        ctx.save_for_backward(emb, feat, w, b)
+        return _launch_fwd(plan, emb, feat, w, b, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        emb, feat, w, b = ctx.saved_tensors
+        gs = [torch.zeros(emb.shape[0], h.out_dim, device=emb.device)
+              if g is None else g.contiguous()
+              for h, g in zip(ctx.plan.heads, gs)]
+        grads = fused_heads_bwd(ctx.plan, emb, feat, w, b, gs,
+                                ctx.compute_dtype)
+        return (None, None, *grads)
+
+
+def fused_heads(plan: Plan, emb, feat, w, b,
+                compute_dtype=torch.float32) -> tuple:
+    """Every head of ``plan`` on [N, E] embeddings and [N, F] features
+    (F = 0 without an encoder) with packed weights ``w`` [R, 128] and
+    biases ``b`` [L, 128]: a tuple of per-head outputs [N, out], after the
+    last leaky_relu and before the head's out_activation. The kernels for
+    CUDA tensors, the plain version for CPU tensors; differentiable in
+    all four inputs."""
+    if emb.is_cuda:
+        return _FusedHeads.apply(plan, compute_dtype, emb.contiguous(),
+                                 feat.contiguous(), w.contiguous(),
+                                 b.contiguous())
+    return fused_heads_plain(plan, emb, feat, w, b, compute_dtype)
+
+
+fused_heads.launches = 0
+fused_heads_bwd.launches = 0
+reduce_partials.launches = 0

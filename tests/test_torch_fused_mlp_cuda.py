@@ -1,0 +1,128 @@
+"""The fused MLP-head CUDA kernels against their plain PyTorch version, on
+the GPU, and a SplatFields forward and backward through them.
+
+Needs a CUDA card (and nvcc to build the kernels); skips elsewhere.
+Imports no JAX, so on the GPU machine it runs without this directory's
+conftest:
+
+    python -m pytest --noconftest tests/test_torch_fused_mlp_cuda.py -q
+
+Tolerances: chip_smoke.TOL_FUSED, per compute type (its comment gives the
+reasons). Two launches of the backward on the same inputs are bitwise
+equal.
+"""
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import TOL_SEGSUM, check_fused, fused_case
+from splatfields_torch.models.splatfields import SplatFields
+from splatfields_torch.ops import fused_mlp as fm
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("kind", ["ragged", "no_features",
+                                  "skip_last_but_one"])
+def test_kernels_match_plain(cuda, kind, dtype):
+    case = fused_case(kind, cuda)
+    before = (fm.fused_heads.launches, fm.fused_heads_bwd.launches,
+              fm.reduce_partials.launches)
+    check_fused(kind, *case, DTYPES[dtype])
+    # one forward, two backward launches (each with its reduction)
+    assert (fm.fused_heads.launches - before[0],
+            fm.fused_heads_bwd.launches - before[1],
+            fm.reduce_partials.launches - before[2]) == (1, 2, 2)
+
+
+def test_bf16_rounds_the_operands(cuda):
+    """The bf16 kernel differs from the f32 plain version by the rounding
+    of its operands, far more than from the bf16 plain version."""
+    plan, emb, feat, w, b, _ = fused_case("ragged", cuda)
+    with torch.no_grad():
+        got = fm.fused_heads(plan, emb, feat, w, b, torch.bfloat16)
+        f32 = fm.fused_heads_plain(plan, emb, feat, w, b, torch.float32)
+        bf16 = fm.fused_heads_plain(plan, emb, feat, w, b, torch.bfloat16)
+    for g, a, r in zip(got, f32, bf16):
+        scale = float(r.abs().max())
+        assert float((g - a).abs().max()) > 1e-4 * scale
+        assert float((g - r).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n", [1, 5, 64])
+def test_small_and_ragged_n(cuda, n):
+    plan, emb, feat, w, b, gs = fused_case("skip_last_but_one", cuda, n=n)
+    check_fused(f"N {n}", plan, emb, feat, w, b, gs, torch.float32)
+
+
+def test_reduce_matches_sum(cuda):
+    p = torch.as_tensor(np.random.RandomState(0).randn(132, 5000).astype(
+        np.float32), device=cuda)
+    got = fm.reduce_partials(p)
+    want = p.sum(0)
+    assert float((got - want).abs().max() / want.abs().max()) <= TOL_SEGSUM
+    assert torch.equal(fm.reduce_partials(p), got)
+
+
+def test_wrapper_refuses_bad_inputs(cuda):
+    plan, emb, feat, w, b, gs = fused_case("ragged", cuda, n=40)
+    with pytest.raises(ValueError):
+        fm.fused_heads_bwd(plan, emb, feat, w[:-8], b, gs)
+    with pytest.raises(TypeError):
+        fm.fused_heads_bwd(plan, emb.double(), feat, w, b, gs)
+    with pytest.raises(ValueError):
+        fm.fused_heads_bwd(plan, emb, feat.cpu(), w, b, gs)
+    with pytest.raises(TypeError):
+        fm.fused_heads(plan, emb, feat, w, b, torch.float16)
+
+
+def test_splatfields_fused_on_card_matches_cpu(cuda):
+    """A small SplatFields with fused_pallas="on" at f32: outputs and
+    every parameter's gradient on the card (kernels, two forward and two
+    backward launches) against the CPU (plain version)."""
+    kw = dict(encoder_type="VarTriPlaneEncoder",
+              encoder_args={"noise_res": 4}, deform_w=32, deform_d=3,
+              rgb_w=32, rgb_d=3, scale_w=16, scale_d=2, opacity_w=16,
+              opacity_d=2, rotation_w=16, rotation_d=2, deform_skips=(1,),
+              rgb_skips=(1,), scale_skips=(1,), opacity_skips=(1,),
+              fused_pallas="on", fused_compute_dtype=torch.float32)
+    x = np.random.RandomState(0).uniform(-0.8, 0.8, (300, 3)).astype(
+        np.float32)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        net = SplatFields(**kw, generator=torch.Generator().manual_seed(0))
+        net = net.to(dev)
+        before = (fm.fused_heads.launches, fm.fused_heads_bwd.launches)
+        out = net(torch.as_tensor(x, device=dev))
+        loss = sum(out[k].sum() * s for k, s in (
+            ("means3D", 1.0), ("rgb", 1.0), ("scales", 0.1),
+            ("opacity", 1.0), ("rotations", 0.2)))
+        names, params = zip(*net.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        assert (fm.fused_heads.launches - before[0],
+                fm.fused_heads_bwd.launches - before[1]) == (
+                    (2, 2) if dev.type == "cuda" else (0, 0))
+        res[dev.type] = ({k: v.detach().cpu() for k, v in out.items()
+                          if v is not None},
+                         {k: g.cpu() for k, g in zip(names, grads)})
+    (out_g, g_g), (out_c, g_c) = res["cuda"], res["cpu"]
+    for k, want in out_c.items():
+        torch.testing.assert_close(out_g[k], want, rtol=1e-5, atol=1e-5)
+    for k, want in g_c.items():
+        if k.startswith("mlp_"):
+            scale = float(want.abs().max())
+            assert scale > 0, k
+            assert float((g_g[k] - want).abs().mean()) <= 1e-4 * float(
+                want.abs().mean()) + 1e-12, k
+            assert float((g_g[k] - want).abs().max()) <= 5e-2 * scale, k

@@ -19,7 +19,8 @@ MODULES = ("splatfields_torch", "splatfields_torch.render_lib",
            "splatfields_torch.models.deform_model",
            "splatfields_torch.ops.raster.blend_cuda",
            "splatfields_torch.ops.cuda_build", "splatfields_torch.ops.segsum",
-           "splatfields_torch.models.encoders", "chip_smoke")
+           "splatfields_torch.models.encoders",
+           "splatfields_torch.ops.fused_mlp", "chip_smoke")
 
 
 def test_import_pulls_in_no_jax():

@@ -69,10 +69,10 @@ def _moments(tree, seed):
             jax.tree.map(lambda p: p[1], pairs, is_leaf=is_pair))
 
 
-def _batches(seed=0):
+def _batches(seed=0, n_steps=max(STEPS)):
     rng = np.random.RandomState(seed)
     out = []
-    for step in range(max(STEPS)):
+    for step in range(n_steps):
         cam = _camera(view=step + 1)
         out.append({
             "viewmatrix": cam.world_view_transform[None],
@@ -93,9 +93,9 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _run(mode, hidden=None, n=N):
-    """Both packages through max(STEPS) steps; numpy snapshots after each
-    step in STEPS. Static mode has no net; the field modes take the
+def _run(mode, hidden=None, n=N, steps=STEPS):
+    """Both packages through max(steps) steps; numpy snapshots after each
+    step in ``steps``. Static mode has no net; the field modes take the
     ``hidden`` config (default: the VarTriPlane net at noise 4x4) and
     ``n`` splats."""
     field = mode != "static"
@@ -143,7 +143,7 @@ def _run(mode, hidden=None, n=N):
     p_lrs = splats.splat_lr_tree(*SPLAT_LRS)
 
     snaps = {}
-    for step, b in enumerate(_batches(), start=1):
+    for step, b in enumerate(_batches(n_steps=max(steps)), start=1):
         # below the 0.99 alpha clamp: applied alpha <= opacity < 0.99
         with torch.no_grad():
             attrs = (train_lib.field_attributes(
@@ -160,7 +160,7 @@ def _run(mode, hidden=None, n=N):
         p_params, p_stats, p_sopt, p_fparams, p_fopt, p_out = p_step(
             p_params, p_stats, p_sopt, p_fparams, p_fopt, pb, p_lrs,
             FIELD_LR)
-        if step in STEPS:
+        if step in steps:
             snaps[step] = dict(
                 jax=dict(params=_np(j_params), stats=_np(j_stats),
                          sopt=_np(j_sopt), fparams=_np(j_fp),
