@@ -6,9 +6,9 @@ Phases, each raising on failure:
 
 1. Device: the card's name and power limit; build the kernels (blend
    forward and backward, segment sum, fused heads forward, fused heads
-   backward with its reduction) from the five sources in
-   ``splatfields_torch/csrc`` with nvcc (sm_90a), one nvcc per source,
-   started together.
+   backward with its weight-gradient GEMM and its reduction) from the
+   five sources in ``splatfields_torch/csrc`` with nvcc (sm_90a), one
+   nvcc per source, started together.
 2. Kernel vs plain on the card: the serving scene at full width (100,000
    splats from ``create_from_pcd``, VarTriPlane field model from seed 0,
    800x800, tile 16, tile_cap 1024, k_chunk 128, dup_factor 5); the
@@ -51,15 +51,18 @@ Phases, each raising on failure:
     inputs and cotangents of one full-width fused training step (phase
     12's configuration), plus a ragged N, an F = 0 plan and a plan whose
     skip input layer is its last-but-one; two backward launches must be
-    bitwise equal; the reduction against ``sum(0)``.
+    bitwise equal; the weight-gradient GEMM (``fused_mlp_dw``) against
+    ``fused_dw_plain`` on the step's own scratch, twice bitwise equal; the
+    reduction against ``sum(0)`` at the step's partial shapes.
 12. The fused slice at full width: phase 6's workload with
     ``fused_pallas="on"`` (bf16 heads): warm-up steps, then timed steps;
     finite losses, every head parameter moved, the fused forward,
-    backward and reduction launched twice per step (deform and downstream
-    plans), no ``GeneralMLP.forward`` call; then 8 serving frames with two
-    forward launches each. ms/step, rays/s, ms/frame, each kernel's, its
-    plain version's and its bound's ms, and the heads alone, fused against
-    the unfused GeneralMLP chain, forward and forward + backward.
+    backward, dW and reduction kernels launched twice per step (deform
+    and downstream plans), no ``GeneralMLP.forward`` call; then 8 serving
+    frames with two forward launches each. ms/step, rays/s, ms/frame, each
+    kernel's, its plain version's, its library call's and its bound's ms,
+    and the heads alone, fused against the unfused GeneralMLP chain,
+    forward and forward + backward.
 13. One small fused training step on the card (kernels) and on the CPU
     (plain version), both at f32, must agree as in phase 7.
 
@@ -133,6 +136,17 @@ TOL_SEGSUM = 1e-5
 # not used: cancellation leaves some columns of dW near 0.
 TOL_FUSED = {"float32": dict(fwd=1e-5, mean=1e-4, worst=5e-2),
              "bfloat16": dict(fwd=1e-2, mean=2e-2, worst=1e-1)}
+# fused_mlp_dw vs fused_dw_plain on one scratch buffer, both dtypes: the
+# same terms x g summed in f32 in another order. The error is taken over
+# the sum of the terms' magnitudes, sum_n |x||g|, entry by entry (so an
+# entry of no terms, padding included, must be exactly 0). An ordered sum
+# of K terms may move by up to ~K 2^-24 of that (K = 3,456 and 11,104
+# points a slice at full width); the step's correlated terms moved an f32
+# entry by 1.6e-5 of it. A kernel that lost the last cp.async stage of
+# each slice moves entries of that step by 0.16 of it; check_dw shows
+# that every case would fail so, unless the lost points carry no terms
+# (points the view's loss does not reach have zero cotangents).
+TOL_DW = 1e-4
 # fused-heads bounds: the bf16 dense tensor-core rate (the path's compute
 # type on the card) and f32 outside the tensor cores
 BF16_FLOPS = 989e12
@@ -183,6 +197,30 @@ def cuda_ms(fn, iters):
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters):
+    """Mean device ms of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed: the kernels' time without the host's launch
+    overhead, which ``cuda_ms`` includes once a call's kernels take less
+    time than its Python."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -433,6 +471,56 @@ def check_fused(label, plan, emb, feat, w, b, gs, cdt):
             raise AssertionError(f"fused heads, {label}: {k} err {v} > "
                                  f"{tol[k]}")
     return abs_err, bwd_abs
+
+
+def check_dw(label, plan, scratch, n):
+    """``fused_mlp_dw`` (twice: bitwise equal; its slice partials summed
+    by ``sum(0)``) against ``fused_dw_plain`` with the same slices on one
+    scratch buffer, at the buffer's compute type, within TOL_DW of each
+    entry's sum of term magnitudes. Also shows that the bound would catch
+    a kernel that lost the last stage (32 points) of each slice. Returns
+    the max abs error."""
+    import torch
+
+    from splatfields_torch.ops import fused_mlp as fm
+    parts = fm.fused_dw(plan, scratch, n)
+    again = fm.fused_dw(plan, scratch, n)
+    slices = parts.shape[0]
+    want = fm.fused_dw_plain(plan, scratch, n, slices)
+    mag = fm.fused_dw_plain(plan, scratch.abs(), n, slices)
+    got = parts.sum(0).view(plan.n_rows, fm.COLS)
+    # the plain dW without the last 32 points of each slice
+    lost = scratch.clone()
+    n_pad = fm.dw_scratch_layout(plan, n).n_pad
+    rows = fm.dw_slice_rows(n_pad, slices)
+    for x, _ in fm.scratch_blocks(plan, lost, n):
+        for s0 in range(0, n_pad, rows):
+            end = min(s0 + rows, n_pad)
+            x[max(s0, end - 32):end] = 0
+    lost = fm.fused_dw_plain(plan, lost, n, slices)
+    torch.cuda.synchronize()
+    cdt = str(scratch.dtype).split(".")[-1]
+
+    def rel(a):   # max over entries of |a - want| / sum |x||g| (0 / 0 = 0)
+        return float(((a - want).abs() / mag).nan_to_num(
+            nan=0.0, posinf=float("inf")).max())
+
+    abs_err, err, lost_err = float((got - want).abs().max()), rel(got), rel(
+        lost)
+    print(f"fused_mlp_dw, {label}, {cdt}: {slices} slices, "
+          f"{len(fm.dw_tiles(plan))} tiles, N {n}; max abs err "
+          f"{abs_err:.3e}, over sum |x||g| {err:.3e} (a lost last stage of "
+          f"each slice: {lost_err:.3e})")
+    if not bool(torch.isfinite(parts).all()):
+        raise AssertionError(f"fused_mlp_dw, {label}: non-finite output")
+    if not torch.equal(parts, again):
+        raise AssertionError(f"fused_mlp_dw, {label}: two launches differ")
+    if not err <= TOL_DW:
+        raise AssertionError(f"fused_mlp_dw, {label}: err {err} > {TOL_DW}")
+    if lost_err and not lost_err > TOL_DW:
+        raise AssertionError(f"fused_mlp_dw, {label}: TOL_DW would not see "
+                             "a lost stage")
+    return abs_err
 
 
 def ngp_model(device=None, **small):
@@ -840,28 +928,48 @@ def fused_phases(sc, dev, smi):
         if not float(case[5][0].abs().max()) > 0:
             raise AssertionError("the fused step's cotangents are zero")
     for kind in ("ragged", "no_features", "skip_last_but_one"):
+        case = fused_case(kind, dev)
         for cdt in (torch.float32, bf16):
-            check_fused(kind, *fused_case(kind, dev), cdt)
+            check_fused(kind, *case, cdt)
+            check_dw(kind, case[0], fm.launch_bwd(*case, cdt)[2],
+                     case[1].shape[0])
+    # the weight-gradient GEMM on the step's own scratch (the backward
+    # kernel's output for the step's inputs); the bf16 scratch and
+    # partials are kept for phase 12's timings
+    n = sc.params.xyz.shape[0]
+    dw_err, scratches, dw_parts, b_parts = 0.0, [], [], []
+    for case in cases:
+        for cdt in (torch.float32, bf16):
+            _, _, scratch, b_part = fm.launch_bwd(*case, cdt)
+            err = check_dw(f"training step, {case[0].heads[0].name}",
+                           case[0], scratch, n)
+            if cdt == bf16:
+                dw_err = max(dw_err, err)
+                scratches.append(scratch)
+                dw_parts.append(fm.fused_dw(case[0], scratch, n))
+                b_parts.append(b_part)
     # the reduction at the step's partial shapes, random values
-    parts = []
-    for plan, *_ in cases:
-        _, smem = fm.bwd_layout(plan)
-        n = sc.params.xyz.shape[0]
-        g = min(fm.n_partials(dev, smem), -(-n // fm.bwd_layout(plan)[0]))
-        parts.append(torch.as_tensor(np.random.RandomState(g).randn(
-            g, (plan.n_rows + plan.n_bias) * fm.COLS).astype(np.float32),
-            device=dev))
     red_err = 0.0
-    for p in parts:
-        got = fm.reduce_partials(p)
-        want = p.sum(0)
+    for i, (pw, pb) in enumerate(zip(dw_parts, b_parts)):
+        rng = np.random.RandomState(i)
+        pw, pb = (torch.as_tensor(rng.randn(*p.shape).astype(np.float32),
+                                  device=dev) for p in (pw, pb))
+        got = fm.reduce_partials(pw, pb)
+        again = fm.reduce_partials(pw, pb)
+        want = (pw.sum(0), pb.sum(0))
         torch.cuda.synchronize()
-        red_err = max(red_err, float((got - want).abs().max()))
-        rel = float((got - want).abs().max() / want.abs().max())
-        print(f"reduce_partials: [{p.shape[0]}, {p.shape[1]}]; max abs err "
-              f"{red_err:.3e}, over the max {rel:.3e}")
-        if not rel <= TOL_SEGSUM:
-            raise AssertionError(f"reduce_partials: err {rel} > {TOL_SEGSUM}")
+        for g, a, w_ in zip(got, again, want):
+            err = float((g - w_).abs().max())
+            red_err = max(red_err, err)
+            rel = err / float(w_.abs().max())
+            print(f"reduce_partials: [{pw.shape[0]}, {pw.shape[1]}] and "
+                  f"[{pb.shape[0]}, {pb.shape[1]}]; max abs err {err:.3e}, "
+                  f"over the max {rel:.3e}")
+            if not rel <= TOL_SEGSUM:
+                raise AssertionError(f"reduce_partials: err {rel} > "
+                                     f"{TOL_SEGSUM}")
+            if not torch.equal(g, a):
+                raise AssertionError("reduce_partials: two launches differ")
 
     # --- 12. the fused slice at full width -----------------------------------
     mlp_calls = [0]
@@ -880,7 +988,7 @@ def fused_phases(sc, dev, smi):
         torch.cuda.synchronize()
         blend_fwd.launches = blend_bwd.launches = 0
         fm.fused_heads.launches = fm.fused_heads_bwd.launches = 0
-        fm.reduce_partials.launches = 0
+        fm.fused_dw.launches = fm.reduce_partials.launches = 0
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         for i, b in enumerate(batches[:TRAIN_WARMUP + TRAIN_STEPS]):
             if i == TRAIN_WARMUP:
@@ -892,8 +1000,8 @@ def fused_phases(sc, dev, smi):
         torch.cuda.synchronize()
         steps = TRAIN_WARMUP + TRAIN_STEPS
         launches = (fm.fused_heads.launches, fm.fused_heads_bwd.launches,
-                    fm.reduce_partials.launches, blend_fwd.launches,
-                    blend_bwd.launches)
+                    fm.fused_dw.launches, fm.reduce_partials.launches,
+                    blend_fwd.launches, blend_bwd.launches)
         step_calls = mlp_calls[0]
         # serving frames through the fused forward
         fm.fused_heads.launches = 0
@@ -903,10 +1011,10 @@ def fused_phases(sc, dev, smi):
         frame_launches, frame_calls = fm.fused_heads.launches, mlp_calls[0]
     finally:
         GeneralMLP.forward = mlp_forward
-    if launches != (2 * steps,) * 3 + (steps,) * 2:
+    if launches != (2 * steps,) * 4 + (steps,) * 2:
         raise AssertionError(f"{steps} fused steps launched the fused "
-                             "forward, backward, reduction, blend_fwd and "
-                             f"blend_bwd {launches} times")
+                             "forward, backward, dW, reduction, blend_fwd "
+                             f"and blend_bwd {launches} times")
     if step_calls or frame_calls:
         raise AssertionError(f"GeneralMLP.forward ran {frame_calls} times on "
                              "the fused path")
@@ -928,9 +1036,9 @@ def fused_phases(sc, dev, smi):
     print(f"fused train ms/step {step_ms:.4f}; rays/s "
           f"{RES * RES / step_ms * 1e3:.1f} ({RES}x{RES}, {N_SPLATS} splats, "
           f"1 view, bf16 heads, {TRAIN_STEPS} steps after {TRAIN_WARMUP} "
-          f"warm-up; fused forward, backward, reduction, blend_fwd, blend_bwd "
-          f"launches {launches} for {steps} steps; GeneralMLP.forward calls "
-          f"{step_calls}; {smi})")
+          f"warm-up; fused forward, backward, dW, reduction, blend_fwd, "
+          f"blend_bwd launches {launches} for {steps} steps; "
+          f"GeneralMLP.forward calls {step_calls}; {smi})")
 
     def render_all():
         for cam in sc.cams:
@@ -950,29 +1058,78 @@ def fused_phases(sc, dev, smi):
         fwd_ms = cuda_ms(per_plan(lambda *a: fm.fused_heads(*a[:5], bf16)), 10)
         fwd_plain_ms = cuda_ms(per_plan(
             lambda *a: fm.fused_heads_plain(*a[:5], bf16)), 3)
+    # the three kernels of the backward: each alone on the step's inputs,
+    # scratch and partials, and all three as the autograd backward runs them
     bwd_ms = cuda_ms(per_plan(lambda *a: fm.launch_bwd(*a, bf16)), 5)
     bwd_plain_ms = cuda_ms(per_plan(
         lambda *a: fm.fused_heads_bwd_plain(*a, bf16)), 3)
-    red_ms = cuda_ms(lambda: [fm.reduce_partials(p) for p in parts], 20)
-    red_lib_ms = cuda_ms(lambda: [p.sum(0) for p in parts], 20)
-    n = sc.params.xyz.shape[0]
-    flops = heads_flops([c[0] for c in cases], n)
+    bwd_total_ms = cuda_ms(per_plan(
+        lambda *a: fm.fused_heads_bwd(*a, bf16)), 5)
+    plans = [c[0] for c in cases]
+
+    def dw_all():
+        return [fm.fused_dw(p, s, n) for p, s in zip(plans, scratches)]
+
+    def dw_plain_all():
+        return [fm.fused_dw_plain(p, s, n, parts.shape[0])
+                for p, s, parts in zip(plans, scratches, dw_parts)]
+
+    blocks = [xg for p, s in zip(plans, scratches)
+              for xg in fm.scratch_blocks(p, s, n)]
+
+    def dw_library():
+        # no single call computes every layer's product: one cuBLAS bf16
+        # torch.mm per layer on the same scratch
+        return [torch.mm(x.t(), g) for x, g in blocks]
+
+    dw_ms = cuda_ms(dw_all, 20)
+    dw_plain_ms = cuda_ms(dw_plain_all, 3)
+    dw_lib_ms = cuda_ms(dw_library, 20)
+    # the reduction's ~10 us of work a step is below the host's launch
+    # time: its eager time (the kernels line's method) is the wrapper's;
+    # the device time from a CUDA graph's replay is printed beside it
+    def red_all():
+        return [fm.reduce_partials(pw, pb) for pw, pb in zip(dw_parts, b_parts)]
+
+    def red_lib():
+        return [(pw.sum(0), pb.sum(0)) for pw, pb in zip(dw_parts, b_parts)]
+
+    red_ms, red_lib_ms = cuda_ms(red_all, 20), cuda_ms(red_lib, 20)
+    red_graph_ms, red_lib_graph_ms = (graph_ms(red_all, 20),
+                                      graph_ms(red_lib, 20))
+    flops = heads_flops(plans, n)
     in_bytes = sum((emb.numel() + feat.numel() + w.numel() + b.numel()) * 4
                    for _, emb, feat, w, b, _ in cases)
     out_bytes = sum(g.numel() * 4 for c in cases for g in c[5])
-    part_bytes = sum(p.numel() * 4 for p in parts)
+    scratch_bytes = sum(s.numel() * s.element_size() for s in scratches)
+    dw_part_bytes = sum(p.numel() * 4 for p in dw_parts)
+    b_part_bytes = sum(p.numel() * 4 for p in b_parts)
+    grad_bytes = sum((emb.numel() + feat.numel()) * 4
+                     for _, emb, feat, *_ in cases)
     fwd_bytes = in_bytes + out_bytes
-    # the backward reads the inputs and cotangents and writes d_emb,
-    # d_feat and its partials
-    bwd_bytes = in_bytes + out_bytes + sum(
-        (emb.numel() + feat.numel()) * 4 for _, emb, feat, *_ in cases
-    ) + part_bytes
-    red_bytes = part_bytes + sum(p.shape[1] * 4 for p in parts)
+    # the backward kernel's own work, recompute, dX and db: it reads the
+    # inputs and cotangents and writes d_emb, d_feat and db. The scratch
+    # it also writes is a cost of the split (bound "scratch" below), not of
+    # that work
+    bwd_bytes = in_bytes + out_bytes + grad_bytes + sum(
+        b.numel() * 4 for _, _, _, _, b, _ in cases)
+    # the dW GEMM reads the scratch once and writes its slice partials
+    dw_bytes = scratch_bytes + dw_part_bytes
+    red_bytes = dw_part_bytes + b_part_bytes + sum(
+        (p.shape[1] + q.shape[1]) * 4 for p, q in zip(dw_parts, b_parts))
+    # the whole VJP, as one function: inputs and cotangents in, d_emb,
+    # d_feat, dW and db out
+    vjp_bytes = in_bytes + out_bytes + grad_bytes + sum(
+        (w.numel() + b.numel()) * 4 for _, _, _, w, b, _ in cases)
     bounds = {}
     for name, ops, nbytes, rate in (
             ("fwd", flops, fwd_bytes, BF16_FLOPS),
-            ("bwd", 3 * flops, bwd_bytes, BF16_FLOPS),
-            ("reduce", sum(p.numel() for p in parts), red_bytes, F32_FLOPS)):
+            ("bwd", 2 * flops, bwd_bytes, BF16_FLOPS),
+            ("scratch", 0, scratch_bytes, BF16_FLOPS),
+            ("dw", flops, dw_bytes, BF16_FLOPS),
+            ("reduce", (dw_part_bytes + b_part_bytes) // 4, red_bytes,
+             F32_FLOPS),
+            ("vjp", 3 * flops, vjp_bytes, BF16_FLOPS)):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / rate * 1e3
         bounds[name] = (max(bytes_ms, ops_ms),
@@ -982,9 +1139,16 @@ def fused_phases(sc, dev, smi):
               f"({'bf16 tensor-core' if rate == BF16_FLOPS else 'f32'} rate; "
               f"f32 rate {ops / F32_FLOPS * 1e3:.5f} ms)")
     print(f"fused_heads forward (2 plans, bf16): kernel {fwd_ms:.5f} ms, "
-          f"plain {fwd_plain_ms:.5f} ms; backward kernel {bwd_ms:.5f} ms, "
-          f"plain {bwd_plain_ms:.5f} ms; reduce_partials {red_ms:.5f} ms, "
-          f"sum(0) {red_lib_ms:.5f} ms; {flops} forward FLOP on {n} points")
+          f"plain {fwd_plain_ms:.5f} ms; {flops} forward FLOP on {n} points")
+    print(f"fused_heads backward (2 plans, bf16): backward kernel "
+          f"{bwd_ms:.5f} ms, fused_mlp_dw {dw_ms:.5f} ms (plain "
+          f"{dw_plain_ms:.5f}, per-layer torch.mm {dw_lib_ms:.5f}; slices "
+          f"{[p.shape[0] for p in dw_parts]}), reduce_partials {red_ms:.5f} "
+          f"ms (sum(0) {red_lib_ms:.5f}; from a CUDA graph's replay "
+          f"{red_graph_ms:.5f} and {red_lib_graph_ms:.5f}); sum of the "
+          f"three {bwd_ms + dw_ms + red_ms:.5f} ms, fused_heads_bwd "
+          f"{bwd_total_ms:.5f} ms, plain {bwd_plain_ms:.5f} ms; scratch "
+          f"{scratch_bytes} bytes")
 
     # the heads alone from (xyz, features): fused (bf16 kernels) against
     # the port's GeneralMLP chain (f32 F.linear), forward and fwd + bwd
@@ -1025,14 +1189,16 @@ def fused_phases(sc, dev, smi):
         # f32 on both sides: one rounding type, so the two agree as in
         # phase 7 (bf16 is phase 11's and 12's)
         d_.net.fused_pallas, d_.net.fused_compute_dtype = "on", torch.float32
-        before = (fm.fused_heads.launches, fm.fused_heads_bwd.launches)
+        before = (fm.fused_heads.launches, fm.fused_heads_bwd.launches,
+                  fm.fused_dw.launches)
         res[name] = train_step_fn(d_, sc.pipe, 64)(
             p_, s_, nonzero_adam(p_, 1), d_.params, nonzero_adam(d_.params, 2),
             train_batch(cam, np.random.RandomState(1), device), lrs,
             FIELD_LR)
         ran = (fm.fused_heads.launches - before[0],
-               fm.fused_heads_bwd.launches - before[1])
-        if ran != ((2, 2) if name == "cuda" else (0, 0)):
+               fm.fused_heads_bwd.launches - before[1],
+               fm.fused_dw.launches - before[2])
+        if ran != ((2, 2, 2) if name == "cuda" else (0, 0, 0)):
             raise AssertionError(f"small fused step on {name}: launches {ran}")
     check_small_step(res["cuda"], res["cpu"])
 
@@ -1063,17 +1229,36 @@ def fused_phases(sc, dev, smi):
         "plain_ms": bwd_plain_ms,
         "bound_ms": bounds["bwd"][0],
         "bound_by": bounds["bwd"][1],
+        # the backward's three kernels in turn, as autograd runs them, the
+        # bound of the whole VJP and the bytes bound of the scratch writes
+        "fused_heads_bwd_total_ms": bwd_total_ms,
+        "vjp_bound_ms": bounds["vjp"][0],
+        "scratch_write_bound_ms": bounds["scratch"][0],
         "unfused_heads_fwd_bwd_ms": head_ms[("unfused", True)],
+    }, {
+        "name": "fused_heads_dw",
+        "route": "cuda",
+        "source": "splatfields_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "splatfields_tpu/ops/fused_mlp.py:338",
+        "launches": launches[2],
+        "max_abs_err": dw_err,
+        "ms": dw_ms,
+        "kernel_ms": dw_ms,
+        "plain_ms": dw_plain_ms,
+        "bound_ms": bounds["dw"][0],
+        "bound_by": bounds["dw"][1],
+        # no single call: one cuBLAS bf16 torch.mm per layer
+        "library_ms": dw_lib_ms,
     }, {
         "name": "reduce_partials",
         "route": "cuda",
         "source": "splatfields_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "splatfields_tpu/ops/fused_mlp.py:338",
-        "launches": launches[2],
+        "launches": launches[3],
         "max_abs_err": red_err,
         "ms": red_ms,
         "kernel_ms": red_ms,
-        # the plain version is the library call, partials.sum(0)
+        # the plain version is the library call, parts.sum(0) on both
         "plain_ms": red_lib_ms,
         "bound_ms": bounds["reduce"][0],
         "bound_by": bounds["reduce"][1],

@@ -1,15 +1,23 @@
-"""Where the fused-heads backward kernel's time goes, on a GPU.
+"""Where the fused-heads backward's time goes, on a GPU.
 
     python3 scripts/profile_fused_bwd.py
 
-Builds variants of ``splatfields_torch/csrc/fused_mlp_bwd.cu`` with its
-dW step, its dX step or both compiled out (into ``build/profile_fused/``)
-and times each, at f32 and bf16, on the published-width downstream plan
-(rgb, scale, opacity, rotation heads; E = 39, F = 48) for 100,000 random
-points, next to the full kernel and the forward kernel on the same
-inputs. The differences attribute the backward's time to the recompute
-(with the leaky mask and db), the dW partials and the dX products.
-Timing variants only: their outputs are wrong by design.
+The backward is three kernels (``splatfields_torch/csrc/fused_mlp_bwd.cu``):
+the backward kernel (recompute, leaky mask and db, the scratch writes of
+every layer's X_l and G_l, the dX products), ``fused_mlp_dw`` and the
+reduction. This script builds variants of the source with the scratch
+writes, the dX step (its output zero-filled instead) or both compiled
+out (into ``build/profile_fused/``) and times each backward kernel, at
+f32 and bf16, on the published-width downstream plan (rgb, scale,
+opacity, rotation heads; E = 39, F = 48) for 100,000 random points, next
+to ``fused_mlp_dw`` on the full kernel's
+scratch, the reduction of its partials, the whole backward and the
+forward kernel on the same inputs. The recompute (with the leaky mask
+and db) is the variant without both, dX the difference of the two
+variants without scratch writes, the scratch writes the full kernel less
+the variant without them. The variant without dX shows what the scratch
+writes cost when no dX products follow them. Timing variants only: their
+outputs are wrong by design.
 
 Needs a CUDA card and nvcc; exits 1 without a card.
 """
@@ -23,23 +31,30 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-VARIANTS = {"full": [], "no dW": ["-DSKIP_DW"], "no dX": ["-DSKIP_DX"],
-            "no dW, no dX": ["-DSKIP_DW", "-DSKIP_DX"]}
+VARIANTS = {"full": [], "no scratch writes": ["-DSKIP_SCRATCH"],
+            "no dX": ["-DSKIP_DX"],
+            "no scratch writes, no dX": ["-DSKIP_SCRATCH", "-DSKIP_DX"]}
 
 
 def variant_source(out: pathlib.Path) -> None:
-    """The backward source with ``#ifndef SKIP_DW`` / ``SKIP_DX`` around
-    its dW and dX steps (from their comment lines to the barrier that
-    ends the layer)."""
+    """The backward source with ``#ifndef SKIP_SCRATCH`` / ``SKIP_DX``
+    around its scratch-write and dX steps (from their comment lines to the
+    barrier that ends the layer). Without dX the dX buffer is zero-filled
+    instead: the layers below then read defined values, where the
+    unwritten buffer would hold whatever an earlier kernel left in shared
+    memory."""
     src = (ROOT / "splatfields_torch/csrc/fused_mlp_bwd.cu").read_text()
     lines = src.split("\n")
-    i_dw = next(i for i, line in enumerate(lines) if "// 2. dW" in line)
+    i_st = next(i for i, line in enumerate(lines) if "// 2. X_l and G_l" in line)
     i_dx = next(i for i, line in enumerate(lines) if "// 3. dX" in line)
     i_end = next(i for i in range(i_dx, len(lines))
                  if lines[i].strip() == "__syncthreads();")
-    lines[i_end:i_end] = ["#endif"]
+    lines[i_end:i_end] = [
+        "#else",
+        "        for (int i = tid; i < P * ws; i += kThreads) gb[i] = 0.0f;",
+        "#endif"]
     lines[i_dx:i_dx] = ["#endif", "#ifndef SKIP_DX"]
-    lines[i_dw:i_dw] = ["#ifndef SKIP_DW"]
+    lines[i_st:i_st] = ["#ifndef SKIP_SCRATCH"]
     out.write_text("\n".join(lines))
 
 
@@ -60,11 +75,24 @@ def main() -> int:
     variant_source(src)
     cuda_build.build()
     dev = torch.device("cuda")
-    case = fused_case("ragged", dev, n=100_000)
-    for cdt in (torch.float32, torch.bfloat16):
+    n = 100_000
+    case = fused_case("ragged", dev, n=n)
+    plan = case[0]
+    dtypes = (torch.float32, torch.bfloat16)
+    for cdt in dtypes:
         with torch.no_grad():
             ms = cuda_ms(lambda: fm.fused_heads(*case[:5], cdt), 10)
         print(f"forward kernel, {cdt}: {ms:.4f} ms")
+        _, _, scratch, b_parts = fm.launch_bwd(*case, cdt)
+        dw_parts = fm.fused_dw(plan, scratch, n)
+        dw_ms = cuda_ms(lambda: fm.fused_dw(plan, scratch, n), 20)
+        red_ms = cuda_ms(lambda: fm.reduce_partials(dw_parts, b_parts), 20)
+        all_ms = cuda_ms(lambda: fm.fused_heads_bwd(*case, cdt), 5)
+        print(f"fused_mlp_dw, {cdt}: {dw_ms:.4f} ms ({dw_parts.shape[0]} "
+              f"slices, {len(fm.dw_tiles(plan))} tiles, scratch "
+              f"{scratch.numel() * scratch.element_size()} bytes); "
+              f"reduction {red_ms:.4f} ms; whole backward {all_ms:.4f} ms")
+        del scratch, b_parts, dw_parts
     for name, flags in VARIANTS.items():
         lib_path = out_dir / f"lib_{len(flags)}_{'_'.join(flags)}.so"
         subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags,
@@ -77,7 +105,7 @@ def main() -> int:
         lib.fused_mlp_bwd_error_string.argtypes = [ctypes.c_int]
         lib.fused_mlp_bwd_error_string.restype = ctypes.c_char_p
         cuda_build._libs["fused_mlp_bwd"] = lib
-        for cdt in (torch.float32, torch.bfloat16):
+        for cdt in dtypes:
             ms = cuda_ms(lambda: fm.launch_bwd(*case, cdt), 5)
             print(f"backward kernel, {name}, {cdt}: {ms:.4f} ms")
     return 0

@@ -128,7 +128,8 @@ def ngp_marks(deform, mark):
 @contextlib.contextmanager
 def fused_marks(mark):
     """Marks around each fused forward call (the kernel and its output
-    allocation) and each fused backward (the kernel and its reduction)."""
+    allocation) and each fused backward (its three kernels: the backward,
+    fused_mlp_dw and the reduction)."""
     import splatfields_torch.models.splatfields as sfm
     from splatfields_torch.ops import fused_mlp as fm
     fwd, bwd = sfm.fused_heads, fm.fused_heads_bwd

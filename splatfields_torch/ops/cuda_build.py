@@ -47,10 +47,12 @@ KERNELS = {
                       [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32,
                        _i32, _i32, _ptr]),
     "fused_mlp_bwd": (CSRC / "fused_mlp_bwd.cu",
-                      [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                       _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr]),
+                      [_ptr] * 11 + [_i32] * 9 + [_ptr]),
+    "fused_mlp_dw": (CSRC / "fused_mlp_bwd.cu",
+                     [_ptr] * 5 + [_i32] * 5 + [_ptr]),
     "fused_mlp_reduce": (CSRC / "fused_mlp_bwd.cu",
-                         [_ptr, _ptr, _i32, _i32, _ptr]),
+                         [_ptr, _ptr, _i32, _i32, _ptr, _ptr, _i32, _i32,
+                          _i32, _ptr]),
 }
 _libs: dict = {}
 

@@ -15,11 +15,15 @@ A ``Plan`` lays the heads' weights out as the JAX package does: layer
 
 ``fused_heads(plan, emb, feat, w, b, compute_dtype)``: on CUDA tensors
 an ``autograd.Function`` whose forward launches ``csrc/fused_mlp_fwd.cu``
-and whose backward launches ``csrc/fused_mlp_bwd.cu`` (recompute, VJP,
-per-CTA dW/db partials) and then its fixed-order reduction; only the
-inputs are saved. On CPU tensors it runs ``fused_heads_plain``, an
-autograd graph with the same rounding points. Matrix operands go to
-``compute_dtype`` (bf16 or f32) and every product sums in f32:
+and whose backward launches the three kernels of
+``csrc/fused_mlp_bwd.cu`` in order: the backward (recompute, d_emb,
+d_feat, per-CTA db partials, and every layer's rounded input X_l and
+cotangent G_l written to a scratch buffer), ``fused_mlp_dw`` (dW_l =
+X_lᵀ G_l, split over N into slice partials) and the fixed-order
+reduction of both partials; only the inputs are saved. On CPU tensors it
+runs ``fused_heads_plain``, an autograd graph with the same rounding
+points. Matrix operands go to ``compute_dtype`` (bf16 or f32) and every
+product sums in f32:
 
 - forward: every layer input and weight block is rounded, the bias is
   added in f32;
@@ -27,11 +31,13 @@ autograd graph with the same rounding points. Matrix operands go to
   product, db sums the unrounded ``g``, and the leaky_relu mask is the
   sign of the layer's output.
 
-``fused_heads.launches``, ``fused_heads_bwd.launches`` and
-``reduce_partials.launches`` count kernel launches, and nothing else.
+``fused_heads.launches``, ``fused_heads_bwd.launches``,
+``fused_dw.launches`` and ``reduce_partials.launches`` count kernel
+launches, and nothing else.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import torch
@@ -46,6 +52,11 @@ MAX_HEADS, MAX_LAYERS = 8, 48
 POINTS_FWD = 32          # kPoints in csrc/fused_mlp_fwd.cu
 THREADS_BWD = 256        # kThreads in csrc/fused_mlp_bwd.cu
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on sm_90
+# csrc/fused_mlp_bwd.cu's fused_mlp_dw: rows of N per slice come in
+# multiples of ROW_ALIGN (its K step; every chunk size of the backward
+# divides it), output tiles are DW_TILE packed rows by all 128 columns
+ROW_ALIGN = 32
+DW_TILE = 128
 
 
 class LayerSpec(NamedTuple):
@@ -188,32 +199,40 @@ def _leaky(x):
     return torch.where(x >= 0, x, ALPHA * x)
 
 
-def fused_heads_plain(plan: Plan, emb, feat, w, b,
-                      compute_dtype=torch.float32) -> tuple:
-    """The plain version of both kernels: every head of ``plan`` on [N, E]
-    embeddings and [N, F] features, as an autograd graph of matmuls with
-    the kernels' rounding points. Returns the per-head outputs [N, out]
-    (after the last leaky_relu)."""
+def _plain_graph(plan: Plan, emb, feat, w, b, compute_dtype):
+    """The heads as an autograd graph with the kernels' rounding points:
+    (per-head outputs, per-layer (rounded input X_l, product X_l W_l)).
+    The gradient reaching a product is the layer's rounded cotangent G_l."""
     rounding = compute_dtype != torch.float32
 
     def rnd(x):
         return _Round.apply(x, compute_dtype) if rounding else x
 
-    outs = []
+    outs, layers = [], []
     for head in plan.heads:
         h_in = emb[:, :head.emb_cols]
         if plan.feat_dim:
             h_in = torch.cat([h_in, feat], 1)
         h = h_in
         for L in head.layers:
-            y = rnd(h) @ rnd(w[L.row_off:L.row_off + L.fin, :L.fout])
-            if rounding:
-                y = _RoundGrad.apply(y, compute_dtype)
+            x = rnd(h)
+            prod = x @ rnd(w[L.row_off:L.row_off + L.fin, :L.fout])
+            layers.append((x, prod))
+            y = _RoundGrad.apply(prod, compute_dtype) if rounding else prod
             h = _leaky(y + b[L.bias_idx, :L.fout])
             if L.skip_after:
                 h = torch.cat([h_in, h], 1)
         outs.append(h)
-    return tuple(outs)
+    return tuple(outs), layers
+
+
+def fused_heads_plain(plan: Plan, emb, feat, w, b,
+                      compute_dtype=torch.float32) -> tuple:
+    """The plain version of both kernels: every head of ``plan`` on [N, E]
+    embeddings and [N, F] features, as an autograd graph of matmuls with
+    the kernels' rounding points. Returns the per-head outputs [N, out]
+    (after the last leaky_relu)."""
+    return _plain_graph(plan, emb, feat, w, b, compute_dtype)[0]
 
 
 def fused_heads_bwd_plain(plan: Plan, emb, feat, w, b, gs,
@@ -226,6 +245,103 @@ def fused_heads_bwd_plain(plan: Plan, emb, feat, w, b, gs,
         grads = torch.autograd.grad(outs, xs, gs, allow_unused=True)
     return tuple(torch.zeros_like(x) if g is None else g
                  for x, g in zip(xs, grads))
+
+
+# --- the weight gradient's scratch and split-K product ---------------------
+
+class ScratchLayout(NamedTuple):
+    n_pad: int        # rows of every block: N rounded up to ROW_ALIGN
+    x_off: tuple      # per layer (plan order), element offset of X_l
+    g_off: tuple      # per layer, element offset of G_l
+    size: int         # elements of the whole buffer
+
+
+def _layers(plan: Plan) -> list:
+    return [L for h in plan.heads for L in h.layers]
+
+
+def dw_scratch_layout(plan: Plan, n: int) -> ScratchLayout:
+    """Where the backward kernel writes, for every layer l, X_l [n_pad,
+    round8(fin)] (its rounded input) and then G_l [n_pad, round8(fout)]
+    (its rounded cotangent), row-major, in the compute type. Every block
+    holds a multiple of 256 elements, so every offset is 512-byte aligned
+    (bf16) and every row 16-byte aligned."""
+    n_pad = -(-n // ROW_ALIGN) * ROW_ALIGN
+    x_off, g_off, pos = [], [], 0
+    for L in _layers(plan):
+        x_off.append(pos)
+        pos += n_pad * _round8(L.fin)
+        g_off.append(pos)
+        pos += n_pad * _round8(L.fout)
+    return ScratchLayout(n_pad, tuple(x_off), tuple(g_off), pos)
+
+
+def dw_tiles(plan: Plan) -> list[tuple[int, int]]:
+    """fused_mlp_dw's output tiles, (layer index, first row within the
+    layer's block): DW_TILE rows of round8(fin) by all 128 columns."""
+    return [(i, m0) for i, L in enumerate(_layers(plan))
+            for m0 in range(0, _round8(L.fin), DW_TILE)]
+
+
+def dw_slice_rows(n_pad: int, slices: int) -> int:
+    """Rows of N per slice (the last may be shorter): a multiple of
+    ROW_ALIGN."""
+    return -(-n_pad // (slices * ROW_ALIGN)) * ROW_ALIGN
+
+
+def dw_slices(plan: Plan, n: int, sms: int) -> int:
+    """The slice count S of fused_mlp_dw: tiles x S fill, without
+    exceeding, two CTAs on each of ``sms`` multiprocessors (the kernel's
+    occupancy), and no slice is empty. A function of the shapes and the
+    SM count only, so two launches sum alike."""
+    n_pad = dw_scratch_layout(plan, n).n_pad
+    want = max(1, 2 * sms // len(dw_tiles(plan)))
+    return max(1, -(-n_pad // dw_slice_rows(n_pad, want)))
+
+
+def scratch_blocks(plan: Plan, scratch: torch.Tensor, n: int) -> list:
+    """Per layer, in plan order, the views (X_l [n_pad, round8(fin)],
+    G_l [n_pad, round8(fout)]) of a scratch buffer for N points."""
+    lay = dw_scratch_layout(plan, n)
+    return [(scratch[xo:xo + lay.n_pad * _round8(L.fin)].view(lay.n_pad, -1),
+             scratch[go:go + lay.n_pad * _round8(L.fout)].view(lay.n_pad, -1))
+            for L, xo, go in zip(_layers(plan), lay.x_off, lay.g_off)]
+
+
+def dw_scratch_plain(plan: Plan, emb, feat, w, b, gs,
+                     compute_dtype=torch.float32) -> torch.Tensor:
+    """The scratch buffer exactly as the backward kernel writes it,
+    padding included: a flat ``compute_dtype`` tensor laid out by
+    ``dw_scratch_layout``. Plain version, for tests."""
+    n = emb.shape[0]
+    xs = [x.detach().requires_grad_(True) for x in (emb, feat, w, b)]
+    with torch.enable_grad():
+        outs, layers = _plain_graph(plan, *xs, compute_dtype)
+        cots = torch.autograd.grad(outs, [p for _, p in layers], gs)
+    out = torch.zeros(dw_scratch_layout(plan, n).size, dtype=compute_dtype,
+                      device=emb.device)
+    for (x, _), g, (xb, gb) in zip(layers, cots,
+                                   scratch_blocks(plan, out, n)):
+        xb[:n, :x.shape[1]] = x.detach()
+        gb[:n, :g.shape[1]] = g
+    return out
+
+
+def fused_dw_plain(plan: Plan, scratch: torch.Tensor, n: int,
+                   slices: int) -> torch.Tensor:
+    """dW [R, 128] from a scratch buffer: per layer X_lᵀ G_l in f32 over
+    each slice of N, the slices summed in order (fused_mlp_dw's split, its
+    sum in another order). Plain version of fused_mlp_dw and its
+    reduction."""
+    rows = dw_slice_rows(dw_scratch_layout(plan, n).n_pad, slices)
+    dw = torch.zeros(plan.n_rows, COLS, device=scratch.device)
+    for L, (x, g) in zip(_layers(plan), scratch_blocks(plan, scratch, n)):
+        x, g = x.float(), g.float()
+        acc = torch.zeros(x.shape[1], g.shape[1], device=scratch.device)
+        for s0 in range(0, x.shape[0], rows):
+            acc = acc + x[s0:s0 + rows].t() @ g[s0:s0 + rows]
+        dw[L.row_off:L.row_off + x.shape[1], :g.shape[1]] = acc
+    return dw
 
 
 # --- the kernels ----------------------------------------------------------
@@ -278,12 +394,16 @@ def bwd_layout(plan: Plan) -> tuple[int, int]:
                      "for 4 points")
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def n_partials(device: torch.device, smem: int) -> int:
     """CTAs of the backward kernel: as many as fit on the card at once,
-    each owning one dW/db partial."""
-    props = torch.cuda.get_device_properties(device)
+    each owning one db partial."""
     per_sm = max(1, min(228 * 1024 // (smem + 1024), 2048 // THREADS_BWD))
-    return props.multi_processor_count * per_sm
+    return _sm_count(device) * per_sm
 
 
 def _dtype_flag(compute_dtype) -> int:
@@ -315,55 +435,91 @@ def _launch_fwd(plan, emb, feat, w, b, compute_dtype):
     return tuple(outs)
 
 
-def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
-    """The fixed-order sum over the first axis of [G, M] f32 partials ->
-    [M] (csrc/fused_mlp_bwd.cu, ``fused_mlp_reduce``); CUDA tensors only.
-    ``partials.sum(0)`` is its plain version."""
-    g, m = partials.shape
-    check("partials", partials, torch.float32, (g, m), partials.device)
-    out = torch.empty(m, device=partials.device)
-    run("fused_mlp_reduce", partials, out, g, m)
+def reduce_partials(w_parts: torch.Tensor, b_parts: torch.Tensor):
+    """The fixed-order sums over the first axis of two [G, M] f32 partials
+    (M a multiple of 4) -> ([M_w], [M_b]), in one launch of
+    csrc/fused_mlp_bwd.cu's ``fused_mlp_reduce``; CUDA tensors only.
+    ``parts.sum(0)`` is its plain version."""
+    dev = w_parts.device
+    for name, p in (("w_parts", w_parts), ("b_parts", b_parts)):
+        check(name, p, torch.float32, tuple(p.shape), dev)
+        if p.dim() != 2 or p.shape[1] % 4:
+            raise ValueError(f"{name}: shape {tuple(p.shape)}, [G, M] with "
+                             "M a multiple of 4 expected")
+    (gw, mw), (gb, mb) = w_parts.shape, b_parts.shape
+    out = torch.empty(mw + mb, device=dev)
+    run("fused_mlp_reduce", w_parts, out, gw, mw, b_parts, out[mw:], gb, mb,
+        _sm_count(dev))
     reduce_partials.launches += 1
-    return out
+    return out[:mw], out[mw:]
 
 
 def launch_bwd(plan: Plan, emb, feat, w, b, gs, compute_dtype):
-    """The backward kernel alone: (d_emb [N, E], d_feat [N, F], partials
-    [G, (R + L) 128]), one dW/db partial per CTA. CUDA tensors only."""
+    """The backward kernel alone: (d_emb [N, E], d_feat [N, F], scratch,
+    db partials [G, L 128]): the scratch as ``dw_scratch_layout`` lays it
+    out in ``compute_dtype``, one db partial per CTA. CUDA tensors
+    only."""
     dev, n = _check_inputs(plan, emb, feat, w, b)
     for h, g in zip(plan.heads, gs, strict=True):
         check(f"g[{h.name}]", g, torch.float32, (n, h.out_dim), dev)
     hin, width, inputs = _widths(plan)
     points, smem = bwd_layout(plan)
+    lay = dw_scratch_layout(plan, n)
     d_emb = torch.empty(n, plan.emb_dim, device=dev)
     d_feat = torch.empty(n, plan.feat_dim, device=dev)
-    ctas = min(n_partials(dev, smem), max(1, -(-n // points)))
-    # zeros: the padded rows and columns of every partial stay zero
-    partials = torch.zeros(ctas, (plan.n_rows + plan.n_bias) * COLS,
-                           device=dev)
+    # every element is written by the kernel, padding included
+    scratch = torch.empty(lay.size, dtype=compute_dtype, device=dev)
+    ctas = min(n_partials(dev, smem), max(1, lay.n_pad // points))
+    # zeros: each CTA adds its chunks' sums into its own partial
+    b_parts = torch.zeros(ctas, plan.n_bias * COLS, device=dev)
     ptrs = torch.tensor([g.data_ptr() for g in gs], dtype=torch.int64)
+    offs = torch.tensor([o for pair in zip(lay.x_off, lay.g_off)
+                         for o in pair], dtype=torch.int64)
     if n:
         run("fused_mlp_bwd", emb, feat, w, b, plan_table(plan), ptrs, d_emb,
-            d_feat, partials, n, hin, width, inputs, points, smem, ctas,
-            _dtype_flag(compute_dtype))
+            d_feat, scratch, offs, b_parts, n, lay.n_pad, hin, width, inputs,
+            points, smem, ctas, _dtype_flag(compute_dtype))
         fused_heads_bwd.launches += 1
-    return d_emb, d_feat, partials
+    return d_emb, d_feat, scratch, b_parts
+
+
+def fused_dw(plan: Plan, scratch: torch.Tensor, n: int) -> torch.Tensor:
+    """``fused_mlp_dw`` on a scratch buffer of N points (its dtype, bf16
+    or f32, selects the tensor-core or the CUDA-core path): the slice
+    partials [S, R 128] of dW, S = ``dw_slices``. CUDA tensors only;
+    ``fused_dw_plain`` is its plain version (with the sum over S)."""
+    dev, lay = scratch.device, dw_scratch_layout(plan, n)
+    check("scratch", scratch, scratch.dtype, (lay.size,), dev)
+    flag = _dtype_flag(scratch.dtype)
+    slices = dw_slices(plan, n, _sm_count(dev))
+    parts = torch.empty(slices, plan.n_rows * COLS, device=dev)
+    offs = torch.tensor([o for pair in zip(lay.x_off, lay.g_off)
+                         for o in pair], dtype=torch.int64)
+    tiles = torch.tensor(dw_tiles(plan), dtype=torch.int32)
+    run("fused_mlp_dw", scratch, parts, plan_table(plan), offs, tiles,
+        tiles.shape[0], lay.n_pad, dw_slice_rows(lay.n_pad, slices), slices,
+        flag)
+    fused_dw.launches += 1
+    return parts
 
 
 def fused_heads_bwd(plan: Plan, emb, feat, w, b, gs,
                     compute_dtype=torch.float32):
-    """The backward kernel and its reduction: (d_emb [N, E], d_feat [N, F],
-    dw [R, 128], db [L, 128]) for the cotangents ``gs`` [N, out] of the
-    heads' outputs. CUDA tensors only; ``fused_heads_bwd_plain`` is its
-    plain version. Deterministic: each CTA sums its fixed share of the
-    points into its own dW/db partial, the partials are summed in CTA
+    """The backward's three kernels in order (backward, dW, reduction):
+    (d_emb [N, E], d_feat [N, F], dw [R, 128], db [L, 128]) for the
+    cotangents ``gs`` [N, out] of the heads' outputs. CUDA tensors only;
+    ``fused_heads_bwd_plain`` is its plain version. Deterministic: each
+    backward CTA sums its fixed share of the points into its own db
+    partial, each dW CTA its slice of N; the partials are summed in
     order."""
-    d_emb, d_feat, partials = launch_bwd(plan, emb, feat, w, b, gs,
-                                         compute_dtype)
-    total = reduce_partials(partials)
-    split = plan.n_rows * COLS
-    return (d_emb, d_feat, total[:split].view(plan.n_rows, COLS),
-            total[split:].view(plan.n_bias, COLS))
+    n = emb.shape[0]
+    d_emb, d_feat, scratch, b_parts = launch_bwd(plan, emb, feat, w, b, gs,
+                                                 compute_dtype)
+    if not n:
+        return (d_emb, d_feat, torch.zeros_like(w), torch.zeros_like(b))
+    dw, db = reduce_partials(fused_dw(plan, scratch, n), b_parts)
+    return (d_emb, d_feat, dw.view(plan.n_rows, COLS),
+            db.view(plan.n_bias, COLS))
 
 
 class _FusedHeads(torch.autograd.Function):
@@ -404,4 +560,5 @@ def fused_heads(plan: Plan, emb, feat, w, b,
 
 fused_heads.launches = 0
 fused_heads_bwd.launches = 0
+fused_dw.launches = 0
 reduce_partials.launches = 0

@@ -8,14 +8,17 @@ conftest:
     python -m pytest --noconftest tests/test_torch_fused_mlp_cuda.py -q
 
 Tolerances: chip_smoke.TOL_FUSED, per compute type (its comment gives the
-reasons). Two launches of the backward on the same inputs are bitwise
-equal.
+reasons); ``fused_mlp_dw`` against ``fused_dw_plain`` on one scratch
+chip_smoke.TOL_DW of each entry's sum of term magnitudes; the reduction
+chip_smoke.TOL_SEGSUM of the max. Two launches of
+the backward, of ``fused_mlp_dw`` and of the reduction on the same inputs
+are bitwise equal.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TOL_SEGSUM, check_fused, fused_case
+from chip_smoke import TOL_SEGSUM, check_dw, check_fused, fused_case
 from splatfields_torch.models.splatfields import SplatFields
 from splatfields_torch.ops import fused_mlp as fm
 
@@ -37,12 +40,35 @@ def cuda():
 def test_kernels_match_plain(cuda, kind, dtype):
     case = fused_case(kind, cuda)
     before = (fm.fused_heads.launches, fm.fused_heads_bwd.launches,
-              fm.reduce_partials.launches)
+              fm.fused_dw.launches, fm.reduce_partials.launches)
     check_fused(kind, *case, DTYPES[dtype])
-    # one forward, two backward launches (each with its reduction)
+    # one forward, two backward launches (each with its dW and reduction)
     assert (fm.fused_heads.launches - before[0],
             fm.fused_heads_bwd.launches - before[1],
-            fm.reduce_partials.launches - before[2]) == (1, 2, 2)
+            fm.fused_dw.launches - before[2],
+            fm.reduce_partials.launches - before[3]) == (1, 2, 2, 2)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("kind,n", [("ragged", 1037), ("no_features", 1037),
+                                    ("skip_last_but_one", 1037),
+                                    ("ragged", 100_000)])
+def test_dw_matches_plain(cuda, kind, n, dtype):
+    """fused_mlp_dw (bf16: tensor cores; f32: CUDA cores) against
+    fused_dw_plain on the backward kernel's own scratch, which must equal
+    dw_scratch_plain's bit for bit where the recompute agrees."""
+    case = fused_case(kind, cuda, n=n)
+    _, _, scratch, _ = fm.launch_bwd(*case, DTYPES[dtype])
+    check_dw(f"{kind}, N {n}", case[0], scratch, n)
+    if n < 10_000:
+        want = fm.dw_scratch_plain(*case, DTYPES[dtype])
+        torch.cuda.synchronize()
+        # padding and layout: zero wherever the plain version is zero, and
+        # close on average elsewhere (a value whose leaky mask flips
+        # between the two recomputes moves by 99%: rare)
+        assert bool((scratch[want == 0] == 0).all())
+        err = (scratch.float() - want.float()).abs().mean()
+        assert float(err) <= 1e-3 * float(want.float().abs().mean())
 
 
 def test_bf16_rounds_the_operands(cuda):
@@ -65,13 +91,23 @@ def test_small_and_ragged_n(cuda, n):
     check_fused(f"N {n}", plan, emb, feat, w, b, gs, torch.float32)
 
 
-def test_reduce_matches_sum(cuda):
-    p = torch.as_tensor(np.random.RandomState(0).randn(132, 5000).astype(
-        np.float32), device=cuda)
-    got = fm.reduce_partials(p)
-    want = p.sum(0)
-    assert float((got - want).abs().max() / want.abs().max()) <= TOL_SEGSUM
-    assert torch.equal(fm.reduce_partials(p), got)
+@pytest.mark.parametrize("shapes", [((10, 300_032), (132, 3200)),
+                                    ((30, 137_216), (1, 1024)),
+                                    ((132, 5000), (3, 0))])
+def test_reduce_matches_sum(cuda, shapes):
+    rng = np.random.RandomState(0)
+    parts = [torch.as_tensor(rng.randn(*s).astype(np.float32), device=cuda)
+             for s in shapes]
+    got = fm.reduce_partials(*parts)
+    again = fm.reduce_partials(*parts)
+    for g, a, p in zip(got, again, parts):
+        want = p.sum(0)
+        assert torch.equal(g, a)
+        if want.numel():
+            assert float((g - want).abs().max() / want.abs().max()) <= (
+                TOL_SEGSUM)
+    with pytest.raises(ValueError):
+        fm.reduce_partials(parts[0][:, :-1].contiguous(), parts[1])
 
 
 def test_wrapper_refuses_bad_inputs(cuda):
@@ -84,6 +120,11 @@ def test_wrapper_refuses_bad_inputs(cuda):
         fm.fused_heads_bwd(plan, emb, feat.cpu(), w, b, gs)
     with pytest.raises(TypeError):
         fm.fused_heads(plan, emb, feat, w, b, torch.float16)
+    scratch = fm.launch_bwd(plan, emb, feat, w, b, gs, torch.bfloat16)[2]
+    with pytest.raises(ValueError):
+        fm.fused_dw(plan, scratch[:-8], 40)
+    with pytest.raises(TypeError):
+        fm.fused_dw(plan, scratch.half(), 40)
 
 
 def test_splatfields_fused_on_card_matches_cpu(cuda):
