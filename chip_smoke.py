@@ -51,9 +51,16 @@ Phases, each raising on failure:
     inputs and cotangents of one full-width fused training step (phase
     12's configuration), plus a ragged N, an F = 0 plan and a plan whose
     skip input layer is its last-but-one; two backward launches must be
-    bitwise equal; the weight-gradient GEMM (``fused_mlp_dw``) against
-    ``fused_dw_plain`` on the step's own scratch, twice bitwise equal; the
-    reduction against ``sum(0)`` at the step's partial shapes.
+    bitwise equal; at bf16 both kernels also layer by layer, every value
+    against the exact sum of its layer's own rounded operands
+    (``check_layers``, TOL_LAYER); the weight-gradient GEMM
+    (``fused_mlp_dw``) against ``fused_dw_plain`` on the step's own
+    scratch, twice bitwise equal; the reduction against ``sum(0)`` at the
+    step's partial shapes. In bf16
+    every product of the forward and backward kernels (each layer's
+    forward, the recompute, dX) and of ``fused_mlp_dw`` runs on the tensor
+    cores (``mma.sync``, f32 accumulation); in f32 they are exact FMAs on
+    the CUDA cores.
 12. The fused slice at full width: phase 6's workload with
     ``fused_pallas="on"`` (bf16 heads): warm-up steps, then timed steps;
     finite losses, every head parameter moved, the fused forward,
@@ -132,8 +139,12 @@ TOL_SEGSUM = 1e-5
 # stays near the summation-order level while the worst tensor may move by
 # ~1e-2. In bf16 a sum that lands on the other side of a bf16 rounding
 # boundary moves that value by one bf16 step (2^-8 relative) and the next
-# layers carry it on, hence the looser bf16 bounds. Per-column scaling is
-# not used: cancellation leaves some columns of dW near 0.
+# layers carry it on (and may flip a later mask), hence the looser bf16
+# bounds. They hold on the training step's inputs and at N = 1,037; at N =
+# 100,000 random normal inputs carry enough such cascades that the worst
+# point passes 0.1 under any other order, the exact one included, so the
+# bf16 kernels are held there layer by layer (TOL_LAYER). Per-column
+# scaling is not used: cancellation leaves some columns of dW near 0.
 TOL_FUSED = {"float32": dict(fwd=1e-5, mean=1e-4, worst=5e-2),
              "bfloat16": dict(fwd=1e-2, mean=2e-2, worst=1e-1)}
 # fused_mlp_dw vs fused_dw_plain on one scratch buffer, both dtypes: the
@@ -147,11 +158,31 @@ TOL_FUSED = {"float32": dict(fwd=1e-5, mean=1e-4, worst=5e-2),
 # that every case would fail so, unless the lost points carry no terms
 # (points the view's loss does not reach have zero cotangents).
 TOL_DW = 1e-4
+# The bf16 fused kernels layer by layer (check_layers): every rounded value
+# the backward kernel keeps (each layer's input X_l and cotangent G_l),
+# every forward output and d_emb / d_feat against the exact (f64) sum of
+# the same layer's products of the kernels' own bf16 operands. The tensor
+# cores add each k16 step of products into an f32 accumulator, so a sum
+# moves by a few f32 steps of the sum of its terms' magnitudes S per k16
+# step (at most ~14 x 2^-23 ~ 2e-6 of S at K = 224). A rounded value may
+# differ from the exact sum rounded only where that much carries the sum
+# across a bf16 rounding boundary (or a leaky_relu's 0); the least error
+# that explains the value, over S, must stay within TOL_LAYER. A wrong
+# index, a stale buffer or a wrong mask moves a value by its own size, far
+# more. Copies (h_in, padding, the last layer's masked cotangent) must be
+# exact. db must be within 2^-8 of sum |G_l| of sum G_l (it sums g, G_l is
+# g rounded).
+TOL_LAYER = 1e-5
+ALPHA_F32 = float(np.float32(0.01))   # the kernels' leaky_relu slope
 # fused-heads bounds: the bf16 dense tensor-core rate (the path's compute
 # type on the card) and f32 outside the tensor cores
 BF16_FLOPS = 989e12
 # bench.py's heads at published widths on the VarTriPlane features (F =
-# 48): build_plan configurations of the downstream plan (E = 39)
+# 48): build_plan configurations of the deform and downstream plans (E =
+# 39)
+DEFORM_CFGS = (
+    dict(name="mlp_deform", emb_cols=39, hidden=128, depth=6, skips=(3,),
+         out=3),)
 DOWNSTREAM_CFGS = (
     dict(name="mlp_rgb", emb_cols=39, hidden=128, depth=6, skips=(3,), out=3),
     dict(name="mlp_scale", emb_cols=27, hidden=64, depth=4, skips=(2,), out=3),
@@ -381,20 +412,20 @@ def check_segsum(label, sidx, vals, n_rows):
 def fused_case(kind, device, n=1037, seed=0):
     """A plan and its inputs (emb, feat, w, b, per-head cotangents) for a
     fused-heads check: "ragged" (the published-width downstream plan on n
-    points, F = 48), "no_features" (the same plan with F = 0) or
-    "skip_last_but_one" (two heads whose skip input layer is the
-    last-but-one). Weights as torch's Linear init, inputs and cotangents
-    standard normal."""
+    points, F = 48), "deform" (the published-width deform plan, F = 48),
+    "no_features" (the downstream plan with F = 0) or "skip_last_but_one"
+    (two heads whose skip input layer is the last-but-one). Weights as
+    torch's Linear init, inputs and cotangents standard normal."""
     import torch
 
     from splatfields_torch.ops import fused_mlp as fm
-    cfgs = DOWNSTREAM_CFGS
+    cfgs = DEFORM_CFGS if kind == "deform" else DOWNSTREAM_CFGS
     if kind == "skip_last_but_one":
         cfgs = (dict(name="a", emb_cols=39, hidden=64, depth=3, skips=(2,),
                      out=3),
                 dict(name="b", emb_cols=21, hidden=32, depth=2, skips=(1,),
                      out=4))
-    elif kind not in ("ragged", "no_features"):
+    elif kind not in ("ragged", "deform", "no_features"):
         raise ValueError(kind)
     plan = fm.build_plan(cfgs, 39, 0 if kind == "no_features" else 48)
     rng = np.random.RandomState(seed)
@@ -521,6 +552,170 @@ def check_dw(label, plan, scratch, n):
         raise AssertionError(f"fused_mlp_dw, {label}: TOL_DW would not see "
                              "a lost stage")
     return abs_err
+
+
+def rounding_gaps(k, z, mag, slope=None):
+    """For bf16 values ``k`` that should be rnd(s z), z exact (f64), s the
+    leaky_relu slope at z's sign (``slope`` None) or the given slopes: the
+    least error in z, over ``mag``, that makes a rounding give each k that
+    differs from rnd(s z). Returns (how many differ, the largest such
+    gap)."""
+    import torch
+    leaky = slope is None
+    s = torch.where(z >= 0, 1.0, ALPHA_F32).to(z) if leaky else slope
+    e = (s * z).float().to(torch.bfloat16)
+    bad = k != e
+    if not bool(bad.any()):
+        return 0, 0.0
+    k, e, z, s, mag = k[bad], e[bad], z[bad], s[bad], mag[bad]
+    kd, ed = k.double(), e.double()
+    # neighbouring bf16 values of one sign: s z had to cross their midpoint
+    step = (k.view(torch.int16).int() - e.view(torch.int16).int()).abs()
+    adjacent = (step == 1) & (kd * ed > 0)
+    near = (s * z - (kd + ed) / 2).abs() / s
+    # else (another sign, or farther): z had to reach k's unrounded value,
+    # give or take half a bf16 step
+    sk = torch.where(kd >= 0, 1.0, ALPHA_F32).to(kd) if leaky else s
+    zk = kd / sk
+    far = ((z - zk).abs() - 2.0 ** -8 * zk.abs()).clamp_min(0)
+    gap = torch.where(adjacent, near, far)
+    gap = torch.where(mag > 0, gap / mag, torch.full_like(gap, math.inf))
+    return int(bad.sum()), float(gap.max())
+
+
+def layer_witness(plan, emb, feat, w, b, gs, outs, d_emb, d_feat, scratch,
+                  db):
+    """The bf16 fused kernels' results held layer by layer against the
+    plain sums of their own rounded operands, in f64 (TOL_LAYER's
+    comment): ``outs`` the forward's per-head outputs; ``d_emb``,
+    ``d_feat`` and ``scratch`` (every layer's X_l and G_l) the backward's,
+    ``db`` [L, 128] its bias gradient. Raises on a value no rounding
+    explains within TOL_LAYER and on an inexact copy; returns {"values":
+    rounded values checked, "flips": those on the other side of a rounding
+    boundary than the exact sum, "gap": the largest explaining gap}."""
+    import torch
+
+    from splatfields_torch.ops import fused_mlp as fm
+    bf16, f64 = torch.bfloat16, torch.float64
+    n, E = emb.shape[0], plan.emb_dim
+    blocks = iter(fm.scratch_blocks(plan, scratch, n))
+    st = {"values": 0, "flips": 0, "gap": 0.0}
+    ref_in = torch.zeros(n, E + plan.feat_dim, dtype=f64, device=emb.device)
+    mag_in = torch.zeros_like(ref_in)
+
+    def note(what, flips, gap, values):
+        st["values"] += values
+        st["flips"] += flips
+        st["gap"] = max(st["gap"], gap)
+        if not gap <= TOL_LAYER:
+            raise AssertionError(f"fused heads, {what}: a value {gap:.3e} of "
+                                 "its terms' magnitudes from any rounding "
+                                 f"of the exact sum (TOL_LAYER {TOL_LAYER})")
+
+    def exact(what, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"fused heads, {what}: not exact")
+
+    def mm(x, y):   # (x y, |x| |y|) in f64
+        x, y = x.to(f64), y.to(f64)
+        return x @ y, x.abs() @ y.abs()
+
+    for hd, (head, g) in enumerate(zip(plan.heads, gs)):
+        h_in = torch.cat([emb[:, :head.emb_cols], feat], 1).to(bf16)
+        hin_w = h_in.shape[1]
+        hl = [(L, *next(blocks)) for L in head.layers]
+        ws = [w[L.row_off:L.row_off + L.fin, :L.fout].to(bf16)
+              for L in head.layers]
+        for j, (L, X, G) in enumerate(hl):
+            name = f"{head.name} layer {j}"
+            for part, blk, width in (("X", X, L.fin), ("G", G, L.fout)):
+                exact(f"{name} {part} padding", blk[n:], torch.zeros_like(
+                    blk[n:]))
+                exact(f"{name} {part} padding", blk[:, width:],
+                      torch.zeros_like(blk[:, width:]))
+        exact(f"{head.name} layer 0 X (h_in)", hl[0][1][:n, :hin_w], h_in)
+        # the recompute (and the forward's last layer): each layer's output
+        # from the layer's own rounded input
+        for j, (L, X, G) in enumerate(hl):
+            bias = b[L.bias_idx, :L.fout].to(f64)
+            z, mag = mm(X[:n, :L.fin], ws[j])
+            z, mag = z + bias, mag + bias.abs()
+            if j + 1 < len(hl):
+                nxt = hl[j + 1][1][:n]
+                off = hin_w if L.skip_after else 0
+                if off:
+                    exact(f"{head.name} layer {j + 1} X (h_in)",
+                          nxt[:, :off], h_in)
+                note(f"{head.name} layer {j + 1} X",
+                     *rounding_gaps(nxt[:, off:off + L.fout], z, mag),
+                     z.numel())
+            else:
+                out = outs[hd].to(f64)
+                zk = torch.where(out >= 0, out, out / ALPHA_F32)
+                gap = torch.where(mag > 0, (z - zk).abs() / mag,
+                                  (z - zk).abs() * math.inf).nan_to_num(0.0)
+                note(f"{head.name} output", 0, float(gap.max()), 0)
+                # the last layer's cotangent: g through the output's mask,
+                # rounded, as the kernel computes it
+                exact(f"{head.name} layer {j} G", G[:n, :L.fout], torch.where(
+                    outs[hd] >= 0, g, ALPHA_F32 * g).to(bf16))
+        # the backward: each layer's cotangent from the next layer's, through
+        # the mask of the output the kernel stored; d_h_in from layer 0's
+        # dX and every skip's h_in part
+        for j in range(len(hl) - 1, -1, -1):
+            L, X, G = hl[j]
+            dx, mag = mm(G[:n, :L.fout], ws[j].t())
+            if j == 0 or hl[j - 1][0].skip_after:
+                ref_in[:, :head.emb_cols] += dx[:, :head.emb_cols]
+                ref_in[:, E:] += dx[:, head.emb_cols:hin_w]
+                mag_in[:, :head.emb_cols] += mag[:, :head.emb_cols]
+                mag_in[:, E:] += mag[:, head.emb_cols:hin_w]
+            if j:
+                Lp, _, Gp = hl[j - 1]
+                off = hin_w if Lp.skip_after else 0
+                sign = X[:n, off:off + Lp.fout] >= 0
+                note(f"{head.name} layer {j - 1} G", *rounding_gaps(
+                    Gp[:n, :Lp.fout], dx[:, off:off + Lp.fout],
+                    mag[:, off:off + Lp.fout],
+                    torch.where(sign, 1.0, ALPHA_F32).to(dx)), sign.numel())
+        for j, (L, X, G) in enumerate(hl):
+            gsum = G[:n, :L.fout].to(f64)
+            got = db[L.bias_idx].to(f64)
+            exact(f"{head.name} layer {j} db padding", got[L.fout:],
+                  torch.zeros_like(got[L.fout:]))
+            err = (got[:L.fout] - gsum.sum(0)).abs()
+            if not bool((err <= 2.0 ** -8 * gsum.abs().sum(0)).all()):
+                raise AssertionError(f"fused heads, {head.name} layer {j} "
+                                     "db: off the sum of its cotangents")
+    got_in = torch.cat([d_emb, d_feat], 1).to(f64)
+    gap = torch.where(mag_in > 0, (got_in - ref_in).abs() / mag_in,
+                      (got_in - ref_in).abs() * math.inf).nan_to_num(0.0)
+    note("d_emb, d_feat", 0, float(gap.max()), 0)
+    return st
+
+
+def check_layers(label, plan, emb, feat, w, b, gs):
+    """Both fused kernels at bf16 on the card, held layer by layer by
+    ``layer_witness``; prints and returns its counts."""
+    import torch
+
+    from splatfields_torch.ops import fused_mlp as fm
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        outs = fm.fused_heads(plan, emb, feat, w, b, bf16)
+    d_emb, d_feat, scratch, b_parts = fm.launch_bwd(plan, emb, feat, w, b,
+                                                    gs, bf16)
+    db = b_parts.sum(0).view(plan.n_bias, fm.COLS)
+    st = layer_witness(plan, emb, feat, w, b, gs, outs, d_emb, d_feat,
+                       scratch, db)
+    torch.cuda.synchronize()
+    print(f"fused heads layer by layer, {label}, bf16: "
+          f"{[h.name for h in plan.heads]}, N {emb.shape[0]}; "
+          f"{st['values']} rounded values, {st['flips']} on the other side "
+          "of a rounding boundary than the exact sum, the largest gap "
+          f"explaining one {st['gap']:.3e} of its terms' magnitudes "
+          f"(TOL_LAYER {TOL_LAYER})")
+    return st
 
 
 def ngp_model(device=None, **small):
@@ -927,12 +1122,14 @@ def fused_phases(sc, dev, smi):
                                                               errs[1])
         if not float(case[5][0].abs().max()) > 0:
             raise AssertionError("the fused step's cotangents are zero")
+        check_layers(f"training step, {case[0].heads[0].name}", *case)
     for kind in ("ragged", "no_features", "skip_last_but_one"):
         case = fused_case(kind, dev)
         for cdt in (torch.float32, bf16):
             check_fused(kind, *case, cdt)
             check_dw(kind, case[0], fm.launch_bwd(*case, cdt)[2],
                      case[1].shape[0])
+        check_layers(kind, *case)
     # the weight-gradient GEMM on the step's own scratch (the backward
     # kernel's output for the step's inputs); the bf16 scratch and
     # partials are kept for phase 12's timings

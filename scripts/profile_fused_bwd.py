@@ -4,8 +4,8 @@
 
 The backward is three kernels (``splatfields_torch/csrc/fused_mlp_bwd.cu``):
 the backward kernel (recompute, leaky mask and db, the scratch writes of
-every layer's X_l and G_l, the dX products), ``fused_mlp_dw`` and the
-reduction. This script builds variants of the source with the scratch
+every layer's X_l and G_l, the dX products; bf16 on the tensor cores, f32
+on the CUDA cores), ``fused_mlp_dw`` and the reduction. This script builds variants of the source with the scratch
 writes, the dX step (its output zero-filled instead) or both compiled
 out (into ``build/profile_fused/``) and times each backward kernel, at
 f32 and bf16, on the published-width downstream plan (rgb, scale,
@@ -37,24 +37,40 @@ VARIANTS = {"full": [], "no scratch writes": ["-DSKIP_SCRATCH"],
 
 
 def variant_source(out: pathlib.Path) -> None:
-    """The backward source with ``#ifndef SKIP_SCRATCH`` / ``SKIP_DX``
-    around its scratch-write and dX steps (from their comment lines to the
-    barrier that ends the layer). Without dX the dX buffer is zero-filled
-    instead: the layers below then read defined values, where the
-    unwritten buffer would hold whatever an earlier kernel left in shared
-    memory."""
+    """The backward source with ``#ifndef SKIP_SCRATCH`` around the
+    scratch writes (the ``store_block`` / ``copy_block`` statements after
+    each "to the scratch" comment) and ``#ifndef SKIP_DX`` around the dX
+    step (from its "// 3. dX" comment to the barrier that ends the layer),
+    in both backward kernels (bf16 on the tensor cores, f32 on the CUDA
+    cores). The weight tiles' staging is outside both, so it runs in
+    every variant. Without dX the dX buffer is zero-filled instead: the
+    layers below then read defined values, where the unwritten buffer
+    would hold whatever an earlier step left in shared memory."""
     src = (ROOT / "splatfields_torch/csrc/fused_mlp_bwd.cu").read_text()
     lines = src.split("\n")
-    i_st = next(i for i, line in enumerate(lines) if "// 2. X_l and G_l" in line)
-    i_dx = next(i for i, line in enumerate(lines) if "// 3. dX" in line)
-    i_end = next(i for i in range(i_dx, len(lines))
-                 if lines[i].strip() == "__syncthreads();")
-    lines[i_end:i_end] = [
-        "#else",
-        "        for (int i = tid; i < P * ws; i += kThreads) gb[i] = 0.0f;",
-        "#endif"]
-    lines[i_dx:i_dx] = ["#endif", "#ifndef SKIP_DX"]
-    lines[i_st:i_st] = ["#ifndef SKIP_SCRATCH"]
+    wraps = []   # (first, end, lines before end): #ifndef first .. end
+    for i, line in enumerate(lines):
+        if "to the scratch, for fused_mlp_dw" in line:
+            j, depth = i + 1, 0
+            while lines[j].strip().startswith(("store_block(", "copy_block(")):
+                while True:   # to the end of the statement
+                    depth += lines[j].count("(") - lines[j].count(")")
+                    j += 1
+                    if depth == 0:
+                        break
+            wraps.append((i + 1, j, "SKIP_SCRATCH", []))
+        elif "// 3. dX" in line:
+            j = next(k for k in range(i, len(lines))
+                     if lines[k].strip() == "__syncthreads();")
+            wraps.append((i, j, "SKIP_DX", [
+                "#else",
+                "        for (int i = tid; i < P * ws; i += kThreads) "
+                "gb[i] = 0.0f;"]))
+    assert [w[2] for w in wraps].count("SKIP_SCRATCH") == 3, wraps
+    assert [w[2] for w in wraps].count("SKIP_DX") == 2, wraps
+    for first, end, flag, tail in reversed(wraps):   # indices stay valid
+        lines[end:end] = tail + ["#endif"]
+        lines[first:first] = [f"#ifndef {flag}"]
     out.write_text("\n".join(lines))
 
 
@@ -96,8 +112,9 @@ def main() -> int:
     for name, flags in VARIANTS.items():
         lib_path = out_dir / f"lib_{len(flags)}_{'_'.join(flags)}.so"
         subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags,
-                        "-o", str(lib_path), str(src)], check=True,
-                       capture_output=True, timeout=600)
+                        "-I", str(cuda_build.CSRC), "-o", str(lib_path),
+                        str(src)], check=True, capture_output=True,
+                       timeout=600)
         lib = ctypes.CDLL(str(lib_path))
         lib.fused_mlp_bwd_launch.argtypes = cuda_build.KERNELS[
             "fused_mlp_bwd"][1]

@@ -12,19 +12,37 @@
 //   - g is rounded before both the dW and the dX product, every product
 //     sums in f32, db sums the unrounded g.
 //
-// 1. fused_bwd_kernel. Only the inputs were saved: each CTA recomputes the
-//    forward of a chunk of `points` points head by head, keeping every
-//    layer's input in shared memory (at the published widths the rgb head
-//    keeps 1,070 values a point: 32 points take 137 KB), then
-//    backpropagates the head through them: d_emb, d_feat, and db into its
-//    own per-CTA partial ([ctas, L 128], zeroed by the caller). CTA c takes
-//    the chunks c, c + gridDim.x, ... in order. For every layer it writes
-//    the rounded input X_l [N_pad, round8(fin)] and the rounded cotangent
-//    G_l [N_pad, round8(fout)] to a scratch buffer in the compute type
+// 1. The backward. Only the inputs were saved: each CTA recomputes the
+//    forward of a chunk of points head by head, then backpropagates the
+//    head: d_emb, d_feat, and db into its own per-CTA partial ([ctas, L
+//    128], zeroed by the caller; each column summed over the chunk's
+//    points in a fixed order). CTA c takes the chunks c, c + gridDim.x,
+//    ... in order; the grid is as many CTAs as fit on the card (one an SM
+//    at the published widths). For every layer it writes the rounded input
+//    X_l [N_pad, round8(fin)] and the rounded cotangent G_l [N_pad,
+//    round8(fout)] to a scratch buffer in the compute type
 //    (ops/fused_mlp.py::dw_scratch_layout), zero in the padding, with
 //    16-byte stores. Bound by operations (recompute and dX: 2x the
-//    forward's multiply-adds, f32 FMAs on rounded operands, no tensor cores
-//    yet); at ~200 KB of shared memory one CTA (8 warps) runs on an SM.
+//    forward's multiply-adds).
+//    - bf16, fused_bwd_mma_kernel: 64 points a chunk, 16 warps. The
+//      recompute (X W) and dX (G Wᵀ) run on the tensor cores
+//      (fused_mlp_mma.cuh), one bf16 weight tile in shared memory serving
+//      both, staged by cp.async into a two-ended ring in schedule order
+//      (per head: its layers for the recompute, then in reverse for dX),
+//      the next tile loading while the current one computes. The
+//      recompute keeps only two bf16 activation buffers (rows padded for
+//      ldmatrix) and, of every layer output but the last, the leaky mask
+//      as one bit a value; it writes each X_l to the scratch as it goes
+//      (16-byte copies of the rows). The backward's f32 dX and bf16
+//      rounded g share those buffers' shared memory (a union); G_l goes to
+//      the scratch from the g rows. d_emb, d_feat, the db part sums and
+//      the last layer's output (its sign) stay f32. ~227 KB of shared
+//      memory at the published widths.
+//    - f32, fused_bwd_simt_kernel: 32 points a chunk (fewer if the plan
+//      needs it), 8 warps, every layer's f32 input of the head kept in
+//      shared memory (~203 KB at the published widths); exact f32 FMAs on
+//      the CUDA cores, a thread a 4-point x 4-column tile, weights through
+//      the read-only cache.
 //
 // 2. fused_mlp_dw: dW_l = X_lᵀ G_l, one GEMM per layer with K = N. The TPU
 //    kernel keeps dW in VMEM across its sequential grid; here the grid is
@@ -56,14 +74,27 @@
 
 #include <cstdint>
 
+#include "fused_mlp_mma.cuh"
+
 namespace {
+
+using fused_mma::cp_async16;
+using fused_mma::kCols;
+using fused_mma::kMmaThreads;
+using fused_mma::kMmaWarps;
+using fused_mma::leaky_relu;
+using fused_mma::ld_bf16;
+using fused_mma::ldsm_x4_trans;
+using fused_mma::mma_bf16;
+using fused_mma::round16;
+using fused_mma::round8;
 
 constexpr int kMaxHeads = 8;
 constexpr int kMaxLayers = 48;
 constexpr int kMaxTiles = 128;
-constexpr int kCols = 128;
-constexpr int kThreads = 256;
-constexpr int kTileP = 4;   // points per thread tile of the products
+constexpr int kThreads = 256;  // the f32 backward, fused_mlp_dw, the reduction
+constexpr int kTileP = 4;   // points per thread tile of the f32 products
+constexpr int kLdG = kCols + 8;  // bf16 row stride of the rounded g
 constexpr float kAlpha = 0.01f;
 
 struct Layer {
@@ -75,17 +106,13 @@ struct Head {
 };
 struct Plan {
   int n_heads, emb_dim, feat_dim, n, n_pad, hin_stride, width_stride;
-  int inputs_stride, points, bf16, n_bias;
+  int inputs_stride, points, n_bias, w_region, n_sched;
+  int mask_words, last_stride, union_elems;  // bf16 path, see the kernel
   Head heads[kMaxHeads];
   Layer layers[kMaxLayers];
+  unsigned char sched[2 * kMaxLayers];  // bf16: the weight schedule, layers
   const float* g[kMaxHeads];
 };
-
-__device__ __forceinline__ float rnd(float x, int bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-__host__ __device__ __forceinline__ int round8(int x) { return (x + 7) & ~7; }
 
 // Four values of a shared [P, stride] row from column c0 (a multiple of
 // 4), zero from column `cols` on: one float4 load where the row is 16-byte
@@ -113,61 +140,55 @@ __device__ __forceinline__ float4 load4(const float* row, int c0, int cols,
   return v;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Rows [base, base + P) of one scratch block [n_pad, width8] (width8 =
+// Rows [base, base + P) of one f32 scratch block [n_pad, width8] (width8 =
 // round8(cols)) from a shared [P, stride] f32 block, in 16-byte stores:
-// zero past `cols` and for points past n. The values are already rounded
-// to the compute type, so the conversion is exact.
-__device__ void store_block(void* scratch, long long off, int width8,
+// zero past `cols` and for points past n.
+__device__ void store_block(float* scratch, long long off, int width8,
                             const float* src, int stride, int cols,
-                            long long base, int n, int P, int bf16) {
+                            long long base, int n, int P) {
   const bool aligned = (stride & 3) == 0;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (bf16) {
-    __nv_bfloat16* dst =
-        static_cast<__nv_bfloat16*>(scratch) + off + base * width8;
-    const int units = width8 / 8;
-    for (int u = threadIdx.x; u < P * units; u += kThreads) {
-      const int p = u / units, c0 = (u % units) * 8;
-      const bool live = base + p < n;
-      const float* row = src + p * stride;
-      const float4 a = live ? load4(row, c0, cols, aligned) : zero;
-      const float4 b = live ? load4(row, c0 + 4, cols, aligned) : zero;
-      *reinterpret_cast<uint4*>(dst + static_cast<long long>(p) * width8 +
-                                c0) =
-          make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
-                     pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
-    }
-  } else {
-    float* dst = static_cast<float*>(scratch) + off + base * width8;
-    const int units = width8 / 4;
-    for (int u = threadIdx.x; u < P * units; u += kThreads) {
-      const int p = u / units, c0 = (u % units) * 4;
-      const bool live = base + p < n;
-      *reinterpret_cast<float4*>(dst + static_cast<long long>(p) * width8 +
-                                 c0) =
-          live ? load4(src + p * stride, c0, cols, aligned) : zero;
-    }
+  float* dst = scratch + off + base * width8;
+  const int units = width8 / 4;
+  for (int u = threadIdx.x; u < P * units; u += kThreads) {
+    const int p = u / units, c0 = (u % units) * 4;
+    const bool live = base + p < n;
+    *reinterpret_cast<float4*>(dst + static_cast<long long>(p) * width8 +
+                               c0) =
+        live ? load4(src + p * stride, c0, cols, aligned) : zero;
+  }
+}
+
+// The same for a bf16 block from shared bf16 rows [P, ld] that are
+// already zero from column `cols` to round8(cols): straight 16-byte
+// copies, zero for points past n.
+__device__ void copy_block(__nv_bfloat16* scratch, long long off, int width8,
+                           const __nv_bfloat16* src, int ld, long long base,
+                           int n, int P) {
+  __nv_bfloat16* dst = scratch + off + base * width8;
+  const int units = width8 / 8;
+  for (int u = threadIdx.x; u < P * units; u += kMmaThreads) {
+    const int p = u / units, c0 = (u % units) * 8;
+    *reinterpret_cast<uint4*>(dst + static_cast<long long>(p) * width8 + c0) =
+        base + p < n ? *reinterpret_cast<const uint4*>(src + p * ld + c0)
+                     : make_uint4(0, 0, 0, 0);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-    fused_bwd_kernel(const float* __restrict__ emb,
-                     const float* __restrict__ feat,
-                     const float* __restrict__ w,
-                     const float* __restrict__ b,
-                     float* __restrict__ d_emb, float* __restrict__ d_feat,
-                     void* __restrict__ scratch,
-                     float* __restrict__ b_parts,
-                     const __grid_constant__ Plan plan) {
+    fused_bwd_simt_kernel(const float* __restrict__ emb,
+                          const float* __restrict__ feat,
+                          const float* __restrict__ w,
+                          const float* __restrict__ b,
+                          float* __restrict__ d_emb,
+                          float* __restrict__ d_feat,
+                          float* __restrict__ scratch,
+                          float* __restrict__ b_parts,
+                          const __grid_constant__ Plan plan) {
   extern __shared__ float4 smem4[];
   const int P = plan.points, hs = plan.hin_stride, ws = plan.width_stride;
-  const int E = plan.emb_dim, F = plan.feat_dim, bf16 = plan.bf16;
-  float* ga = reinterpret_cast<float*>(smem4);  // [P, 128] rounded g
+  const int E = plan.emb_dim, F = plan.feat_dim;
+  float* ga = reinterpret_cast<float*>(smem4);  // [P, 128] g
   float* inputs = ga + P * kCols;                // every layer's input
   float* gb = inputs + P * plan.inputs_stride;   // [P, ws] dX / last output
   float* dhin = gb + P * ws;                     // [P, hs]
@@ -191,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
       const Layer* layers = plan.layers + head.first_layer;
       __syncthreads();  // the previous chunk or head is done with the buffers
 
-      // ---- recompute: inputs[0] = rnd(h_in), inputs[l + 1] = rnd(out l)
+      // ---- recompute: inputs[0] = h_in, inputs[l + 1] = out l
       for (int i = tid; i < P * hin_w; i += kThreads) {
         const int p = i / hin_w, c = i % hin_w;
         const long long gp = base + p;
@@ -200,7 +221,7 @@ __global__ void __launch_bounds__(kThreads)
           v = c < head.emb_cols ? emb[gp * E + c]
                                 : feat[gp * F + (c - head.emb_cols)];
         }
-        inputs[p * hin_w + c] = rnd(v, bf16);
+        inputs[p * hin_w + c] = v;
         dhin[p * hs + c] = 0.0f;
       }
       __syncthreads();
@@ -223,8 +244,7 @@ __global__ void __launch_bounds__(kThreads)
           for (int k = 0; k < L.fin; ++k) {
             const float4 wv = __ldg(
                 reinterpret_cast<const float4*>(wl + k * kCols + c0));
-            const float wk[4] = {rnd(wv.x, bf16), rnd(wv.y, bf16),
-                                 rnd(wv.z, bf16), rnd(wv.w, bf16)};
+            const float wk[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
             for (int i = 0; i < kTileP; ++i) {
               const float hv = cur[(p0 + i) * L.fin + k];
@@ -239,10 +259,7 @@ __global__ void __launch_bounds__(kThreads)
             const float bias = bl[c];
 #pragma unroll
             for (int i = 0; i < kTileP; ++i) {
-              float y = acc[i][j] + bias;
-              y = y >= 0.0f ? y : kAlpha * y;
-              // the last output stays f32: only its sign is read
-              nxt[(p0 + i) * nstride + off + c] = last ? y : rnd(y, bf16);
+              nxt[(p0 + i) * nstride + off + c] = leaky_relu(acc[i][j] + bias);
             }
           }
         }
@@ -263,8 +280,8 @@ __global__ void __launch_bounds__(kThreads)
         in_off -= P * L.fin;
         const float* inp = inputs + in_off;  // [P, L.fin]
         // 1. g = leaky mask * (cotangent, or the dX tail after a skip);
-        //    db += sum_p g; ga = rnd(g), zero past fout. The h_in part of
-        //    the dX after a skip goes to d_h_in.
+        //    db += sum_p g; ga = g, zero past fout. The h_in part of the
+        //    dX after a skip goes to d_h_in.
         const int off = L.skip_after ? hin_w : 0;
         if (tid < kCols) {
           const int c = tid;
@@ -284,7 +301,7 @@ __global__ void __launch_bounds__(kThreads)
               g = out >= 0.0f ? src : kAlpha * src;
               db_acc += g;
             }
-            ga[p * kCols + c] = rnd(g, bf16);
+            ga[p * kCols + c] = g;
           }
           if (c < L.fout) part_b[L.bias_idx * kCols + c] += db_acc;
         } else if (L.skip_after) {
@@ -296,10 +313,10 @@ __global__ void __launch_bounds__(kThreads)
         __syncthreads();
         // 2. X_l and G_l to the scratch, for fused_mlp_dw
         store_block(scratch, L.x_off, round8(L.fin), inp, L.fin, L.fin, base,
-                    plan.n, P, bf16);
+                    plan.n, P);
         store_block(scratch, L.g_off, round8(L.fout), ga, kCols, L.fout, base,
-                    plan.n, P, bf16);
-        // 3. dX[p, k] = sum_j ga[p, j] rnd(W[k, j]), into gb, 4 x 4 per thread
+                    plan.n, P);
+        // 3. dX[p, k] = sum_j ga[p, j] W[k, j], into gb, 4 x 4 per thread
         {
           const int n_kt = (L.fin + 3) / 4, n_jq = (L.fout + 3) / 4;
           const float* wl = w + static_cast<size_t>(L.row_off) * kCols;
@@ -313,10 +330,10 @@ __global__ void __launch_bounds__(kThreads)
               for (int kk = 0; kk < 4; ++kk) {
                 const float4 wv = __ldg(reinterpret_cast<const float4*>(
                     wl + (k0 + kk) * kCols + j0));
-                wk[kk][0] = rnd(wv.x, bf16);
-                wk[kk][1] = rnd(wv.y, bf16);
-                wk[kk][2] = rnd(wv.z, bf16);
-                wk[kk][3] = rnd(wv.w, bf16);
+                wk[kk][0] = wv.x;
+                wk[kk][1] = wv.y;
+                wk[kk][2] = wv.z;
+                wk[kk][3] = wv.w;
               }
 #pragma unroll
               for (int i = 0; i < kTileP; ++i) {
@@ -370,6 +387,233 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Shared memory, in order: the weight ring; a union of the recompute's
+// bf16 rows (h_in [P, hs] and two activation buffers [P, ws]) and the
+// backward's dX gb [P, ws] (f32) and rounded g ga [P, kLdG] (bf16); the
+// leaky masks of every layer but the last, one bit a value (mask_words
+// words a point); the last layer's output [P, last_stride] (f32, for its
+// sign); the db part sums [kMmaThreads]; d_emb [P, E] and d_feat [P, F]; the
+// chunk's inputs xin [P, E + F] (f32).
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    fused_bwd_mma_kernel(const float* __restrict__ emb,
+                         const float* __restrict__ feat,
+                         const __nv_bfloat16* __restrict__ w,
+                         const float* __restrict__ b,
+                         float* __restrict__ d_emb,
+                         float* __restrict__ d_feat,
+                         __nv_bfloat16* __restrict__ scratch,
+                         float* __restrict__ b_parts,
+                         const __grid_constant__ Plan plan) {
+  extern __shared__ float4 smem4[];
+  const int P = plan.points, hs = plan.hin_stride, ws = plan.width_stride;
+  const int E = plan.emb_dim, F = plan.feat_dim, lo = plan.last_stride;
+  const fused_mma::WeightRing ring = {
+      reinterpret_cast<__nv_bfloat16*>(smem4), plan.w_region, w};
+  __nv_bfloat16* uni = ring.region + plan.w_region;
+  __nv_bfloat16* hin = uni;
+  __nv_bfloat16* bufs[2] = {uni + P * hs, uni + P * hs + P * ws};
+  float* gb = reinterpret_cast<float*>(uni);
+  __nv_bfloat16* ga = uni + 2 * P * ws;
+  uint32_t* masks = reinterpret_cast<uint32_t*>(uni + plan.union_elems);
+  float* lastout = reinterpret_cast<float*>(masks + P * plan.mask_words);
+  float* parts = lastout + P * lo;
+  float* demb = parts + kMmaThreads;
+  float* dfeat = demb + P * E;
+  float* xin = dfeat + P * F;
+  const int tid = threadIdx.x;
+  // chunks cover the scratch's n_pad rows: those past n are written zero
+  const int n_chunks = plan.n_pad / P;
+  // this CTA's db partial [n_bias, 128]
+  float* part_b = b_parts + static_cast<size_t>(blockIdx.x) * kCols *
+                                plan.n_bias;
+  // schedule item s is layer sched[s % n_sched]; it sits at one end of the
+  // ring or the other by the parity of s
+  auto stage = [&](int s) {
+    const Layer& L = plan.layers[plan.sched[s % plan.n_sched]];
+    ring.stage(s, L.row_off, L.fin, L.fout);
+  };
+  // item s (layer L) has landed and every warp is past item s - 1, whose
+  // end of the ring is then free for item s + 1 (unless s is the last)
+  int s = 0;
+  auto next_tile = [&](const Layer& L, bool final_item) {
+    fused_mma::cp_async_wait_all();
+    __syncthreads();
+    if (!final_item) stage(s + 1);
+    return ring.tile(s++, L.fin, L.fout);
+  };
+  if (static_cast<int>(blockIdx.x) < n_chunks) {
+    stage(0);
+    fused_mma::stage_inputs(xin, emb, feat,
+                            static_cast<long long>(blockIdx.x) * P, plan.n, P,
+                            E, F);
+  }
+
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    const long long base = static_cast<long long>(chunk) * P;
+    const bool more = chunk + static_cast<int>(gridDim.x) < n_chunks;
+    for (int hd = 0; hd < plan.n_heads; ++hd) {
+      const Head head = plan.heads[hd];
+      const int hin_w = head.emb_cols + F;
+      const Layer* layers = plan.layers + head.first_layer;
+      const bool last_head = hd == plan.n_heads - 1;
+      // the previous head or chunk is done with the buffers; the chunk's
+      // inputs have landed (staged during the previous chunk)
+      if (hd == 0) fused_mma::cp_async_wait_all();
+      __syncthreads();
+      if (hd == 0) {
+        for (int i = tid; i < P * (E + F); i += kMmaThreads) demb[i] = 0.0f;
+      }
+      fused_mma::hin_rows(hin, hs, xin, P, E, F, head.emb_cols);
+
+      // ---- recompute: X_l = rnd(input of layer l) to the scratch, the
+      //      leaky mask of every output, the last output in f32
+      int mo = 0;  // offset of the next layer's masks
+      for (int li = 0; li < head.n_layers; ++li) {
+        const Layer L = layers[li];
+        const int fout = L.fout;
+        const __nv_bfloat16* wt = next_tile(L, false);
+        if (more && last_head && li == 0) {  // every h_in is built
+          fused_mma::stage_inputs(xin, emb, feat,
+                                  base + static_cast<long long>(gridDim.x) * P,
+                                  plan.n, P, E, F);
+        }
+        const __nv_bfloat16* cur = li == 0 ? hin : bufs[(li - 1) & 1];
+        const int cld = li == 0 ? hs : ws;
+        // X_l to the scratch, for fused_mlp_dw
+        copy_block(scratch, L.x_off, round8(L.fin), cur, cld, base, plan.n, P);
+        if (li > 0) {  // the signs of the previous layer's output
+          const Layer& Lp = layers[li - 1];
+          const int words = (Lp.fout + 31) / 32;
+          const __nv_bfloat16* out = cur + (Lp.skip_after ? hin_w : 0);
+          const int lane = tid & 31;
+          for (int i = tid >> 5; i < P * words; i += kMmaWarps) {
+            const int p = i / words, c = (i % words) * 32 + lane;
+            const uint32_t bits = __ballot_sync(
+                0xffffffffu,
+                c < Lp.fout && __bfloat162float(out[p * cld + c]) >= 0.0f);
+            if (lane == 0) masks[mo + i] = bits;
+          }
+          mo += P * words;
+        }
+        const float* bl = b + static_cast<size_t>(L.bias_idx) * kCols;
+        if (li == head.n_layers - 1) {
+          fused_mma::cta_mma<false>(
+              cur, cld, wt, ld_bf16(fout), P, round16(fout), round16(L.fin),
+              [&](int row, int col, float y0, float y1) {
+                if (col < fout) {
+                  lastout[row * lo + col] = leaky_relu(y0 + bl[col]);
+                }
+                if (col + 1 < fout) {
+                  lastout[row * lo + col + 1] = leaky_relu(y1 + bl[col + 1]);
+                }
+              });
+        } else {
+          fused_mma::hidden_layer(cur, cld, wt, bl, L.fin, fout, bufs[li & 1],
+                                  ws, L.skip_after ? hin_w : 0, hin, hs, P);
+        }
+      }
+      __syncthreads();  // the last output and every mask are written
+
+      // ---- backward, last layer first
+      for (int li = head.n_layers - 1; li >= 0; --li) {
+        const Layer L = layers[li];
+        const bool last = li == head.n_layers - 1;
+        const int fout = L.fout, words = (fout + 31) / 32;
+        if (!last) mo -= P * words;
+        // 1. g = leaky mask * (cotangent, or the dX tail after a skip);
+        //    ga = rnd(g), zero from fout to round16(fout). The column sums
+        //    of g (db) in `parts` part sums of consecutive points, cw
+        //    threads a part. The h_in part of the dX after a skip goes to
+        //    d_emb / d_feat.
+        const int off = L.skip_after ? hin_w : 0;
+        int cw = 1;
+        while (cw < fout) cw *= 2;
+        const int n_parts = kMmaThreads / cw < P ? kMmaThreads / cw : P;
+        const int per = P / n_parts;
+        {
+          const int c = tid & (cw - 1), part = tid / cw;
+          if (part < n_parts && c < fout) {
+            float acc = 0.0f;
+            for (int p = part * per; p < (part + 1) * per; ++p) {
+              float src;
+              bool pos;
+              if (last) {
+                const long long gp = base + p;
+                src = gp < plan.n ? plan.g[hd][gp * head.out_dim + c] : 0.0f;
+                pos = lastout[p * lo + c] >= 0.0f;
+              } else {
+                src = gb[p * ws + off + c];
+                pos = (masks[mo + p * words + c / 32] >> (c & 31)) & 1u;
+              }
+              const float g = pos ? src : kAlpha * src;
+              acc += g;
+              ga[p * kLdG + c] = __float2bfloat16_rn(g);
+            }
+            parts[part * cw + c] = acc;
+          }
+        }
+        {
+          const int pad = round16(fout) - fout;
+          for (int i = tid; i < P * pad; i += kMmaThreads) {
+            ga[(i / pad) * kLdG + fout + i % pad] = __float2bfloat16_rn(0.0f);
+          }
+        }
+        if (L.skip_after) {
+          for (int i = tid; i < P * hin_w; i += kMmaThreads) {
+            const int p = i / hin_w, c = i % hin_w;
+            if (c < head.emb_cols) {
+              demb[p * E + c] += gb[p * ws + c];
+            } else {
+              dfeat[p * F + (c - head.emb_cols)] += gb[p * ws + c];
+            }
+          }
+        }
+        const __nv_bfloat16* wt =
+            next_tile(L, !more && last_head && li == 0);
+        if (tid < fout) {  // db: the parts in order, into this CTA's partial
+          float sum = 0.0f;
+          for (int part = 0; part < n_parts; ++part) {
+            sum += parts[part * cw + tid];
+          }
+          part_b[L.bias_idx * kCols + tid] += sum;
+        }
+        // 2. G_l to the scratch, for fused_mlp_dw
+        copy_block(scratch, L.g_off, round8(fout), ga, kLdG, base, plan.n, P);
+        // 3. dX = rnd(g) rnd(W)ᵀ, into gb, on the tensor cores
+        fused_mma::cta_mma<true>(
+            ga, kLdG, wt, ld_bf16(fout), P, round16(L.fin), round16(fout),
+            [&](int row, int col, float y0, float y1) {
+              *reinterpret_cast<float2*>(gb + row * ws + col) =
+                  make_float2(y0, y1);
+            });
+        __syncthreads();
+      }
+      // ---- the dX of layer 0 is d_h_in: its prefix goes to d_emb, the
+      //      rest to d_feat
+      for (int i = tid; i < P * hin_w; i += kMmaThreads) {
+        const int p = i / hin_w, c = i % hin_w;
+        if (c < head.emb_cols) {
+          demb[p * E + c] += gb[p * ws + c];
+        } else {
+          dfeat[p * F + (c - head.emb_cols)] += gb[p * ws + c];
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < P * (E + F); i += kMmaThreads) {
+      const int p = i / (E + F), c = i % (E + F);
+      const long long gp = base + p;
+      if (gp >= plan.n) continue;
+      if (c < E) {
+        d_emb[gp * E + c] = demb[p * E + c];
+      } else {
+        d_feat[gp * F + (c - E)] = dfeat[p * F + (c - E)];
+      }
+    }
+  }
+  fused_mma::cp_async_wait_all();
+}
+
 // ---- fused_mlp_dw -----------------------------------------------------------
 
 constexpr int kDwTile = 128;  // packed rows (of round8(fin)) and columns a tile
@@ -401,35 +645,6 @@ __device__ __forceinline__ DwCta dw_cta(const DwPlan& plan) {
   c.k_begin = blockIdx.y * plan.slice_rows;
   c.k_end = min(plan.n_pad, c.k_begin + plan.slice_rows);
   return c;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-// A [16 x 16] fragment of a bf16 matrix whose rows are stored as columns:
-// four 8x8 blocks, each transposed on the way to the registers.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // bf16: 8 warps as 4 (rows) x 2 (columns), a warp tile of 32 x 64, that is
@@ -690,17 +905,21 @@ extern "C" {
 // `table` (host memory) is the plan as in fused_mlp_fwd_launch; `gs`
 // (host memory) one device pointer per head to its cotangent [N, out];
 // `offs` (host memory) the scratch offsets x_off, g_off of every layer
-// (ops/fused_mlp.py::dw_scratch_layout, n_pad rows). `scratch` is bf16 if
-// `bf16`, else f32; `b_parts` is [ctas, L 128], zeroed. `points` (dividing
-// n_pad) and `smem` come from ops/fused_mlp.py::bwd_layout: per point
-// 4 (128 + inputs_stride + width_stride + hin_stride + E + F) bytes.
-int fused_mlp_bwd_launch(const float* emb, const float* feat, const float* w,
+// (ops/fused_mlp.py::dw_scratch_layout, n_pad rows). `b_parts` is [ctas,
+// L 128], zeroed. The layout (`hin_stride`, `width_stride`,
+// `inputs_stride`, `w_region`, `points` dividing n_pad, `smem`) is
+// ops/fused_mlp.py::bwd_layout's. f32 (`bf16` 0): `w` and `scratch` f32,
+// per point 4 (128 + inputs_stride + width_stride + hin_stride + E + F)
+// bytes. bf16: `w` the bf16 copy of the packed weights, `scratch` bf16,
+// bf16 row strides, `inputs_stride` unused, and the bytes of the
+// kernel's shared memory as laid out there.
+int fused_mlp_bwd_launch(const float* emb, const float* feat, const void* w,
                          const float* b, const int* table,
                          const float* const* gs, float* d_emb, float* d_feat,
                          void* scratch, const long long* offs, float* b_parts,
                          int n, int n_pad, int hin_stride, int width_stride,
-                         int inputs_stride, int points, int smem, int ctas,
-                         int bf16, void* stream) {
+                         int inputs_stride, int w_region, int points, int smem,
+                         int ctas, int bf16, void* stream) {
   Plan plan = {};
   plan.n_heads = table[0];
   plan.emb_dim = table[1];
@@ -711,10 +930,11 @@ int fused_mlp_bwd_launch(const float* emb, const float* feat, const float* w,
   plan.width_stride = width_stride;
   plan.inputs_stride = inputs_stride;
   plan.points = points;
-  plan.bf16 = bf16;
+  plan.w_region = w_region;
   int n_layers = 0;
-  if (points <= 0 || points % 4 != 0 || n_pad % points != 0 || n_pad < n ||
-      ctas <= 0 || parse_table(table, plan.layers, &n_layers, plan.heads) < 0) {
+  if (points <= 0 || points % (bf16 ? 16 : 4) != 0 || n_pad % points != 0 ||
+      n_pad < n || ctas <= 0 ||
+      parse_table(table, plan.layers, &n_layers, plan.heads) < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int l = 0; l < n_layers; ++l) {
@@ -723,13 +943,73 @@ int fused_mlp_bwd_launch(const float* emb, const float* feat, const float* w,
   }
   for (int h = 0; h < plan.n_heads; ++h) plan.g[h] = gs[h];
   plan.n_bias = n_layers;  // one bias row per layer
+  if (bf16) {
+    // the weight schedule, and a layout that holds it
+    int sched[2 * kMaxLayers], fin[kMaxLayers], fout[kMaxLayers];
+    int hin_max = 0, fin_max = 0;
+    for (int h = 0; h < plan.n_heads; ++h) {
+      const Head& head = plan.heads[h];
+      int words = 0;
+      for (int l = 0; l < head.n_layers; ++l) {
+        const Layer& L = plan.layers[head.first_layer + l];
+        sched[plan.n_sched++] = head.first_layer + l;
+        fin_max = L.fin > fin_max ? L.fin : fin_max;
+        if (L.fout > kCols) return static_cast<int>(cudaErrorInvalidValue);
+        if (l < head.n_layers - 1) words += (L.fout + 31) / 32;
+      }
+      for (int l = head.n_layers - 1; l >= 0; --l) {
+        sched[plan.n_sched++] = head.first_layer + l;
+      }
+      const int hin_w = head.emb_cols + plan.feat_dim;
+      const int last_fout = plan.layers[head.first_layer + head.n_layers - 1].fout;
+      hin_max = hin_w > hin_max ? hin_w : hin_max;
+      plan.mask_words = words > plan.mask_words ? words : plan.mask_words;
+      plan.last_stride = last_fout > plan.last_stride ? last_fout : plan.last_stride;
+    }
+    for (int l = 0; l < n_layers; ++l) {
+      fin[l] = plan.layers[l].fin;
+      fout[l] = plan.layers[l].fout;
+    }
+    for (int i = 0; i < plan.n_sched; ++i) {
+      plan.sched[i] = static_cast<unsigned char>(sched[i]);
+    }
+    const int recompute = points * (hin_stride + 2 * width_stride);
+    const int backward = 2 * points * width_stride + points * kLdG;
+    plan.union_elems = recompute > backward ? recompute : backward;
+    const long long bytes =
+        2LL * (w_region + plan.union_elems) +
+        4LL * points *
+            (plan.mask_words + plan.last_stride +
+             2 * (plan.emb_dim + plan.feat_dim)) +
+        4LL * kMmaThreads;
+    if ((points & (points - 1)) != 0 || points % 16 != 0 ||
+        hin_stride < ld_bf16(hin_max) || hin_stride % 8 != 0 ||
+        width_stride < ld_bf16(fin_max) || width_stride % 8 != 0 ||
+        w_region % 8 != 0 ||
+        w_region < fused_mma::ring_elems(sched, plan.n_sched, fin, fout) ||
+        bytes != smem) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (n == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_bwd_kernel<<<ctas, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      emb, feat, w, b, d_emb, d_feat, scratch, b_parts, plan);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_bwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_bwd_mma_kernel<<<ctas, kMmaThreads, smem, st>>>(
+        emb, feat, static_cast<const __nv_bfloat16*>(w), b, d_emb, d_feat,
+        static_cast<__nv_bfloat16*>(scratch), b_parts, plan);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_bwd_simt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_bwd_simt_kernel<<<ctas, kThreads, smem, st>>>(
+        emb, feat, static_cast<const float*>(w), b, d_emb, d_feat,
+        static_cast<float*>(scratch), b_parts, plan);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,8 +9,8 @@ returns the ``cudaError_t`` of its launch, ``const char*
 ``build()`` compiles every registered source whose library for this
 source and these flags does not exist yet, all at once (one ``nvcc`` each,
 started together), for sm_90a into ``build/kernels/`` at the repository
-root, each library named by its source and a hash of the source and the
-flags. The first launch of any kernel builds them all. ``run(name, ...)``
+root, each library named by its source and a hash of the source, the
+headers of ``csrc/`` and the flags. The first launch of any kernel builds them all. ``run(name, ...)``
 launches on PyTorch's current stream and raises on a launch error;
 nothing here falls back to a plain version.
 """
@@ -44,10 +44,9 @@ KERNELS = {
     "segsum": (CSRC / "segsum.cu",
                [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _ptr]),
     "fused_mlp_fwd": (CSRC / "fused_mlp_fwd.cu",
-                      [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32,
-                       _i32, _i32, _ptr]),
+                      [_ptr] * 6 + [_i32] * 8 + [_ptr]),
     "fused_mlp_bwd": (CSRC / "fused_mlp_bwd.cu",
-                      [_ptr] * 11 + [_i32] * 9 + [_ptr]),
+                      [_ptr] * 11 + [_i32] * 10 + [_ptr]),
     "fused_mlp_dw": (CSRC / "fused_mlp_bwd.cu",
                      [_ptr] * 5 + [_i32] * 5 + [_ptr]),
     "fused_mlp_reduce": (CSRC / "fused_mlp_bwd.cu",
@@ -66,9 +65,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    """The library of ``src``, named by a hash of the source, of every
+    header beside it (``*.cuh``, by name: a source may include any) and of
+    the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict[str, tuple[Path, float]]:

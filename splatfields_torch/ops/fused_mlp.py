@@ -20,10 +20,14 @@ and whose backward launches the three kernels of
 d_feat, per-CTA db partials, and every layer's rounded input X_l and
 cotangent G_l written to a scratch buffer), ``fused_mlp_dw`` (dW_l =
 X_lᵀ G_l, split over N into slice partials) and the fixed-order
-reduction of both partials; only the inputs are saved. On CPU tensors it
-runs ``fused_heads_plain``, an autograd graph with the same rounding
-points. Matrix operands go to ``compute_dtype`` (bf16 or f32) and every
-product sums in f32:
+reduction of both partials; only the inputs are saved. In bf16 the
+forward's and the backward's products run on the tensor cores
+(``csrc/fused_mlp_mma.cuh``) from one bf16 copy of the packed weights
+(``kernel_weights``), with the shared-memory layouts of ``fwd_layout``
+and ``bwd_layout``; in f32 they are exact FMAs on the CUDA cores. On CPU
+tensors it runs ``fused_heads_plain``, an autograd graph with the same
+rounding points. Matrix operands go to ``compute_dtype`` (bf16 or f32)
+and every product sums in f32:
 
 - forward: every layer input and weight block is rounded, the bias is
   added in f32;
@@ -49,13 +53,19 @@ ALPHA = 0.01   # GeneralMLP's leaky_relu slope
 COLS = 128     # columns of the packed weight and bias matrices
 # limits of the kernels' plan table (csrc/fused_mlp_*.cu kMaxHeads/Layers)
 MAX_HEADS, MAX_LAYERS = 8, 48
-POINTS_FWD = 32          # kPoints in csrc/fused_mlp_fwd.cu
-THREADS_BWD = 256        # kThreads in csrc/fused_mlp_bwd.cu
+POINTS_FWD = 32          # kPoints in csrc/fused_mlp_fwd.cu, f32 path
+THREADS_BWD = 256        # kThreads in csrc/fused_mlp_bwd.cu, f32 path
+THREADS_MMA = 512        # kMmaThreads in csrc/fused_mlp_mma.cuh, bf16
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on sm_90
+# bf16 (tensor-core) paths: points a chunk, a multiple of 16 (the mma's
+# rows) dividing ROW_ALIGN
+POINTS_MMA = 64
+LD_G = COLS + 8          # kLdG in csrc/fused_mlp_bwd.cu
 # csrc/fused_mlp_bwd.cu's fused_mlp_dw: rows of N per slice come in
-# multiples of ROW_ALIGN (its K step; every chunk size of the backward
-# divides it), output tiles are DW_TILE packed rows by all 128 columns
-ROW_ALIGN = 32
+# multiples of ROW_ALIGN (a multiple of its K step, 32; every chunk size of
+# the backward divides it), output tiles are DW_TILE packed rows by all 128
+# columns
+ROW_ALIGN = 64
 DW_TILE = 128
 
 
@@ -84,6 +94,18 @@ class Plan(NamedTuple):
 
 def _round8(x: int) -> int:
     return -(-x // 8) * 8
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _ld16(cols: int) -> int:
+    """Shared-memory row stride, in bf16 values, of a row of ``cols``
+    values in the tensor-core kernels (``ld_bf16``): padded to the mma
+    depth of 16, plus 8, an odd multiple of 16 bytes (ldmatrix reads eight
+    rows in eight different banks)."""
+    return _round16(cols) + 8
 
 
 def build_plan(head_cfgs: Sequence[dict], emb_dim: int, feat_dim: int) -> Plan:
@@ -373,25 +395,110 @@ def _widths(plan: Plan):
     return hin, width, inputs
 
 
-def fwd_smem_bytes(plan: Plan) -> int:
-    """csrc/fused_mlp_fwd.cu: h_in and two activation buffers per point."""
+class KernelLayout(NamedTuple):
+    """Shared memory of one CTA of a fused kernel (csrc/fused_mlp_*.cu).
+    Row strides in floats on the f32 paths, in values (bf16 rows, or the
+    bf16 backward's f32 dX rows) on the bf16 paths."""
+    points: int         # points a chunk
+    hin_stride: int     # a row of h_in (f32 backward: of d_h_in)
+    width_stride: int   # a row of activations (backward: also of dX)
+    inputs_stride: int  # f32 backward: every layer input of a head
+    w_region: int       # bf16: the weight ring, in bf16 values (else 0)
+    smem: int           # dynamic shared memory, bytes
+
+
+def mma_tile(L: LayerSpec) -> tuple[int, int, int]:
+    """(K, N, row stride) of a layer's bf16 weight tile in the tensor-core
+    kernels' shared memory (``w_tile_elems``): rows [0, round16(fin)) and
+    columns [0, round16(fout)) of its packed block; rows past
+    round8(fin), the next layer's, are zeroed there."""
+    return _round16(L.fin), _round16(L.fout), _ld16(L.fout)
+
+
+def weight_schedule(plan: Plan, backward: bool) -> list[int]:
+    """The order in which the bf16 kernels stage the layers' weight tiles
+    (indices in plan order), once a chunk: every layer in order (forward),
+    or per head its layers in order, for the recompute, then in reverse,
+    for dX (backward)."""
+    sched, first = [], 0
+    for h in plan.heads:
+        ids = list(range(first, first + len(h.layers)))
+        sched += ids + ids[::-1] if backward else ids
+        first += len(h.layers)
+    return sched
+
+
+def ring_elems(plan: Plan, backward: bool) -> int:
+    """bf16 values of the weight ring: tile s sits at one end or the other
+    by the parity of s, so the ring holds any two consecutive tiles of the
+    cyclic schedule (``ring_elems`` in csrc/fused_mlp_mma.cuh)."""
+    layers = _layers(plan)
+    sizes = [mma_tile(layers[i])[0] * mma_tile(layers[i])[2]
+             for i in weight_schedule(plan, backward)]
+    return max(a + b for a, b in zip(sizes, sizes[1:] + sizes[:1]))
+
+
+def fwd_layout(plan: Plan, compute_dtype=torch.float32) -> KernelLayout:
+    """csrc/fused_mlp_fwd.cu's shared memory. f32: 32 points, h_in and two
+    activation buffers of floats. bf16: the weight ring, the chunk's f32
+    inputs, h_in and two activation buffers as bf16 rows, POINTS_MMA
+    points."""
     hin, width, _ = _widths(plan)
-    return POINTS_FWD * (hin + 2 * width) * 4
+    if not _dtype_flag(compute_dtype):
+        return KernelLayout(POINTS_FWD, hin, width, 0, 0,
+                            POINTS_FWD * (hin + 2 * width) * 4)
+    hs = _ld16(hin)
+    ws = _ld16(max(L.fin for L in _layers(plan)))
+    ring, points = ring_elems(plan, backward=False), POINTS_MMA
+    smem = (2 * (ring + points * (hs + 2 * ws))
+            + 4 * points * (plan.emb_dim + plan.feat_dim))
+    return _fits(KernelLayout(points, hs, ws, 0, ring, smem))
 
 
-def bwd_layout(plan: Plan) -> tuple[int, int]:
-    """(points per chunk, dynamic shared memory bytes) of
-    csrc/fused_mlp_bwd.cu: per point every layer input of the widest head,
-    the cotangent [128], the dX buffer, d_h_in, d_emb and d_feat. The
-    largest chunk of 32, 16, 8 or 4 points that fits."""
+def bwd_layout(plan: Plan, compute_dtype=torch.float32) -> KernelLayout:
+    """csrc/fused_mlp_bwd.cu's shared memory, at the largest chunk that
+    fits. f32: per point every layer input of the widest head, the
+    cotangent [128], the dX buffer, d_h_in, d_emb and d_feat, in floats;
+    32, 16, 8 or 4 points. bf16 (POINTS_MMA points): the weight ring;
+    the recompute's h_in and two activation buffers as bf16 rows, in a
+    union with the backward's f32 dX and bf16 rounded cotangent [LD_G];
+    the leaky masks of every layer output but the last, a bit a value;
+    the last output, the db part sums, d_emb, d_feat and the chunk's
+    inputs in f32."""
     hin, width, inputs = _widths(plan)
-    per_point = (inputs + COLS + width + hin + plan.emb_dim
-                 + plan.feat_dim) * 4
-    for points in (32, 16, 8, 4):
-        if points * per_point <= SMEM_LIMIT:
-            return points, points * per_point
-    raise ValueError(f"plan needs {4 * per_point} bytes of shared memory "
-                     "for 4 points")
+    if not _dtype_flag(compute_dtype):
+        per_point = (inputs + COLS + width + hin + plan.emb_dim
+                     + plan.feat_dim) * 4
+        for points in (32, 16, 8, 4):
+            if points * per_point <= SMEM_LIMIT:
+                return KernelLayout(points, hin, width, inputs, 0,
+                                    points * per_point)
+        raise ValueError(f"plan needs {4 * per_point} bytes of shared "
+                         "memory for 4 points")
+    hs, ws = _ld16(hin), _ld16(max(L.fin for L in _layers(plan)))
+    words = max(sum(-(-L.fout // 32) for L in h.layers[:-1])
+                for h in plan.heads)
+    last = max(h.layers[-1].fout for h in plan.heads)
+    ring, points = ring_elems(plan, backward=True), POINTS_MMA
+    union = max(points * (hs + 2 * ws), points * (2 * ws + LD_G))
+    smem = (2 * (ring + union) + 4 * THREADS_MMA
+            + 4 * points * (words + last + 2 * (plan.emb_dim
+                                                 + plan.feat_dim)))
+    return _fits(KernelLayout(points, hs, ws, 0, ring, smem))
+
+
+def _fits(lay: KernelLayout) -> KernelLayout:
+    if lay.smem > SMEM_LIMIT:
+        raise ValueError(f"plan needs {lay.smem} bytes of shared memory for "
+                         f"{lay.points} points")
+    return lay
+
+
+def kernel_weights(w: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """The packed weights as the kernels read them: ``w`` itself in f32,
+    one bf16 copy in bf16 (made once a call, so no kernel converts in its
+    inner loop)."""
+    return w.to(torch.bfloat16) if _dtype_flag(compute_dtype) else w
 
 
 @functools.cache
@@ -399,10 +506,13 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def n_partials(device: torch.device, smem: int) -> int:
-    """CTAs of the backward kernel: as many as fit on the card at once,
-    each owning one db partial."""
-    per_sm = max(1, min(228 * 1024 // (smem + 1024), 2048 // THREADS_BWD))
+def resident_ctas(device: torch.device, smem: int, threads: int) -> int:
+    """CTAs of a kernel of ``threads`` threads and ``smem`` bytes of
+    dynamic shared memory that fit on the card at once (by shared memory
+    and threads): the persistent grids of the fused kernels, whose CTAs
+    walk the chunks c, c + grid, ...; each backward CTA owns one db
+    partial."""
+    per_sm = max(1, min(228 * 1024 // (smem + 1024), 2048 // threads))
     return _sm_count(device) * per_sm
 
 
@@ -425,12 +535,18 @@ def _check_inputs(plan, emb, feat, w, b):
 
 def _launch_fwd(plan, emb, feat, w, b, compute_dtype):
     dev, n = _check_inputs(plan, emb, feat, w, b)
-    hin, width, _ = _widths(plan)
+    lay = fwd_layout(plan, compute_dtype)
     outs = [torch.empty(n, h.out_dim, device=dev) for h in plan.heads]
     ptrs = torch.tensor([o.data_ptr() for o in outs], dtype=torch.int64)
+    chunks = -(-n // lay.points)
+    # f32: a CTA a chunk; bf16: as many CTAs as fit, each walking chunks
+    ctas = (min(chunks, resident_ctas(dev, lay.smem, THREADS_MMA))
+            if _dtype_flag(compute_dtype) else chunks)
     if n:
-        run("fused_mlp_fwd", emb, feat, w, b, plan_table(plan), ptrs, n, hin,
-            width, fwd_smem_bytes(plan), _dtype_flag(compute_dtype))
+        run("fused_mlp_fwd", emb, feat, kernel_weights(w, compute_dtype), b,
+            plan_table(plan), ptrs, n, lay.hin_stride, lay.width_stride,
+            lay.w_region, lay.points, lay.smem, ctas,
+            _dtype_flag(compute_dtype))
         fused_heads.launches += 1
     return tuple(outs)
 
@@ -462,23 +578,26 @@ def launch_bwd(plan: Plan, emb, feat, w, b, gs, compute_dtype):
     dev, n = _check_inputs(plan, emb, feat, w, b)
     for h, g in zip(plan.heads, gs, strict=True):
         check(f"g[{h.name}]", g, torch.float32, (n, h.out_dim), dev)
-    hin, width, inputs = _widths(plan)
-    points, smem = bwd_layout(plan)
+    kl = bwd_layout(plan, compute_dtype)
     lay = dw_scratch_layout(plan, n)
     d_emb = torch.empty(n, plan.emb_dim, device=dev)
     d_feat = torch.empty(n, plan.feat_dim, device=dev)
     # every element is written by the kernel, padding included
     scratch = torch.empty(lay.size, dtype=compute_dtype, device=dev)
-    ctas = min(n_partials(dev, smem), max(1, lay.n_pad // points))
+    threads = THREADS_MMA if _dtype_flag(compute_dtype) else THREADS_BWD
+    ctas = min(resident_ctas(dev, kl.smem, threads),
+               max(1, lay.n_pad // kl.points))
     # zeros: each CTA adds its chunks' sums into its own partial
     b_parts = torch.zeros(ctas, plan.n_bias * COLS, device=dev)
     ptrs = torch.tensor([g.data_ptr() for g in gs], dtype=torch.int64)
     offs = torch.tensor([o for pair in zip(lay.x_off, lay.g_off)
                          for o in pair], dtype=torch.int64)
     if n:
-        run("fused_mlp_bwd", emb, feat, w, b, plan_table(plan), ptrs, d_emb,
-            d_feat, scratch, offs, b_parts, n, lay.n_pad, hin, width, inputs,
-            points, smem, ctas, _dtype_flag(compute_dtype))
+        run("fused_mlp_bwd", emb, feat, kernel_weights(w, compute_dtype), b,
+            plan_table(plan), ptrs, d_emb, d_feat, scratch, offs, b_parts, n,
+            lay.n_pad, kl.hin_stride, kl.width_stride, kl.inputs_stride,
+            kl.w_region, kl.points, kl.smem, ctas,
+            _dtype_flag(compute_dtype))
         fused_heads_bwd.launches += 1
     return d_emb, d_feat, scratch, b_parts
 
