@@ -13,25 +13,32 @@ Phases, each raising on failure:
    splats from ``create_from_pcd``, VarTriPlane field model from seed 0,
    800x800, tile 16, tile_cap 1024, k_chunk 128, dup_factor 5); the
    kernel and the plain blend on one frame's own blend inputs, plus a
-   heavy-overlap early-termination case and a counts > tile_cap case.
+   heavy-overlap early-termination case, a counts > tile_cap case and
+   the ``blend_case`` kinds that hold the kernels' pre-test and tile cull
+   to the exact rules (thin rotated ellipses, rows whose bin box covers a
+   tile their ellipse misses, alpha at 1/255 across many pixels, ragged
+   counts in a permuted ``tile_ids``).
 3. The slice at full width: 8 orbit frames through
    ``render_lib.render_cameras_batched``; finite outputs, the kernel's
-   launch count over that run, ms/frame, the kernel's and the plain
-   blend's ms and the kernel's bound.
+   launch count over that run, ms/frame, the kernel's (eager and in CUDA
+   graph replay) and the plain blend's ms, the kernel's bound and the
+   work (``blend_work``: pairs evaluated and applied, warp-rows with an
+   applied lane, rows culled).
 4. A small frame rendered on the card (kernel) and on the CPU (plain
    blend) with the same weights must agree.
 5. Backward kernel vs plain on the card: one training frame's own blend
    inputs and upstream gradients (captured from a training step of phase
    6's configuration), plus the early-termination and counts > tile_cap
-   packs with random upstream gradients.
+   packs and the ``blend_case`` kinds with random upstream gradients;
+   two launches on the training frame and on each kind bitwise equal.
 6. The training slice at full width (``bench.py``'s default training
    workload: the serving scene's splats and net, one view per step from a
    different orbit camera, a random target, ``lambda_mask`` 0,
    ``lambda_norm`` 0.01, D-SSIM 0.2, bench.py's splat learning rates,
    field lr 1e-3): warm-up steps, then timed steps; finite losses, the
    field moved, both kernels launched once per render, ``denom`` grew;
-   ms/step, rays/s, the backward kernel's and the plain version's ms and
-   the kernel's bound.
+   ms/step, rays/s, the backward kernel's (eager and in graph replay) and
+   the plain version's ms, the kernel's bound and the work.
 7. One small training step on the card (kernels) and on the CPU (plain
    versions) from the same weights, splats, Adam states and batch must
    agree.
@@ -293,6 +300,144 @@ def synthetic_pack(device, rows_per_tile, opacity, tiles_x=8, tiles_y=4,
     return ((torch.as_tensor(pack, device=device),
              torch.as_tensor(tile_start, device=device),
              torch.as_tensor(counts, device=device)), tiles_x, tiles_y)
+
+
+# blend_case kinds: the kernels' skip rules at their edges
+BLEND_KINDS = ("thin", "miss", "faint", "ragged")
+# rows of the "ragged" case's tiles (handed out by a permuted tile_ids)
+RAGGED_COUNTS = (0, 1, 31, 33, 257, 1025, 200, 64, 0, 5, 300, 17)
+
+
+def _case_rows(rng, kind, n, x0, y0, ts=16):
+    """``n`` pack rows [n, 10] of one ``blend_case`` kind around the tile
+    whose first pixel is (x0, y0), front to back (z increasing)."""
+    if kind == "thin":       # thin ellipses at any angle, around the tile
+        s1, s2 = rng.uniform(3, 40, n), rng.uniform(0.3, 1.2, n)
+        mean = rng.uniform(-40, ts + 40, (n, 2))
+        op = rng.uniform(0.05, 1.0, n)
+    elif kind == "miss":     # just outside the tile: binned, often missed
+        s1, s2 = rng.uniform(0.5, 6, n), rng.uniform(0.5, 6, n)
+        side, depth = rng.randint(4, size=n), rng.uniform(0, 4, n) * s1
+        along = rng.uniform(-2, ts + 2, n)
+        out = np.where(side % 2 == 0, -0.5 - depth, ts - 0.5 + depth)
+        mean = np.where((side < 2)[:, None], np.stack([out, along], 1),
+                        np.stack([along, out], 1))
+        op = rng.uniform(0.02, 1.0, n)
+    elif kind == "faint":    # alpha at 1/255 across many pixels
+        s1 = rng.uniform(20, 200, n)
+        s2 = s1 * rng.uniform(0.5, 1.0, n)
+        mean = rng.uniform(-60, ts + 60, (n, 2))
+        lvl = np.float32(1 / 255)
+        ring = rng.uniform(0, 30, n)   # the 1/255 level at this radius
+        op = np.where(rng.rand(n) < 0.5,
+                      lvl * np.exp(0.5 * (ring / s2) ** 2),
+                      lvl * (1 + rng.uniform(-2e-3, 2e-3, n)))
+        op[::7] = lvl
+        op[1::7] = np.nextafter(lvl, np.float32(1))
+        op[2::7] = np.nextafter(lvl, np.float32(0))
+    else:
+        raise ValueError(kind)
+    th = rng.uniform(0, np.pi, n)
+    cos, sin = np.cos(th), np.sin(th)
+    # conic = inverse of R diag(s1^2, s2^2) R^T
+    i1, i2 = 1 / s1 ** 2, 1 / s2 ** 2
+    rows = np.zeros((n, 10), np.float32)
+    rows[:, 0], rows[:, 1] = x0 + mean[:, 0], y0 + mean[:, 1]
+    rows[:, 2] = cos * cos * i1 + sin * sin * i2
+    rows[:, 3] = cos * sin * (i1 - i2)
+    rows[:, 4] = sin * sin * i1 + cos * cos * i2
+    rows[:, 5] = np.minimum(op, 1.0)
+    rows[:, 6:9] = rng.rand(n, 3)
+    rows[:, 9] = np.linspace(0.5, 5.0, n)
+    return rows
+
+
+def blend_case(kind, device, seed=0, tiles_x=4, tiles_y=3, rows=240):
+    """A pack that holds the blend kernels' pre-test and tile cull to the
+    exact rules: "thin" (thin rotated ellipses), "miss" (splats just
+    outside a tile, whose bin box covers it and whose ellipse often
+    misses it), "faint" (opacities that put alpha at 1/255 across many
+    pixels), "ragged" (RAGGED_COUNTS rows of mixed kinds, tiles in a
+    permuted ``tile_ids``). Returns ``((pack, tile_start, counts,
+    tile_ids), tiles_x, tiles_y)``."""
+    import torch
+    rng = np.random.RandomState(seed)
+    t = tiles_x * tiles_y
+    if kind == "ragged":
+        counts = np.resize(np.array(RAGGED_COUNTS), t)
+        tile_ids = rng.permutation(t)
+    else:
+        counts, tile_ids = np.full(t, rows), np.arange(t)
+    parts = []
+    for n, gid in zip(counts, tile_ids):
+        x0, y0 = (gid % tiles_x) * 16, (gid // tiles_x) * 16
+        k = (BLEND_KINDS[rng.randint(3)] if kind == "ragged" else kind)
+        parts.append(_case_rows(rng, k, int(n), x0, y0))
+    pack = np.concatenate(parts)
+    tile_start = np.concatenate([[0], np.cumsum(counts)])
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+    return ((torch.as_tensor(pack, device=device), i32(tile_start),
+             i32(counts), i32(tile_ids)), tiles_x, tiles_y)
+
+
+def serving_blend_args(sc):
+    """Phase 2's inputs: the blend's arguments of serving frame 0, exactly
+    as the serving path hands them over (``tile_ids`` left to the
+    default)."""
+    from splatfields_torch.ops.raster import api
+    from splatfields_torch.render_lib import render_camera
+    captured, blend_fwd = [], api.blend_fwd
+
+    def spy(*args):
+        captured.append(args)
+        return blend_fwd(*args)
+
+    api.blend_fwd = spy
+    try:
+        render_camera(sc.cams[0], sc.params, sc.stats, sc.deform, sc.pipe,
+                      sc.bg)
+    finally:
+        api.blend_fwd = blend_fwd
+    (args,) = captured
+    return args
+
+
+def training_blend_args(sc, step, batch, lrs):
+    """Phase 5's inputs: the backward kernel's arguments in one training
+    step of ``step`` on ``batch`` from the scene's fresh state."""
+    import torch
+
+    from splatfields_torch.models import splats
+    from splatfields_torch.ops.raster import blend_cuda
+    captured, blend_bwd = [], blend_cuda.blend_bwd
+
+    def spy(*args):
+        # detached: the saved outputs come back from autograd with grad_fn
+        captured.append(tuple(a.detach() if isinstance(a, torch.Tensor)
+                              else a for a in args))
+        return blend_bwd(*args)
+
+    # the wrapper counts through its module-level name, the spy's here;
+    # phase 6 resets the counts anyway
+    spy.launches = 0
+    blend_cuda.blend_bwd = spy
+    try:
+        step(sc.params, sc.stats, splats.adam_init(sc.params),
+             sc.deform.params, sc.deform.opt_state, batch, lrs, FIELD_LR)
+    finally:
+        blend_cuda.blend_bwd = blend_bwd
+    (bargs,) = captured
+    return bargs
+
+
+def training_batches(dev):
+    """The phase-6 batches (warm-up, timed, and the last one, phase 5's)."""
+    rng = np.random.RandomState(0)
+    cams = make_views(TRAIN_WARMUP + TRAIN_STEPS + 1, RES)
+    return [train_batch(c, rng, dev) for c in cams]
 
 
 def serving_scene(device=None):
@@ -784,30 +929,10 @@ def train_phases(sc, dev, smi):
 
     step = train_step_fn(sc.deform, sc.pipe, RES)
     lrs = splats.splat_lr_tree(*SPLAT_LRS)
-    rng = np.random.RandomState(0)
-    cams = make_views(TRAIN_WARMUP + TRAIN_STEPS + 1, RES)
-    batches = [train_batch(c, rng, dev) for c in cams]
+    batches = training_batches(dev)
 
     # --- 5. backward kernel vs plain ---------------------------------------
-    captured = []
-
-    def spy(*args):
-        # detached: the saved outputs come back from autograd with grad_fn
-        captured.append(tuple(a.detach() if isinstance(a, torch.Tensor)
-                              else a for a in args))
-        return blend_bwd(*args)
-
-    # the wrapper counts through its module-level name, the spy's here;
-    # phase 6 resets the counts anyway
-    spy.launches = 0
-    blend_cuda.blend_bwd = spy
-    try:
-        step(sc.params, sc.stats, splats.adam_init(sc.params),
-             sc.deform.params, sc.deform.opt_state, batches[-1], lrs,
-             FIELD_LR)
-    finally:
-        blend_cuda.blend_bwd = blend_bwd
-    (bargs,) = captured
+    bargs = training_blend_args(sc, step, batches[-1], lrs)
     ts, tc, tk = 16, 1024, 128
     plain_args = (*bargs[:10], bargs[10], ts, tc, tk)
     got = blend_bwd(*bargs)
@@ -816,6 +941,8 @@ def train_phases(sc, dev, smi):
                         blend_bwd_plain(*plain_args))
     if not float(got.abs().max()) > 0:
         raise AssertionError("backward of the training frame is all zero")
+    if not torch.equal(blend_bwd(*bargs), got):
+        raise AssertionError("two blend_bwd launches differ")
 
     def synthetic_bwd(label, rows, opacity):
         (pack, start, counts), tx, ty = synthetic_pack(dev, rows, opacity)
@@ -835,6 +962,19 @@ def train_phases(sc, dev, smi):
     out = synthetic_bwd("backward, counts > tile_cap", 1500, 0.005)
     if not float(out[2].min()) > 1e-4:
         raise AssertionError("tile_cap case stopped early: cap untested")
+    for kind in BLEND_KINDS:
+        (pack, start, counts, ids), tx, ty = blend_case(kind, dev)
+        out = blend_fwd(pack, start, counts, tx, ty, ts, tc, tk, ids)
+        g = np.random.RandomState(1)
+        gs = [torch.as_tensor(g.rand(*o.shape).astype(np.float32),
+                              device=dev) for o in out]
+        args = (pack, start, counts, ids, *gs, *out)
+        got = blend_bwd(*args, tx, ts, tc)
+        check_bwd(f"backward, {kind} case", got,
+                  blend_bwd_plain(*args, tx, ts, tc, tk))
+        if not torch.equal(blend_bwd(*args, tx, ts, tc), got):
+            raise AssertionError(f"{kind} case: two blend_bwd launches "
+                                 "differ")
 
     # --- 6. the training slice at full width -------------------------------
     sp, st = sc.params, sc.stats
@@ -879,10 +1019,12 @@ def train_phases(sc, dev, smi):
           f"{bwd_launches} launches for {renders} renders; {smi})")
 
     kernel_ms = cuda_ms(lambda: blend_bwd(*bargs), 50)
+    graph_kernel_ms = graph_ms(lambda: blend_bwd(*bargs), 50)
     plain_ms = cuda_ms(lambda: blend_bwd_plain(*plain_args), 3)
     pack, tile_start, counts = bargs[:3]
-    evaluated, applied = blend_work(pack, tile_start, counts, bargs[10], ts,
-                                    tc, tk)
+    work = blend_work(pack, tile_start, counts, bargs[10], ts, tc, tk,
+                      bargs[3])
+    evaluated, applied = work.evaluated, work.applied
     n_tiles, p = counts.shape[0], ts * ts
     # pack read and grad written once, tile arrays, ten floats per pixel
     bytes_moved = (2 * pack.numel() * 4 + (tile_start.numel() + 2 * n_tiles)
@@ -890,9 +1032,12 @@ def train_phases(sc, dev, smi):
     ops = OPS_BWD_EVALUATED * evaluated + OPS_BWD_APPLIED * applied
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_FLOPS * 1e3
-    print(f"blend_bwd: kernel {kernel_ms:.5f} ms, plain {plain_ms:.4f} ms; "
+    print(f"blend_bwd: kernel {kernel_ms:.5f} ms, graph replay "
+          f"{graph_kernel_ms:.5f} ms, plain {plain_ms:.4f} ms; "
           f"sorted_pack {tuple(pack.shape)}, {n_tiles} tiles; "
-          f"{evaluated} pairs evaluated, {applied} applied; {ops} "
+          f"{evaluated} pairs evaluated, {applied} applied, "
+          f"{work.warp_rows} warp-rows with an applied lane, {work.culled} "
+          f"of {int(counts.clamp(max=tc).sum())} tile rows culled; {ops} "
           f"operations, {bytes_moved} bytes; bytes bound {bytes_ms:.5f} ms, "
           f"ops bound {ops_ms:.5f} ms")
 
@@ -919,6 +1064,7 @@ def train_phases(sc, dev, smi):
         "max_abs_err": bwd_err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "graph_ms": graph_kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
@@ -1514,7 +1660,7 @@ def main() -> int:
 
     from splatfields_torch.models import splats
     from splatfields_torch.models.deform_model import DeformModel
-    from splatfields_torch.ops.raster import api, blend_cuda
+    from splatfields_torch.ops.raster import blend_cuda
     from splatfields_torch.ops.raster.blend_cuda import blend_fwd
     from splatfields_torch.ops.raster.blend_torch import (
         blend_sorted_plain,
@@ -1545,18 +1691,7 @@ def main() -> int:
         sc.params, sc.stats, sc.deform, sc.pipe, sc.bg, sc.cams)
 
     # the blend's inputs exactly as the serving path hands them over
-    captured = []
-
-    def spy(*args):
-        captured.append(args)
-        return blend_fwd(*args)
-
-    api.blend_fwd = spy
-    try:
-        render_camera(cams[0], params, stats, deform, pipe, bg)
-    finally:
-        api.blend_fwd = blend_fwd
-    (args,) = captured
+    args = serving_blend_args(sc)
     sorted_pack, tile_start, counts = args[:3]
     print(f"blend inputs: sorted_pack {tuple(sorted_pack.shape)}, "
           f"{counts.shape[0]} tiles, max count {int(counts.max())}, "
@@ -1578,6 +1713,13 @@ def main() -> int:
                 blend_sorted_plain(*over, tx, ty, 16, 1024, 128))
     if not float(got[2].min()) > 1e-4:
         raise AssertionError("tile_cap case stopped early: cap untested")
+    for kind in BLEND_KINDS:
+        (pack_, start_, counts_, ids_), tx, ty = blend_case(kind, dev)
+        args_ = (pack_, start_, counts_, tx, ty, 16, 1024, 128, ids_)
+        check_close(f"{kind} case", blend_fwd(*args_),
+                    blend_sorted_plain(*args_))
+        print(f"{kind} case work: "
+              f"{blend_work(*args_[:3], tx, 16, 1024, 128, ids_)}")
 
     # --- 3. the slice at full width ---------------------------------------
     torch.cuda.synchronize()
@@ -1605,9 +1747,11 @@ def main() -> int:
 
     frame_ms = cuda_ms(render_all, 3) / N_FRAMES
     kernel_ms = cuda_ms(lambda: blend_fwd(*args), 50)
+    graph_kernel_ms = graph_ms(lambda: blend_fwd(*args), 50)
     plain_ms = cuda_ms(lambda: blend_sorted_plain(*args), 5)
-    evaluated, applied = blend_work(sorted_pack, tile_start, counts,
-                                    args[3], 16, 1024, 128)
+    work = blend_work(sorted_pack, tile_start, counts, args[3], 16, 1024,
+                      128)
+    evaluated, applied = work.evaluated, work.applied
     n_tiles, p = counts.shape[0], 16 * 16
     bytes_moved = (sorted_pack.numel() * 4 + (tile_start.numel()
                    + 2 * n_tiles) * 4 + n_tiles * 5 * p * 4)
@@ -1615,9 +1759,13 @@ def main() -> int:
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_FLOPS * 1e3
     print(f"render ms/frame {frame_ms:.4f} ({RES}x{RES}, {N_SPLATS} splats)")
-    print(f"blend work: {evaluated} pairs evaluated, {applied} applied; "
+    print(f"blend work: {evaluated} pairs evaluated, {applied} applied, "
+          f"{work.warp_rows} warp-rows with an applied lane, {work.culled} "
+          f"of {int(counts.clamp(max=1024).sum())} tile rows culled; "
           f"{bytes_moved} bytes; bytes bound {bytes_ms:.5f} ms, ops bound "
           f"{ops_ms:.5f} ms")
+    print(f"blend_fwd: kernel {kernel_ms:.5f} ms, graph replay "
+          f"{graph_kernel_ms:.5f} ms, plain {plain_ms:.4f} ms; {smi}")
 
     # --- 4. small frame: kernel on the card vs plain blend on the CPU -------
     small_cam = make_views(2, 64)[1]
@@ -1649,6 +1797,7 @@ def main() -> int:
         "max_abs_err": serving_err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "graph_ms": graph_kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",

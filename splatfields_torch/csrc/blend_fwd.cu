@@ -2,33 +2,31 @@
 //
 // Replaces splatfields_tpu/ops/raster/blend_pallas.py::_blend_fwd_pallas
 // (kernel body _fwd_kernel). Same contract and semantics: per 16x16 tile,
-// composite the tile's depth-sorted instances front to back,
-//   alpha = min(0.99, op * exp(power)),
-//   power = -0.5 * (a dx^2 + c dy^2) - b dx dy,   dx = mx - px, dy = my - py,
-// skip a splat when power > 0 or alpha < 1/255 (tested after the min),
-// stop a pixel at the first splat with T * (1 - alpha) < 1e-4 (that splat
-// is not applied), and cap each tile at tile_cap instances (binning does
-// not cap counts). final_t is the T after the last applied splat.
+// composite the tile's depth-sorted instances front to back with the rules
+// of blend_rows.cuh (alpha = min(0.99, op exp(power)), skip on power > 0
+// or alpha < 1/255, stop a pixel at the first splat with T (1 - alpha) <
+// 1e-4, not applied), at most tile_cap instances a tile (binning does not
+// cap counts). final_t is the T after the last applied splat.
 //
 // Design. The TPU kernel blends a whole [K, 256] chunk at once with a
 // log-step cumprod because its vector unit has no per-lane control flow.
-// Hopper has it, so this is the classic per-pixel loop: one CTA per tile,
-// one thread per pixel, each thread compositing sequentially with its own
-// done flag. The CTA stages the tile's instance rows through shared memory
-// in batches of one row per thread, so each row is read from device memory
-// once per tile and then broadcast to all 256 pixels, and it leaves the
-// batch loop as soon as every pixel is done (__syncthreads_count).
+// Hopper has it, so this is the per-pixel loop: one CTA per tile, one
+// thread per pixel, each compositing sequentially with its own done flag.
+// The CTA stages up to one row a thread at a time (blend_rows.cuh): the
+// rows the tile cull drops never reach the pixel loop, and the kept ones
+// sit in shared memory as three 16-byte chunks, so a pair's test reads two
+// float4 (a broadcast to the warp) and runs the exact pre-test before the
+// expf: most pairs are skipped there (alpha < 1/255 far from the centre).
+// The next batch's rows are loaded into registers while the pixel loop
+// runs. The tile leaves once every pixel is done (__syncthreads_count).
 //
-// Bound. Per (pixel, instance) pair the loop does ~20 float operations
-// (one expf) before the skip tests and ~8 more when the splat is applied,
-// on data that is already in shared memory; device traffic is one 40-byte
-// row per instance plus 20 bytes of output per pixel. At the serving shape
-// (500k instances, 2,500 tiles) that is tens of MB against >10^8 pairs, so
-// the kernel is bound by the non-tensor f32 rate, not by memory. Hence the
-// design keeps the inner loop free of memory traffic and stops early; a
-// faster version would cut the per-pair operations (skip splats whose
-// ellipse misses the pixel before the expf) or the work of idle threads of
-// pixels already done.
+// Bound. Per (pixel, instance) pair ~20 float operations before the skip
+// tests and ~8 more when the splat is applied, on data already in shared
+// memory; device traffic is one 40-byte row per instance plus 20 bytes
+// per pixel, tens of MB against >10^8 pairs at the serving shape: the
+// kernel is bound by the non-tensor f32 rate. The design cuts the instruction
+// slots of a skipped pair (two LDS.128 instead of six scalar loads, no
+// expf) and the pairs themselves (the cull).
 //
 // Build (as ops/cuda_build.py does it):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -37,14 +35,13 @@
 // elementwise ops round them, so the kernel computes each alpha the way
 // the plain blend does; what still differs is the order of the T product.
 
-#include <cuda_runtime.h>
+#include "blend_rows.cuh"
 
 namespace {
 
-constexpr int kAttrs = 10;  // mx, my, con_a, con_b, con_c, opacity, r, g, b, z
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using namespace blend;
 
+// blockDim.x is p rounded up to a warp; threads past p stage rows only
 __global__ void blend_fwd_kernel(const float* __restrict__ pack, int d_rows,
                                  const int* __restrict__ tile_start,
                                  const int* __restrict__ counts,
@@ -52,54 +49,62 @@ __global__ void blend_fwd_kernel(const float* __restrict__ pack, int d_rows,
                                  float* __restrict__ color,
                                  float* __restrict__ depth,
                                  float* __restrict__ final_t, int tiles_x,
-                                 int tile_size, int tile_cap) {
-  extern __shared__ float rows[];  // [blockDim.x][kAttrs]
-  const int p = blockDim.x;        // == tile_size * tile_size
+                                 int tile_size, int tile_cap, int p) {
+  extern __shared__ float4 rows[];  // [blockDim.x][3]
+  __shared__ int warp_kept[32];
+  const int nb = blockDim.x;
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
 
   const int gid = tile_ids[t];
-  const float px = static_cast<float>((gid % tiles_x) * tile_size + tid % tile_size);
-  const float py = static_cast<float>((gid / tiles_x) * tile_size + tid / tile_size);
+  const float x0 = static_cast<float>((gid % tiles_x) * tile_size);
+  const float y0 = static_cast<float>((gid / tiles_x) * tile_size);
+  const float x1 = x0 + static_cast<float>(tile_size - 1);
+  const float y1 = y0 + static_cast<float>(tile_size - 1);
+  const float px = x0 + static_cast<float>(tid % tile_size);
+  const float py = y0 + static_cast<float>(tid / tile_size);
 
   const int start = tile_start[t];
   // cap at tile_cap, and never read past the end of the pack
   const int n = max(0, min(min(counts[t], tile_cap), d_rows - start));
 
   float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, z = 0.0f;
-  bool done = false;
-  for (int b = 0; b < n; b += p) {
-    // barrier: the previous batch is fully read before it is overwritten;
-    // and the whole tile leaves once every pixel is done
+  bool done = tid >= p;
+  for (int b = 0; b < n; b += nb) {
+    float mine[kAttrs] = {}, thr;  // the row this thread stages
+    if (b + tid < n) load_row(pack, start + b + tid, mine);
+    const unsigned ballot = stage_vote(mine, b + tid < n, x0, y0, x1, y1,
+                                       &thr, warp_kept);
+    // barrier: the previous batch is fully read before it is overwritten
+    // and warp_kept is complete; the tile leaves once every pixel is done
     if (__syncthreads_count(!done) == 0) break;
-    const int i = b + tid;
-    if (i < n) {
-      const float* src = pack + static_cast<size_t>(start + i) * kAttrs;
-#pragma unroll
-      for (int k = 0; k < kAttrs; ++k) rows[tid * kAttrs + k] = src[k];
-    }
+    const int m = stage_write(rows, warp_kept, ballot, mine, thr,
+                              start + b + tid);
     __syncthreads();
-    const int m = min(p, n - b);
     for (int j = 0; j < m && !done; ++j) {
-      const float* r = rows + j * kAttrs;
-      const float dx = r[0] - px;
-      const float dy = r[1] - py;
-      const float power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-      const float alpha = fminf(0.99f, r[5] * expf(power));
-      if (power > 0.0f || alpha < kAlphaMin) continue;
+      const float4 g = rows[3 * j];      // mx, my, a, b
+      const float4 q = rows[3 * j + 1];  // c, thr, op, z
+      const float dx = g.x - px;
+      const float dy = g.y - py;
+      const float power = -0.5f * (g.z * dx * dx + q.x * dy * dy) - g.w * dx * dy;
+      if (power > 0.0f || power < q.y) continue;  // the exact pre-test
+      const float alpha = fminf(0.99f, q.z * expf(power));
+      if (alpha < kAlphaMin) continue;
       const float test_t = T * (1.0f - alpha);
       if (test_t < kTEps) {
         done = true;
         break;
       }
+      const float4 rgb = rows[3 * j + 2];
       const float w = alpha * T;
-      c0 += w * r[6];
-      c1 += w * r[7];
-      c2 += w * r[8];
-      z += w * r[9];
+      c0 += w * rgb.x;
+      c1 += w * rgb.y;
+      c2 += w * rgb.z;
+      z += w * q.w;
       T = test_t;
     }
   }
+  if (tid >= p) return;
   const size_t o = static_cast<size_t>(t) * p + tid;
   color[static_cast<size_t>(t) * 3 * p + tid] = c0;
   color[static_cast<size_t>(t) * 3 * p + p + tid] = c1;
@@ -113,16 +118,27 @@ __global__ void blend_fwd_kernel(const float* __restrict__ pack, int d_rows,
 extern "C" {
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
+// `pack` must be 8-byte aligned.
 int blend_fwd_launch(const float* pack, int d_rows, const int* tile_start,
                      const int* counts, const int* tile_ids, float* color,
                      float* depth, float* final_t, int num_tiles, int tiles_x,
                      int tile_size, int tile_cap, void* stream) {
   if (num_tiles == 0) return 0;
   const int p = tile_size * tile_size;
-  const size_t smem = static_cast<size_t>(p) * kAttrs * sizeof(float);
-  blend_fwd_kernel<<<num_tiles, p, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int threads = (p + 31) / 32 * 32;
+  if (p < 1 || threads > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(threads) * kRow * sizeof(float);
+  // past 48 KB with the static warp_kept, the kernel must opt in
+  if (smem + 32 * sizeof(int) > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blend_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  blend_fwd_kernel<<<num_tiles, threads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
       pack, d_rows, tile_start, counts, tile_ids, color, depth, final_t,
-      tiles_x, tile_size, tile_cap);
+      tiles_x, tile_size, tile_cap, p);
   return static_cast<int>(cudaGetLastError());
 }
 

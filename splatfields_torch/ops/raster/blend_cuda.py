@@ -38,6 +38,9 @@ def _check_tiles(sorted_pack, tile_start, counts, tile_ids, tile_size):
     num_tiles = counts.shape[0]
     check("sorted_pack", sorted_pack, torch.float32,
           (sorted_pack.shape[0], PACK_WIDTH), dev)
+    if sorted_pack.data_ptr() % 8:
+        raise ValueError("sorted_pack must be 8-byte aligned: the kernels "
+                         "read its rows as float2")
     check("tile_start", tile_start, torch.int32, (num_tiles + 1,), dev)
     check("counts", counts, torch.int32, (num_tiles,), dev)
     check("tile_ids", tile_ids, torch.int32, (num_tiles,), dev)

@@ -21,7 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TOL_BWD, column_errs, synthetic_pack
+from chip_smoke import (
+    BLEND_KINDS,
+    TOL,
+    TOL_BWD,
+    blend_case,
+    column_errs,
+    synthetic_pack,
+)
 from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
 from splatfields_torch.ops.raster.blend_torch import (
     blend_bwd_plain,
@@ -121,4 +128,44 @@ def test_autograd_launches_backward_once(cuda):
     want = blend_bwd_plain(pack.detach(), tile_start, counts, tile_ids, *gs,
                            *[o.detach() for o in out], tiles_x, TS, 1024, 128)
     errs, _ = column_errs(grad, want)
+    assert float(errs.max()) <= TOL_BWD, errs
+
+
+@pytest.mark.parametrize("kind", BLEND_KINDS)
+def test_skip_rule_edges(cuda, kind):
+    """The pre-test and the tile cull against the exact rules: thin
+    rotated ellipses, rows whose bin box covers a tile their ellipse
+    misses, alpha at 1/255 across many pixels, ragged counts (0, 1, 31,
+    33, 257, 1,025) in a permuted tile_ids. Forward within TOL, backward
+    within TOL_BWD, two backward launches bitwise equal."""
+    (pack, start, counts, ids), tx, ty = blend_case(kind, cuda)
+    args = (pack, start, counts, tx, ty, TS, 1024, 128, ids)
+    out = blend_fwd(*args)
+    want = blend_sorted_plain(*args)
+    for name, g, w in zip(TOL, out, want):
+        torch.testing.assert_close(g, w, atol=TOL[name], rtol=0)
+    bargs = (pack, start, counts, ids, *_upstream(out, 3), *out)
+    got = blend_bwd(*bargs, tx, TS, 1024)
+    errs, _ = column_errs(got, blend_bwd_plain(*bargs, tx, TS, 1024, 128))
+    assert float(errs.max()) <= TOL_BWD, errs
+    assert torch.equal(blend_bwd(*bargs, tx, TS, 1024), got)
+
+
+@pytest.mark.parametrize("ts", [4, 8, 32])
+def test_other_tile_sizes(cuda, ts):
+    """Tile sizes whose pixel count is not a warp (4: 16 pixels, the
+    forward rounds its threads up) or needs more than 48 KB of shared
+    memory (32: 1,024 pixels); the backward takes multiples of 32."""
+    (pack, start, counts), tx, ty = synthetic_pack(cuda, 300, 0.3,
+                                                   tiles_x=4, tiles_y=3)
+    args = (pack, start, counts, tx, ty, ts, 1024, 128)
+    out = blend_fwd(*args)
+    for name, g, w in zip(TOL, out, blend_sorted_plain(*args)):
+        torch.testing.assert_close(g, w, atol=TOL[name], rtol=0)
+    if ts * ts % 32:
+        return
+    ids = torch.arange(tx * ty, device=cuda, dtype=torch.int32)
+    bargs = (pack, start, counts, ids, *_upstream(out, ts), *out)
+    got = blend_bwd(*bargs, tx, ts, 1024)
+    errs, _ = column_errs(got, blend_bwd_plain(*bargs, tx, ts, 1024, 128))
     assert float(errs.max()) <= TOL_BWD, errs
