@@ -44,14 +44,17 @@ Phases, each raising on failure:
    agree.
 8. Segment-sum kernel vs plain on the card: the sorted hash-table ids and
    gradient rows of one full-width NGP training step (captured from phase
-   9's configuration), plus a hot-row, an out-of-range-id and an
-   empty-rows case; two launches must be bitwise equal.
+   9's configuration), plus every ``segsum_case`` kind at D = 2 (hot
+   rows, rows over many blocks, an NGP-shaped profile, out-of-range ids,
+   empty rows, ragged sizes, unaligned views) and two kinds at D = 1, 3,
+   4, 5 and 16; two launches must be bitwise equal, rows no id names 0.
 9. The NGP training slice at full width (``bench.py --variant ngp``: the
    same splats, loss and learning rates as phase 6 with the NGPMLP field,
    16 levels of 2^20 rows): warm-up steps, then timed steps; finite
    losses, the table moved, each of the three kernels launched once per
-   step; ms/step, rays/s, the segment-sum kernel's, the plain version's
-   and ``index_add_``'s ms and the kernel's bound.
+   step; ms/step, rays/s, the segment-sum kernel's (eager and in CUDA
+   graph replay), the plain version's and ``index_add_``'s ms and the
+   kernel's bound.
 10. One small NGP training step on the card (kernels) and on the CPU
     (plain versions) must agree as in phase 7.
 11. Fused-heads kernels vs plain on the card, at f32 and bf16: both plans'
@@ -132,10 +135,21 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 NGP_HIDDEN = dict(encoder_type="NGPMLP", composition_rank=0, n_frames=0)
 NGP_SMALL = dict(log2_hashmap_size=14)
 # segment-sum kernel vs plain, max abs error over the column's max abs:
-# the kernel sums each row in slot order, the plain version's index_add_
-# with atomics in another order (one row of the NGP step takes up to a few
-# hundred terms; the hot case 2,048)
+# the kernel sums each row in an order fixed by the slots' positions, the
+# plain version's index_add_ with atomics in another order (one row of the
+# NGP step takes up to a few hundred terms). Rows over LONG_ROW terms (the
+# hot case's 2,053, the long rows) are held against the plain version run
+# in float64 and rounded to f32: there index_add_'s own f32 order may
+# drift toward 1e-5
 TOL_SEGSUM = 1e-5
+LONG_ROW = 2048
+# segsum_case kinds, beside the NGP step's captured inputs (phase 8):
+# the kernel's edges (rows over many steps and blocks, hot rows on both
+# sides of a block's row edge, an NGP-shaped profile, ragged sizes,
+# views off 16-byte alignment, every id out of range)
+SEGSUM_KINDS = ("random", "hot", "out_of_range", "empty", "long_row_20k",
+                "long_row_200k", "edge_hot", "ngp", "ragged", "unaligned",
+                "all_out", "ragged_rows")
 # fused heads, kernel vs plain: forward, max abs error over the output's max
 # abs (per head); backward, for each gradient tensor (d_emb, d_feat, each
 # layer's weight and bias), max abs error over the tensor's max abs
@@ -490,14 +504,35 @@ def check_bwd(label, got, want):
 
 def segsum_case(kind, device, d=2, seed=0):
     """Sorted int32 ids, f32 rows [M, d] and n_rows for a segment-sum
-    check: "random" (2^17 ids over 2^16 rows), "hot" (one row takes 2,048
-    slots amid 20,000 random ones), "out_of_range" (ids from -1,000 to
-    n_rows + 1,000) or "empty" (50 ids over 2^20 rows). The rows are
-    standard normal, the hot case's uniform in [0, 1): a sum of 2,048
-    terms of mixed sign is ill-conditioned, and two summation orders then
-    differ by ~1e-5 of the column's max, whatever the kernel does."""
+    check (``SEGSUM_KINDS``):
+
+    - "random": 2^17 ids over 2^16 rows;
+    - "hot": one row takes 2,048 slots amid 20,000 random ones;
+    - "out_of_range": ids from -1,000 to n_rows + 1,000;
+    - "empty": 50 ids over 2^20 rows;
+    - "long_row_20k", "long_row_200k": one row takes 20,000 or 200,000
+      slots amid 20,000 random ids over 4,096 rows: the row spans many of
+      the kernel's steps and blocks' items;
+    - "edge_hot": rows 2,047-2,049 take 9,000 slots each (more than a
+      block's items), amid 20,000 random ids over 4,096 rows, so that
+      blocks' row edges fall between hot rows and their items inside them;
+    - "ngp": the NGP step's profile, a dense level (rows 0-999, ~160 slots
+      each) then a hashed one (49,000 ids over 2^16 rows, ~1.4 a row
+      touched);
+    - "ragged": 100,003 ids (a prime number of slots) over 65,537 rows;
+    - "unaligned": "random"'s rows as views one slot into their tensors,
+      off 16-byte alignment (the kernel's scalar loads);
+    - "all_out": 30,000 ids, all below 0 or at or above n_rows;
+    - "ragged_rows": 1,000 ids over 100,001 rows, so blocks hold mostly
+      rows and the last block's rows are ragged.
+
+    The rows are standard normal; those of "hot", the long rows and
+    "edge_hot" uniform in [0, 1): a sum of thousands of terms of mixed
+    sign is ill-conditioned, and two summation orders then differ by
+    ~1e-5 of the column's max, whatever the kernel does."""
     import torch
     rng = np.random.RandomState(seed)
+    shift = 0
     if kind == "random":
         n_rows = 1 << 16
         ids = rng.randint(0, n_rows, 1 << 17)
@@ -511,13 +546,57 @@ def segsum_case(kind, device, d=2, seed=0):
     elif kind == "empty":
         n_rows = 1 << 20
         ids = rng.randint(0, n_rows, 50)
+    elif kind in ("long_row_20k", "long_row_200k"):
+        n_rows = 4096
+        ids = np.concatenate([rng.randint(0, n_rows, 20_000),
+                              np.full(int(kind[9:-1]) * 1000, 1234)])
+    elif kind == "edge_hot":
+        n_rows = 4096
+        ids = np.concatenate([rng.randint(0, n_rows, 20_000),
+                              np.repeat([2047, 2048, 2049], 9000)])
+    elif kind == "ngp":
+        n_rows = 1 << 17
+        ids = np.concatenate([np.repeat(np.arange(1000),
+                                        rng.poisson(160, 1000)),
+                              rng.randint(1 << 16, 1 << 17, 49_000)])
+    elif kind == "ragged":
+        n_rows = 65_537
+        ids = rng.randint(0, n_rows, 100_003)
+    elif kind == "unaligned":
+        n_rows, shift = 1 << 16, 1
+        ids = rng.randint(0, n_rows, (1 << 17) + shift)
+    elif kind == "all_out":
+        n_rows = 5000
+        ids = np.concatenate([rng.randint(-1000, 0, 15_000),
+                              rng.randint(n_rows, n_rows + 1000, 15_000)])
+    elif kind == "ragged_rows":
+        n_rows = 100_001
+        ids = rng.randint(0, n_rows, 1000)
     else:
         raise ValueError(kind)
     ids = np.sort(ids).astype(np.int32)
-    vals = (rng.rand(ids.size, d) if kind == "hot"
+    uniform = kind in ("hot", "long_row_20k", "long_row_200k", "edge_hot")
+    vals = (rng.rand(ids.size, d) if uniform
             else rng.randn(ids.size, d)).astype(np.float32)
-    return (torch.as_tensor(ids, device=device),
-            torch.as_tensor(vals, device=device), n_rows)
+    return (torch.as_tensor(ids, device=device)[shift:],
+            torch.as_tensor(vals, device=device)[shift:], n_rows)
+
+
+def segsum_reference(sidx, vals, n_rows):
+    """The plain version on the same tensors, run in float64 and rounded to
+    f32 when a row takes more than LONG_ROW slots. Returns (reference,
+    longest row)."""
+    import torch
+
+    from splatfields_torch.ops.segsum import sorted_segment_sum_plain
+    keep = sidx[(sidx >= 0) & (sidx < n_rows)]
+    longest = (int(torch.unique_consecutive(keep, return_counts=True)[1]
+                   .max()) if keep.numel() else 0)
+    if longest > LONG_ROW:
+        want = sorted_segment_sum_plain(sidx, vals.double(), n_rows).float()
+    else:
+        want = sorted_segment_sum_plain(sidx, vals, n_rows)
+    return want, longest
 
 
 def segsum_err(got, want):
@@ -527,23 +606,22 @@ def segsum_err(got, want):
 
 
 def check_segsum(label, sidx, vals, n_rows):
-    """The kernel twice (bitwise equal) against the plain version; returns
-    the max abs error."""
+    """The kernel twice (bitwise equal) against the plain version (in
+    float64 for rows over LONG_ROW slots); rows no in-range id names must
+    be exactly 0. Returns the max abs error."""
     import torch
 
-    from splatfields_torch.ops.segsum import (
-        sorted_segment_sum,
-        sorted_segment_sum_plain,
-    )
+    from splatfields_torch.ops.segsum import sorted_segment_sum
     got = sorted_segment_sum(sidx, vals, n_rows)
     again = sorted_segment_sum(sidx, vals, n_rows)
-    want = sorted_segment_sum_plain(sidx, vals, n_rows)
+    want, longest = segsum_reference(sidx, vals, n_rows)
     torch.cuda.synchronize()
     err = segsum_err(got, want)
     abs_err = float((got - want).abs().max())
     print(f"segment sum, {label}: {sidx.shape[0]} slots, {n_rows} rows, "
-          f"D {vals.shape[1]}; max abs err {abs_err:.3e}, worst column over "
-          f"its max {err:.3e}")
+          f"D {vals.shape[1]}, longest row {longest}"
+          f"{' (float64 reference)' if longest > LONG_ROW else ''}; max abs "
+          f"err {abs_err:.3e}, worst column over its max {err:.3e}")
     if not torch.equal(got, again):
         raise AssertionError(f"segment sum, {label}: two launches differ")
     if not bool(torch.isfinite(got).all()):
@@ -551,6 +629,11 @@ def check_segsum(label, sidx, vals, n_rows):
     if not err <= TOL_SEGSUM:
         raise AssertionError(f"segment sum, {label}: err {err} > "
                              f"{TOL_SEGSUM}")
+    hit = torch.zeros(n_rows, dtype=torch.bool, device=sidx.device)
+    hit[sidx[(sidx >= 0) & (sidx < n_rows)].long()] = True
+    if bool(got[~hit].any()):
+        raise AssertionError(f"segment sum, {label}: a row no id names is "
+                             "not 0")
     return abs_err
 
 
@@ -1073,12 +1156,39 @@ def train_phases(sc, dev, smi):
     }
 
 
+def capture_table_vjp(sc, deform, step, batch, lrs):
+    """One NGP training step (``step`` from ``train_step_fn``) with the
+    table VJP's inputs captured as it meets them: ``(ids, g)`` handed to
+    ``encoders._sort_rows`` and ``(sidx, rows, n_rows)`` handed to
+    ``sorted_segment_sum``."""
+    from splatfields_torch.models import encoders, splats
+    sort_rows, segsum = encoders._sort_rows, encoders.sorted_segment_sum
+    sorts, sums = [], []
+
+    def sort_spy(ids, rows):
+        sorts.append((ids.detach(), rows.detach()))
+        return sort_rows(ids, rows)
+
+    def segsum_spy(sidx, vals, n_rows):
+        sums.append((sidx.detach(), vals.detach(), n_rows))
+        return segsum(sidx, vals, n_rows)
+
+    encoders._sort_rows, encoders.sorted_segment_sum = sort_spy, segsum_spy
+    try:
+        step(sc.params, sc.stats, splats.adam_init(sc.params), deform.params,
+             deform.opt_state, batch, lrs, FIELD_LR)
+    finally:
+        encoders._sort_rows, encoders.sorted_segment_sum = sort_rows, segsum
+    (sort_args,), (sum_args,) = sorts, sums
+    return sort_args, sum_args
+
+
 def ngp_phases(sc, dev, smi):
     """Phases 8-10; returns the segment-sum kernel's entry of the kernels
     line."""
     import torch
 
-    from splatfields_torch.models import encoders, splats
+    from splatfields_torch.models import splats
     from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
     from splatfields_torch.ops.segsum import (
         sorted_segment_sum,
@@ -1093,19 +1203,7 @@ def ngp_phases(sc, dev, smi):
     batches = [train_batch(c, rng, dev) for c in cams]
 
     # --- 8. segment-sum kernel vs plain ------------------------------------
-    captured = []
-
-    def spy(sidx, vals, n_rows):
-        captured.append((sidx.detach(), vals.detach(), n_rows))
-        return sorted_segment_sum(sidx, vals, n_rows)
-
-    encoders.sorted_segment_sum = spy
-    try:
-        step(sc.params, sc.stats, splats.adam_init(sc.params), deform.params,
-             deform.opt_state, batches[-1], lrs, FIELD_LR)
-    finally:
-        encoders.sorted_segment_sum = sorted_segment_sum
-    (cap,) = captured
+    _, cap = capture_table_vjp(sc, deform, step, batches[-1], lrs)
     sidx, vals, n_rows = cap
     table = deform.params["encoder.encoding.table"]
     if (n_rows != table.shape[0] * table.shape[1]
@@ -1115,8 +1213,11 @@ def ngp_phases(sc, dev, smi):
     seg_err = check_segsum("NGP training step", *cap)
     if not float(vals.abs().max()) > 0:
         raise AssertionError("the NGP step's table gradient rows are zero")
-    for kind in ("hot", "out_of_range", "empty"):
+    for kind in SEGSUM_KINDS:
         check_segsum(kind, *segsum_case(kind, dev))
+    for d in (1, 3, 4, 5, 16):
+        for kind in ("ngp", "unaligned"):
+            check_segsum(f"{kind}, D {d}", *segsum_case(kind, dev, d=d))
 
     # --- 9. the NGP training slice at full width ---------------------------
     sp, st = sc.params, sc.stats
@@ -1160,6 +1261,7 @@ def ngp_phases(sc, dev, smi):
 
     d = vals.shape[1]
     kernel_ms = cuda_ms(lambda: sorted_segment_sum(*cap), 20)
+    graph_kernel_ms = graph_ms(lambda: sorted_segment_sum(*cap), 20)
     plain_ms = cuda_ms(lambda: sorted_segment_sum_plain(*cap), 5)
     library_ms = cuda_ms(lambda: torch.zeros(n_rows, d, device=dev).index_add_(
         0, sidx, vals), 5)
@@ -1167,8 +1269,9 @@ def ngp_phases(sc, dev, smi):
     bytes_moved = sidx.numel() * 4 + vals.numel() * 4 + n_rows * d * 4
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = vals.numel() / F32_FLOPS * 1e3
-    print(f"sorted_segment_sum: kernel {kernel_ms:.5f} ms (with its bounds' "
-          f"searchsorted), plain {plain_ms:.5f} ms, index_add_ "
+    print(f"sorted_segment_sum: kernel {kernel_ms:.5f} ms (the wrapper: one "
+          f"launch, which finds its own block ranges), graph replay "
+          f"{graph_kernel_ms:.5f} ms, plain {plain_ms:.5f} ms, index_add_ "
           f"{library_ms:.5f} ms; {sidx.numel()} slots, {n_rows} rows, D {d}; "
           f"{bytes_moved} bytes, bytes bound {bytes_ms:.5f} ms, ops bound "
           f"{ops_ms:.7f} ms")
@@ -1195,6 +1298,7 @@ def ngp_phases(sc, dev, smi):
         "max_abs_err": seg_err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "graph_ms": graph_kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",

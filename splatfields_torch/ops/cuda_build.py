@@ -42,7 +42,7 @@ KERNELS = {
                   [_ptr, _i32, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                    _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr]),
     "segsum": (CSRC / "segsum.cu",
-               [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _ptr]),
+               [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr]),
     "fused_mlp_fwd": (CSRC / "fused_mlp_fwd.cu",
                       [_ptr] * 6 + [_i32] * 8 + [_ptr]),
     "fused_mlp_bwd": (CSRC / "fused_mlp_bwd.cu",
