@@ -82,8 +82,38 @@ Phases, each raising on failure:
     forward and forward + backward.
 13. One small fused training step on the card (kernels) and on the CPU
     (plain version), both at f32, must agree as in phase 7.
+14. The Blender protocol's scene: an 800x800 Blender_cv dataset under
+    ``build/blender_protocol`` (100 train and 4 test cameras on the orbit
+    of tests/test_train_e2e.py), the ground truth rendered on the card by
+    the port's ``rasterize`` from 30,000 seeded splats, alpha (1 - final
+    T) as the PNGs' alpha, written through ``data/png.py``; the host's
+    reader, PNG decode (filter 0 and Paeth) and 256^3 hull-carve times.
+15. The 3DGS baseline through ``splatfields_torch.train.main`` with
+    ``scripts/run_blender.sh``'s first command line (hull init, 10
+    k-means views), cut to 300 iterations with densification at 200 and
+    300 and evaluation at 1 and 300: the state on the card, one
+    ``blend_fwd`` a step and per evaluation frame, one ``blend_bwd`` a
+    step, densify fired, test PSNR rose, PLY and train state written;
+    ms/it and the instances dropped past ``dup_cap``. Both kernels
+    against their plain versions on the loop's own inputs (its last
+    step's forward and backward, its last evaluation frame's forward),
+    the backward twice bitwise equal.
+16. SplatFields3D with the script's second command line (VarTriPlane,
+    ``lambda_norm`` 0.01, init from phase 15's PLY), 200 iterations, then
+    ``--resume`` to 220; the kernels on the loop's inputs as in phase 15;
+    ``splatfields_torch.render.main`` on the run at 200: results.yaml's
+    PSNR within the uint8 PNG round trip's bound of the loop's
+    evaluation, its frames within one level of the loop's own state
+    rendered here (and their PSNR within 1e-3 dB), ``deform.msgpack``
+    read back equal; ms/it and the render CLI's ms/frame.
+17. ``train.training`` for 5 iterations of a 64x64 scene, 3DGS and
+    SplatFields3D, on the card and on the CPU with the same seeds:
+    per-iteration losses within phase 7's 1e-5 relative.
 
-The line before the last is a JSON object of the kernels; the last line is
+The line before the last is a JSON object of the kernels (the blend
+kernels' ``loop_launches``: their counts in phases 15 and 16, and
+``loop_max_abs_err``: their errors on those phases' inputs); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, or with ``SPLATFIELDS_FUSED_MLP`` set
 (it would override each phase's choice of head path), the script exits
@@ -239,6 +269,83 @@ def make_views(num_views, res, fov=0.8):
                         np.linalg.inv(w2v.T)[:3, 3].astype(np.float32),
                         math.tan(fov / 2), math.tan(fov / 2), res, res))
     return cams
+
+
+def orbit_pose(theta, phi, radius):
+    """A Blender (OpenGL-convention) c2w on a sphere, looking at the
+    origin: ``tests/test_train_e2e.py::_make_pose``."""
+    pos = radius * np.array([math.cos(phi) * math.sin(theta),
+                             math.cos(phi) * math.cos(theta), math.sin(phi)])
+    forward = pos / np.linalg.norm(pos)
+    right = np.cross(np.array([0.0, 0.0, 1.0]), forward)
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1] = right, np.cross(forward, right)
+    c2w[:3, 2], c2w[:3, 3] = forward, pos
+    return c2w
+
+
+def write_blender_scene(root, res, n_train, test_thetas, device, n_splats=300,
+                        seed=0, level=1):
+    """A synthetic Blender_cv dataset under ``root`` (``lego``): the
+    cameras of ``tests/test_train_e2e.py``'s fixture (``n_train`` on the
+    phi 0.5, radius 4 orbit, fov 0.8), ground truth rendered by the port's
+    ``rasterize`` on ``device`` from a seeded known splat set (the
+    fixture's at its defaults), alpha (1 - final T) as the PNG's alpha,
+    written through ``data/png.py``. Returns the dataset's path."""
+    import json
+    import os
+
+    import torch
+
+    from splatfields_torch.data import png
+    from splatfields_torch.data.cameras import load_cam
+    from splatfields_torch.data.readers.blender import (
+        read_cameras_from_transforms_cv)
+    from splatfields_torch.ops.raster.api import rasterize
+
+    root = os.path.join(str(root), "lego")
+    splits = {"train": list(np.linspace(0, 2 * np.pi, n_train,
+                                        endpoint=False)),
+              "test": list(test_thetas)}
+    blank = png.encode(np.zeros((res, res, 4), np.uint8), level=level)
+    for name, thetas in splits.items():
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        frames = [{"file_path": f"./{name}/r_{i}",
+                   "transform_matrix": orbit_pose(th, 0.5, 4.0).tolist()}
+                  for i, th in enumerate(thetas)]
+        with open(os.path.join(root, f"transforms_{name}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+        for i in range(len(thetas)):
+            with open(os.path.join(root, name, f"r_{i}.png"), "wb") as f:
+                f.write(blank)
+
+    rng = np.random.RandomState(seed)
+    scale = (300 / n_splats) ** (1 / 3)
+    t = {k: torch.as_tensor(v.astype(np.float32), device=device) for k, v in (
+        ("means", rng.uniform(-0.5, 0.5, (n_splats, 3))),
+        ("scales", (0.03 + 0.04 * rng.rand(n_splats, 3)) * scale),
+        ("rots", rng.randn(n_splats, 4)),
+        ("ops", rng.uniform(0.5, 0.95, n_splats)),
+        ("cols", rng.rand(n_splats, 3)))}
+    white = torch.ones(3, device=device)
+    for name in splits:
+        infos, _ = read_cameras_from_transforms_cv(
+            root, f"transforms_{name}.json", True)
+        for i, info in enumerate(infos):
+            cam = load_cam(info, -1, i, 1.0, max_resolution=res,
+                           device=device)
+            c = cam.device_consts
+            out = rasterize(
+                t["means"], t["scales"], t["rots"], t["ops"],
+                c["viewmatrix"], c["projmatrix"], c["campos"], white,
+                cam.tanfovx, cam.tanfovy, res, res,
+                colors_precomp=t["cols"], tile_cap=256, k_chunk=64)
+            rgba = torch.cat([out.color, out.alpha]).clamp(0, 1)
+            png.write(os.path.join(root, name, f"r_{i}.png"),
+                      (rgba.permute(1, 2, 0).cpu().numpy() * 255).astype(
+                          np.uint8), level=level)
+    return root
 
 
 def cuda_ms(fn, iters):
@@ -1713,6 +1820,376 @@ def fused_phases(sc, dev, smi):
     }]
 
 
+class LoopBlends:
+    """Inside ``with``: the blend kernels' arguments as a training run
+    hands them over, detached: the last step's forward (``step_fwd``) and
+    backward (``step_bwd``) and the last evaluation frame's forward
+    (``eval_fwd``, rendered without grad). The launch counts stay the
+    wrappers'."""
+
+    def __enter__(self):
+        import torch
+
+        from splatfields_torch.ops.raster import api, blend_cuda
+        self.fwd, self.bwd = api.blend_fwd, blend_cuda.blend_bwd
+        self.step_fwd = self.eval_fwd = self.step_bwd = None
+
+        def detached(args):
+            return tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                         for a in args)
+
+        def fwd_spy(*args):
+            if torch.is_grad_enabled():
+                self.step_fwd = detached(args)
+            else:
+                self.eval_fwd = detached(args)
+            return self.fwd(*args)
+
+        def bwd_spy(*args):
+            self.step_bwd = detached(args)
+            return self.bwd(*args)
+
+        # the backward wrapper counts through its module-level name
+        bwd_spy.launches = self.bwd.launches
+        api.blend_fwd, blend_cuda.blend_bwd = fwd_spy, bwd_spy
+        return self
+
+    def __exit__(self, *exc):
+        from splatfields_torch.ops.raster import api, blend_cuda
+        self.bwd.launches = blend_cuda.blend_bwd.launches
+        api.blend_fwd, blend_cuda.blend_bwd = self.fwd, self.bwd
+
+
+def check_loop_blends(label, cap):
+    """Both kernels against their plain versions on ``cap``'s captured
+    arguments (a ``LoopBlends``), the backward twice bitwise equal ->
+    {which: max abs err}."""
+    import torch
+
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.ops.raster.blend_torch import (
+        blend_bwd_plain,
+        blend_sorted_plain,
+    )
+    errs = {}
+    for which, args in (("step", cap.step_fwd),
+                        ("evaluation frame", cap.eval_fwd)):
+        pack, _, counts = args[:3]
+        print(f"{label}, {which}: sorted_pack {tuple(pack.shape)}, "
+              f"{int(counts.sum())} instances, max tile count "
+              f"{int(counts.max())}")
+        errs[which] = max(check_close(f"{label}, {which} forward",
+                                      blend_fwd(*args),
+                                      blend_sorted_plain(*args)).values())
+    k_chunk = cap.step_fwd[7]
+    got = blend_bwd(*cap.step_bwd)
+    torch.cuda.synchronize()
+    errs["step backward"] = check_bwd(f"{label}, step backward", got,
+                                      blend_bwd_plain(*cap.step_bwd, k_chunk))
+    if not float(got.abs().max()) > 0:
+        raise AssertionError(f"{label}: the step's backward is all zero")
+    if not torch.equal(blend_bwd(*cap.step_bwd), got):
+        raise AssertionError(f"{label}: two blend_bwd launches differ")
+    return errs
+
+
+def read_metrics(model_path):
+    """metrics.jsonl's scalar records -> {tag: [(step, value), ...]}."""
+    out = {}
+    with open(os.path.join(model_path, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "histogram" in rec:
+                continue
+            for k, v in rec.items():
+                if k != "step":
+                    out.setdefault(k, []).append((rec["step"], v))
+    return out
+
+
+def on_card(label, tensors):
+    for k, t in tensors.items():
+        if t.device.type != "cuda":
+            raise AssertionError(f"{label}: {k} is on {t.device}")
+
+
+def png_round_trip_bound(render_dir):
+    """Largest |PSNR(render) - PSNR(its uint8 PNG)| a frame can have: the
+    PNG truncates each value by e in [0, 1/255), so the root mean squared
+    error moves by at most 1/255 (triangle inequality) and
+    |dPSNR| <= 20 log10(rmse_png / (rmse_png - 1/255)), largest over the
+    frames (and so over their mean)."""
+    import glob
+
+    from splatfields_torch.data import png
+    worst = 0.0
+    for gt_path in sorted(glob.glob(os.path.join(render_dir, "gt", "*.png"))):
+        gt = png.read(gt_path)[..., :3].astype(np.float64) / 255
+        r = png.read(gt_path.replace(os.sep + "gt" + os.sep,
+                                     os.sep + "renders" + os.sep))
+        rmse = float(np.sqrt(np.mean((r[..., :3] / 255 - gt) ** 2)))
+        if not rmse > 1 / 255:
+            raise AssertionError(f"{gt_path}: rmse {rmse} too small to bound")
+        worst = max(worst, 20 * math.log10(rmse / (rmse - 1 / 255)))
+    return worst
+
+
+PROTOCOL_TEST_THETAS = (0.3, 1.9, 3.5, 5.1)
+PROTOCOL_GT_SPLATS = 30_000
+PROTOCOL_3DGS = ("--white_background --eval --is_static --n_views 10 "
+                 "--pts_samples hull --max_num_pts 300000 --load_time_step 0 "
+                 "--composition_rank 0").split()
+PROTOCOL_FIELD = ("--white_background --eval --encoder_type "
+                  "VarTriPlaneEncoder --lambda_norm 0.01 --n_views 10 "
+                  "--pts_samples load --max_num_pts 100000 --load_time_step 0 "
+                  "--composition_rank 0").split()
+
+
+def protocol_phases(dev, smi):
+    """Phases 14-17: the Blender protocol through the port's CLIs.
+    Returns ({kernel name: {phase: launches}}, {phase: check_loop_blends'
+    errors})."""
+    import argparse
+    import random
+    import shutil
+    import time
+
+    import torch
+
+    from splatfields_torch import render, train
+    from splatfields_torch.config import PipelineConfig
+    from splatfields_torch.data import png
+    from splatfields_torch.data.cameras import load_cam
+    from splatfields_torch.data.point_init import visual_hull_from_grid
+    from splatfields_torch.data.readers import blender
+    from splatfields_torch.metrics import eval_imgs, read_results
+    from splatfields_torch.models.deform_model import DeformModel
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.render_lib import render_camera
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "blender_protocol")
+    shutil.rmtree(base, ignore_errors=True)
+    launches = {"blend_fwd": {}, "blend_bwd": {}}
+    loop_errs = {}
+
+    # --- 14. the scene ----------------------------------------------------
+    t0 = time.time()
+    root = write_blender_scene(base, RES, 100, PROTOCOL_TEST_THETAS, dev,
+                               n_splats=PROTOCOL_GT_SPLATS)
+    torch.cuda.synchronize()
+    print(f"phase 14: {RES}x{RES} Blender_cv scene, 100 train + "
+          f"{len(PROTOCOL_TEST_THETAS)} test views, {PROTOCOL_GT_SPLATS} "
+          f"ground-truth splats, written in {time.time() - t0:.2f} s")
+    t0 = time.time()
+    infos, pos = blender.read_cameras_from_transforms_cv(
+        root, "transforms_train.json", True)
+    read_s = time.time() - t0
+    picked = [infos[i] for i in sorted(blender.kmeans_downsample(pos, 10))]
+    t0 = time.time()
+    hull = visual_hull_from_grid(picked, (-1.0, 1.0), 256, 100_000,
+                                 rng=np.random.RandomState(0))
+    carve_s = time.time() - t0
+    frame = png.read(os.path.join(root, "train", "r_0.png"))
+    paeth = png.encode(frame, 4)
+    t0 = time.time()
+    again = png.decode(paeth)
+    paeth_s = time.time() - t0
+    if not np.array_equal(again, frame):
+        raise AssertionError("Paeth round trip of a frame differs")
+    mask_share = float((frame[..., 3] > 0).mean())
+    print(f"host: reader {read_s:.3f} s for 100 {RES}x{RES} RGBA frames "
+          f"({read_s * 10:.2f} ms/frame, filter 0), one frame with Paeth "
+          f"rows decoded in {paeth_s * 1000:.1f} ms; 256^3 hull carve over "
+          f"10 views {carve_s:.3f} s -> {hull.shape[0]} points (mask covers "
+          f"{mask_share:.3f} of a frame); {smi}")
+
+    # --- 15. the 3DGS baseline --------------------------------------------
+    out_3dgs = os.path.join(base, "out", "3DGS")
+    argv = (["-s", root, "-m", out_3dgs] + PROTOCOL_3DGS
+            + ["--iterations", "300", "--densify_from_iter", "100",
+               "--densification_interval", "100",
+               "--test_iterations", "1", "300"])
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = 0
+    with LoopBlends() as cap:
+        res = train.main(argv)
+    torch.cuda.synchronize()
+    params, stats, deform = res.params, res.stats, res.deform
+    trained_3dgs = (params, stats)
+    launches["blend_fwd"]["15"] = blend_fwd.launches
+    launches["blend_bwd"]["15"] = blend_bwd.launches
+    evals = 2 * (len(PROTOCOL_TEST_THETAS) + 5)
+    if (blend_fwd.launches, blend_bwd.launches) != (300 + evals, 300):
+        raise AssertionError(
+            f"phase 15: blend launches {blend_fwd.launches}, "
+            f"{blend_bwd.launches}; want {300 + evals}, 300")
+    if deform is not None:
+        raise AssertionError("phase 15: a static run built a field")
+    on_card("phase 15", {**dict(vars(params)), **dict(vars(stats))})
+    if [d[0] for d in res.densified] != [200, 300]:
+        raise AssertionError(f"phase 15: densified {res.densified}; want at "
+                             "200 and 300")
+    m = read_metrics(out_3dgs)
+    psnr = dict(m["test/loss_viewpoint - psnr"])
+    if not psnr[300] > psnr[1]:
+        raise AssertionError(f"phase 15: test PSNR {psnr[1]} -> {psnr[300]}")
+    for rel in ("point_cloud/iteration_300/point_cloud.ply",
+                "train_state/iteration_300/state.pt", "cfg_args",
+                "cameras.json", "input.ply"):
+        if not os.path.exists(os.path.join(out_3dgs, rel)):
+            raise AssertionError(f"phase 15: {rel} not written")
+    if os.path.exists(os.path.join(out_3dgs, "deform")):
+        raise AssertionError("phase 15: a static run wrote field weights")
+    dropped = [int(v) for _, v in m.get("train_loss_patches/bin_dropped", [])]
+    print(f"phase 15: 3DGS baseline 300 iterations, {res.ms_per_it:.3f} ms/it "
+          f"({RES}x{RES}, {int(stats.valid.sum())} splats at the end); test "
+          f"PSNR {psnr[1]:.3f} at 1 -> {psnr[300]:.3f} at 300; densify "
+          f"(iteration, before, after, dropped) {res.densified}; instances "
+          f"dropped past dup_cap a step (every 10th): max "
+          f"{max(dropped, default=0)}, mean "
+          f"{np.mean(dropped) if dropped else 0:.1f}, dup_factor growth "
+          f"(iteration, dropped, new factor) {res.dup_growth}; blend launches "
+          f"{launches['blend_fwd']['15']} fwd, "
+          f"{launches['blend_bwd']['15']} bwd; {smi}")
+    # the kernels on the trained scene's own inputs at the grown dup_factor
+    loop_errs["15"] = check_loop_blends("phase 15", cap)
+    del cap
+
+    # --- 16. SplatFields3D --------------------------------------------------
+    out_field = os.path.join(base, "out", "SplatFields")
+    pc = os.path.join(out_3dgs, "point_cloud", "iteration_300",
+                      "point_cloud.ply")
+    argv = (["-s", root, "-m", out_field] + PROTOCOL_FIELD
+            + ["--pc_path", pc, "--test_iterations", "1", "200"])
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = 0
+    with LoopBlends() as cap:
+        res = train.main(argv + ["--iterations", "200"])
+    torch.cuda.synchronize()
+    params, stats, deform = res.params, res.stats, res.deform
+    launches["blend_fwd"]["16"] = blend_fwd.launches
+    launches["blend_bwd"]["16"] = blend_bwd.launches
+    if (blend_fwd.launches, blend_bwd.launches) != (200 + evals, 200):
+        raise AssertionError(
+            f"phase 16: blend launches {blend_fwd.launches}, "
+            f"{blend_bwd.launches}; want {200 + evals}, 200")
+    on_card("phase 16", {**dict(vars(params)), **dict(vars(stats)),
+                         **deform.params})
+    ms_it, growth_16 = res.ms_per_it, res.dup_growth
+    loop_errs["16"] = check_loop_blends("phase 16", cap)
+    del cap
+    m = read_metrics(out_field)
+    eval_psnr = dict(m["test/loss_viewpoint - psnr"])[200]
+    # the trained scenes at the default budget (dup_factor 5): instances
+    # dropped past dup_cap on each test view
+    test_cams = [load_cam(info, -1, i, device=dev) for i, info in enumerate(
+        blender.read_cameras_from_transforms_cv(
+            root, "transforms_test.json", True)[0])]
+    white = np.ones(3, np.float32)
+    at_default = {name: [render_camera(
+        c, *state, PipelineConfig(), white, field_mode=fm)
+        for c in test_cams] for name, state, fm in (
+            ("3DGS at 300", (*trained_3dgs, None), False),
+            ("SplatFields3D at 200", (params, stats, deform), True))}
+    # the loop's own frames of the run at 200 as render.py quantizes them
+    own_pngs = [render._to_png(out["render"])
+                for out in at_default["SplatFields3D at 200"]]
+    at_default = {k: [int(out["n_dropped"]) for out in v]
+                  for k, v in at_default.items()}
+    trained = {k: v.detach().cpu().clone()
+               for k, v in deform.net.state_dict().items()}
+    resumed = train.main(argv + ["--iterations", "220", "--resume"])
+    if resumed.start_iteration != 201:
+        raise AssertionError(f"phase 16: --resume started at "
+                             f"{resumed.start_iteration}, not 201")
+    steps = [s for s, _ in read_metrics(out_field)[
+        "train_loss_patches/total_loss"]]
+    if steps[-2:] != [210, 220] or steps.count(200) != 1:
+        raise AssertionError(f"phase 16: resumed steps {steps[-4:]}")
+    t0 = time.time()
+    render.main(["-s", root, "-m", out_field, "--skip_train",
+                 "--iteration", "200"])
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    n_frames = len(PROTOCOL_TEST_THETAS)
+    ours = os.path.join(out_field, "test", "ours_200")
+    yaml = read_results(os.path.join(ours, "results.yaml"))
+    bound = png_round_trip_bound(ours)
+    if not abs(yaml["psnr"] - eval_psnr) <= bound:
+        raise AssertionError(
+            f"phase 16: render.py PSNR {yaml['psnr']} vs evaluate "
+            f"{eval_psnr}: beyond the PNG bound {bound}")
+    # render.py's frames (the run reloaded from its PLY and deform.msgpack)
+    # against the loop's own state: each value within one level, and the
+    # PSNR of the loop's frames against the same gt PNGs within 1e-3 dB
+    level_diff, off, own_psnr = 0, 0, []
+    for i, mine in enumerate(own_pngs):
+        theirs = png.read(os.path.join(ours, "renders", f"{i:05d}.png"))
+        d = np.abs(mine.astype(np.int16) - theirs[..., :3])
+        level_diff, off = max(level_diff, int(d.max())), off + int(
+            (d > 0).sum())
+        gt = png.read(os.path.join(ours, "gt", f"{i:05d}.png"))[..., :3]
+        own_psnr.append(eval_imgs(mine, gt)["psnr"])
+    psnr_gap = abs(float(np.mean(own_psnr)) - yaml["psnr"])
+    if not (level_diff <= 1 and psnr_gap <= 1e-3):
+        raise AssertionError(
+            f"phase 16: render.py's frames differ from the loop's by up to "
+            f"{level_diff} levels ({off} values), PSNR by {psnr_gap} dB")
+    hidden = train.cfg_lib.extract_configs(argparse.Namespace(
+        **train.cfg_lib.load_cfg_args(out_field)))[2]
+    check = DeformModel(hidden, radius=1.0, seed=7, device=dev)
+    check.load_weights(out_field, 200)
+    for k, v in check.net.state_dict().items():
+        if not torch.equal(v.cpu(), trained[k]):
+            raise AssertionError(f"phase 16: deform.msgpack {k} differs")
+    print(f"phase 16: SplatFields3D 200 iterations, {ms_it:.3f} ms/it; "
+          f"resumed to 220; render CLI {n_frames} test frames in "
+          f"{render_s:.3f} s ({render_s * 1000 / n_frames:.1f} ms/frame, "
+          f"scene load, PNG writes and metrics included); results.yaml PSNR "
+          f"{yaml['psnr']:.4f}, SSIM {yaml['ssim']:.4f}, evaluate PSNR "
+          f"{eval_psnr:.4f} (|diff| {abs(yaml['psnr'] - eval_psnr):.4f} <= "
+          f"PNG bound {bound:.4f}); render.py's frames against the loop's: "
+          f"up to {level_diff} level(s) apart in {off} values, PSNR "
+          f"|diff| {psnr_gap:.2e} dB; dup_factor growth {growth_16}; instances "
+          f"dropped past dup_cap at dup_factor 5 on the test views "
+          f"{at_default}; blend launches "
+          f"{launches['blend_fwd']['16']} fwd, "
+          f"{launches['blend_bwd']['16']} bwd; {smi}")
+    del resumed, trained_3dgs
+    deform = None
+
+    # --- 17. card against CPU -----------------------------------------------
+    small = write_blender_scene(os.path.join(base, "small"), 64, 5,
+                                (0.3, 2.5), torch.device("cpu"))
+    for mode, flags in (("3DGS", ["--is_static", "--pts_samples", "hull"]),
+                        ("SplatFields", ["--encoder_type",
+                                         "VarTriPlaneEncoder",
+                                         "--lambda_norm", "0.01",
+                                         "--pts_samples", "random"])):
+        losses = {}
+        for name, device in (("cuda", dev), ("cpu", "cpu")):
+            args = train.build_train_parser().parse_args(
+                ["-s", small, "-m", os.path.join(base, "small_out", name,
+                                                 mode),
+                 "--white_background", "--eval", "--n_views", "4",
+                 "--num_pts", "2000", "--load_time_step", "0",
+                 "--composition_rank", "0", "--iterations", "5"] + flags)
+            model, pipe, hidden, opt = train.cfg_lib.extract_configs(args)
+            got = []
+            train.training(model, hidden, opt, pipe, [], [], quiet=True,
+                           rng=random.Random(0), device=device,
+                           progress_callback=lambda it, loss, *_: got.append(
+                               loss))
+            losses[name] = np.array(got)
+        rel = np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])
+        print(f"phase 17 {mode}: losses card {losses['cuda'].tolist()}, "
+              f"CPU {losses['cpu'].tolist()}, worst rel {rel.max():.3e}")
+        if not rel.max() <= 1e-5:
+            raise AssertionError(f"phase 17 {mode}: losses differ")
+    return launches, loop_errs
+
+
 def check_small_step(card, cpu):
     """Phase 7's comparison. The card's convolutions and matmuls run in
     f32 (TF32 off) but sum in another order: the loss agrees to ~1e-6
@@ -1891,6 +2368,13 @@ def main() -> int:
     segsum_entry = ngp_phases(sc, dev, smi)
     # --- 11-13. the fused heads ----------------------------------------------
     fused_entries = fused_phases(sc, dev, smi)
+    del sc, params, stats, deform
+    torch.cuda.empty_cache()
+    # --- 14-17. the Blender protocol through the CLIs ---------------------------
+    loop_launches, loop_errs = protocol_phases(dev, smi)
+    bwd_entry["loop_launches"] = loop_launches["blend_bwd"]
+    bwd_entry["loop_max_abs_err"] = {
+        ph: e["step backward"] for ph, e in loop_errs.items()}
 
     kernels = [{
         "name": "blend_fwd",
@@ -1906,6 +2390,9 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None,
+        "loop_launches": loop_launches["blend_fwd"],
+        "loop_max_abs_err": {ph: {k: e[k] for k in ("step", "evaluation frame")}
+                             for ph, e in loop_errs.items()},
     }, bwd_entry, segsum_entry, *fused_entries]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

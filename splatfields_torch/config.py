@@ -1,13 +1,86 @@
-"""Configuration dataclasses of the ported slice.
+"""Configuration: the four flag groups, the parser and ``cfg_args``.
 
-Counterparts of ``splatfields_tpu/config.py`` ``PipelineConfig``,
-``HiddenConfig`` and ``OptimizationConfig`` with identical field names and
-defaults, so a config built for one package reads the same in the other.
-The argparse surface and the ``cfg_args`` IO come with the ported CLIs.
+Counterpart of ``splatfields_tpu/config.py``: ``ModelConfig``,
+``PipelineConfig``, ``HiddenConfig`` and ``OptimizationConfig`` with the
+JAX package's field names and defaults, so the published run scripts'
+command lines parse the same in both packages, and ``cfg_args`` (a dict
+repr read with ``ast.literal_eval``) written by either package reads in
+the other. ``data_device`` is inert here: a camera's image goes to the
+device the entry point runs on.
 """
 from __future__ import annotations
 
+import argparse
+import ast
 import dataclasses
+import os
+from typing import List
+
+
+def _add_group(parser: argparse.ArgumentParser, cls, shorthand=(),
+               sentinel=False):
+    """One flag per field. ``sentinel=True`` registers every default as
+    None, so only flags given on the command line survive: the render CLI
+    lets the stored ``cfg_args`` win over parser defaults."""
+    group = parser.add_argument_group(cls.__name__)
+    for f in dataclasses.fields(cls):
+        default = f.default if f.default is not dataclasses.MISSING else (
+            f.default_factory())
+        if isinstance(default, dict):
+            continue  # encoder_args: config files only
+        flags = [f"--{f.name}"]
+        if f.name in shorthand:
+            flags.append(f"-{f.name[0]}")
+        reg_default = None if sentinel else default
+        if f.type in ("bool", bool):
+            group.add_argument(*flags, default=reg_default,
+                               action="store_true")
+        elif isinstance(default, list):
+            group.add_argument(*flags, default=reg_default, nargs="+")
+        else:
+            group.add_argument(*flags, default=reg_default,
+                               type=type(default))
+    return group
+
+
+def _extract(cls, args):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in vars(args).items()
+                  if k in fields and v is not None})
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    """reference ``ModelParams``."""
+    sh_degree: int = 3
+    bg_path: str = ""
+    is_static: bool = False
+    vis_geometric: bool = False
+    source_path: str = ""
+    model_path: str = ""
+    images: str = "images"
+    resolution: int = -1
+    white_background: bool = False
+    data_device: str = "tpu"          # inert (see the module docstring)
+    eval: bool = False
+    load_time_step: int = 100
+    load_every_nth: int = 1
+    pc_path: str = ""
+    max_num_pts: int = -1
+    n_views: int = 6
+    num_pts: int = 100_000
+    pts_samples: str = "depth"
+    train_cam_names: List[str] = dataclasses.field(default_factory=lambda: [
+        f"cam_train_{i}" for i in range(10)])
+    test_cam_names: List[str] = dataclasses.field(
+        default_factory=lambda: ["cam_test"])
+    pred_cam_names: List[str] = dataclasses.field(
+        default_factory=lambda: ["cam_test"])
+    load2gpu_on_the_fly: bool = False
+    is_6dof: bool = False
+
+    SHORTHAND = ("source_path", "model_path", "images", "resolution",
+                 "white_background")
 
 
 @dataclasses.dataclass
@@ -99,3 +172,101 @@ class OptimizationConfig:
     lambda_opacity: float = 0.0
     lambda_depthl1: float = 0.0
     lambda_gradient: float = 0.0
+
+
+def build_parser(description="SplatFields (PyTorch)", sentinel=False):
+    parser = argparse.ArgumentParser(description=description)
+    _add_group(parser, ModelConfig, shorthand=ModelConfig.SHORTHAND,
+               sentinel=sentinel)
+    _add_group(parser, PipelineConfig, sentinel=sentinel)
+    _add_group(parser, HiddenConfig, sentinel=sentinel)
+    _add_group(parser, OptimizationConfig, sentinel=sentinel)
+    return parser
+
+
+def extract_configs(args):
+    """Namespace -> (ModelConfig, PipelineConfig, HiddenConfig,
+    OptimizationConfig), with an absolute source path."""
+    model = _extract(ModelConfig, args)
+    model.source_path = (os.path.abspath(model.source_path)
+                         if model.source_path else "")
+    return (model, _extract(PipelineConfig, args),
+            _extract(HiddenConfig, args), _extract(OptimizationConfig, args))
+
+
+def save_cfg_args(model_path: str, args):
+    """The run's flags as a dict repr (reference ``train.py:338-339``
+    writes a Namespace repr)."""
+    os.makedirs(model_path, exist_ok=True)
+    with open(os.path.join(model_path, "cfg_args"), "w") as f:
+        f.write(repr(vars(args)))
+
+
+def _split_top_level(txt: str) -> list[str]:
+    parts, cur, depth = [], "", 0
+    for ch in txt:
+        if ch in "([{":
+            depth += 1
+        elif ch in ")]}":
+            depth -= 1
+        if ch == "," and depth == 0:
+            parts.append(cur)
+            cur = ""
+        else:
+            cur += ch
+    if cur.strip():
+        parts.append(cur)
+    return parts
+
+
+def load_cfg_args(model_path: str) -> dict:
+    """``cfg_args`` -> dict: a dict repr, or the reference's Namespace
+    repr parsed field by field without ``eval``."""
+    with open(os.path.join(model_path, "cfg_args")) as f:
+        txt = f.read()
+    if not txt.startswith("Namespace("):
+        return ast.literal_eval(txt)
+    out = {}
+    for part in _split_top_level(txt[len("Namespace("):-1]):
+        k, _, v = part.partition("=")
+        try:
+            out[k.strip()] = ast.literal_eval(v.strip())
+        except (ValueError, SyntaxError):
+            out[k.strip()] = v.strip()
+    return out
+
+
+def get_combined_args(parser: argparse.ArgumentParser, argv=None):
+    """The stored run config overridden by the flags given (reference
+    ``get_combined_args``), without ``eval``."""
+    args_cmdline = parser.parse_args(argv)
+    merged = {}
+    try:
+        merged = load_cfg_args(args_cmdline.model_path)
+        print("Config file found in", args_cmdline.model_path)
+    except (FileNotFoundError, TypeError):
+        print("Config file not found")
+    for k, v in vars(args_cmdline).items():
+        if v is not None:
+            merged[k] = v
+    return argparse.Namespace(**merged)
+
+
+def merge_yaml_config(args, config_path: str):
+    """Merge a YAML config file keyed by group names (reference
+    ``utils/params_utils.py``). yaml is imported here only: the GPU
+    machine has no yaml, and no published Blender run passes
+    ``--configs``."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise RuntimeError(
+            "--configs needs the yaml package, which is not installed") from e
+    with open(config_path) as f:
+        cfg = yaml.safe_load(f)
+    for g in ("ModelParams", "ModelHiddenParams", "OptimizationParams",
+              "PipelineParams", "ModelConfig", "HiddenConfig",
+              "OptimizationConfig", "PipelineConfig"):
+        for k, v in cfg.get(g, {}).items():
+            setattr(args, k, v)
+    return args

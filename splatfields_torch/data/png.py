@@ -1,0 +1,182 @@
+"""8-bit PNG codec on ``zlib`` and NumPy (no counterpart in the JAX
+package, which reads and writes images through PIL and cv2; the GPU
+machine has neither).
+
+Decoding takes the five colour types (gray, gray+alpha, RGB, RGBA,
+palette, with a ``tRNS`` chunk) at bit depth 8, non-interlaced, and all
+five row filters. A file whose rows use only None, Sub and Up unfilters
+row by row with vector ops (Sub as a cumulative sum mod 256 along the
+row). Average and Paeth depend on the reconstructed pixel to the left,
+so a file with such rows unfilters along anti-diagonals: every pixel of
+diagonal y + x = d depends only on diagonals d - 1 and d - 2, so
+H + W - 1 vector steps rebuild the image, each row with its own filter.
+
+Encoding writes one filter for every row (0, None, by default; the others
+exist so tests can exercise the decoder) and no ancillary chunks.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> channels
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter_rows(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
+    """None / Sub / Up rows, one vector op each: raw [H, W, C] uint8."""
+    out = np.empty_like(raw)
+    prev = np.zeros_like(raw[0])
+    for y in range(raw.shape[0]):
+        f = ftype[y]
+        if f == 0:
+            out[y] = raw[y]
+        elif f == 1:
+            out[y] = np.cumsum(raw[y], axis=0, dtype=np.uint8)
+        else:  # f == 2
+            out[y] = raw[y] + prev
+        prev = out[y]
+    return out
+
+
+def _unfilter_diagonal(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
+    """Any filters, one anti-diagonal at a time."""
+    h, w, _ = raw.shape
+    rec = np.zeros((h + 1, w + 1, raw.shape[2]), np.int32)  # zero pad row/col
+    rawi = raw.astype(np.int32)
+    fy = ftype.astype(np.int32)
+    for d in range(h + w - 1):
+        y = np.arange(max(0, d - w + 1), min(h, d + 1))
+        x = d - y
+        a = rec[y + 1, x]        # left
+        b = rec[y, x + 1]        # up
+        c = rec[y, x]            # up-left
+        f = fy[y][:, None]
+        pred = np.where(f == 1, a, np.where(f == 2, b, np.where(
+            f == 3, (a + b) >> 1, np.where(f == 4, _paeth(a, b, c), 0))))
+        rec[y + 1, x + 1] = (rawi[y, x] + pred) & 255
+    return rec[1:, 1:].astype(np.uint8)
+
+
+def decode(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 [H, W, C]: C = 1 (gray), 2 (gray+alpha), 3 (RGB)
+    or 4 (RGBA); a palette image comes back as RGB, or RGBA when it has a
+    ``tRNS`` chunk."""
+    if data[:8] != _SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, idat, palette, trns, hdr = 8, [], None, None, None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if depth != 8 or ctype not in _CHANNELS or interlace:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace} (8-bit, "
+                         "non-interlaced only)")
+    ch = _CHANNELS[ctype]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows[:h * (w * ch + 1)].reshape(h, w * ch + 1)
+    ftype, raw = rows[:, 0], rows[:, 1:].reshape(h, w, ch)
+    if ftype.max(initial=0) > 4:
+        raise ValueError("bad PNG row filter")
+    unfilter = _unfilter_rows if ftype.max(initial=0) <= 2 \
+        else _unfilter_diagonal
+    img = unfilter(raw, ftype)
+    if ctype == 3:
+        idx = img[..., 0]
+        rgb = palette[idx]
+        if trns is None:
+            return rgb
+        alpha = np.full(256, 255, np.uint8)
+        alpha[:len(trns)] = np.frombuffer(trns, np.uint8)
+        return np.concatenate([rgb, alpha[idx][..., None]], -1)
+    if trns is not None and ctype in (0, 2):
+        key = np.array(struct.unpack(f">{ch}H", trns), np.uint16)
+        alpha = np.where((img == key).all(-1), 0, 255).astype(np.uint8)
+        return np.concatenate([img, alpha[..., None]], -1)
+    return img
+
+
+def to_rgba(img: np.ndarray) -> np.ndarray:
+    """A decoded image as RGBA, as PIL's ``convert("RGBA")`` gives it."""
+    ch = img.shape[-1]
+    if ch == 4:
+        return img
+    if ch == 3:
+        return np.concatenate([img, np.full_like(img[..., :1], 255)], -1)
+    gray = np.repeat(img[..., :1], 3, -1)
+    alpha = img[..., 1:] if ch == 2 else np.full_like(img[..., :1], 255)
+    return np.concatenate([gray, alpha], -1)
+
+
+def read(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode(f.read())
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def _filter(img: np.ndarray, ftype: int) -> np.ndarray:
+    """Filtered bytes of every row with one filter: [H, W, C] uint8."""
+    if ftype == 0:
+        return img
+    x = img.astype(np.int32)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    pred = {1: a, 2: b, 3: (a + b) >> 1, 4: _paeth(a, b, c)}[ftype]
+    return ((x - pred) & 255).astype(np.uint8)
+
+
+def encode(img: np.ndarray, ftype: int = 0, level: int = 6) -> bytes:
+    """uint8 [H, W] or [H, W, C] (C = 1, 2, 3, 4) -> PNG bytes, every row
+    with filter ``ftype`` (0-4), zlib level ``level``."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"PNG encode takes uint8, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, ch = img.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    rows = np.empty((h, w * ch + 1), np.uint8)
+    rows[:, 0] = ftype
+    rows[:, 1:] = _filter(img, ftype).reshape(h, w * ch)
+    return b"".join((
+        _SIGNATURE,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)),
+        _chunk(b"IEND", b"")))
+
+
+def write(path: str, img: np.ndarray, ftype: int = 0, level: int = 6):
+    with open(path, "wb") as f:
+        f.write(encode(img, ftype, level))

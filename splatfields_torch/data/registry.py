@@ -1,0 +1,54 @@
+"""Dataset-type registry and marker-file sniffing (counterpart of
+``splatfields_tpu/data/registry.py``). The Blender loaders are ported;
+the other readers raise NotImplementedError naming their ROADMAP item."""
+from __future__ import annotations
+
+import os
+
+from splatfields_torch.data.readers.blender import (
+    read_nerf_synthetic,
+    read_nerf_synthetic_cv,
+)
+
+
+def _not_ported(name: str, item: int):
+    def loader(*args, **kwargs):
+        raise NotImplementedError(
+            f"the {name} reader is not ported yet: ROADMAP Queue 1 item "
+            f"{item}")
+    return loader
+
+
+SCENE_LOADERS = {
+    "Colmap": _not_ported("Colmap", 5),
+    "ColmapHold": _not_ported("ColmapHold", 5),
+    "Blender_cv": read_nerf_synthetic_cv,
+    "Blender": read_nerf_synthetic,
+    "DTU": _not_ported("DTU (NeuS)", 6),
+    "nerfies": _not_ported("nerfies", 5),
+    "ResFields": _not_ported("ResFields (Owlii)", 6),
+}
+
+
+def sniff_scene_type(source_path: str) -> str:
+    """Marker-file dataset detection (reference ``scene/__init__.py:
+    46-103``); the plenopticVideo, dynamic360 and PenopticSports markers
+    are unsupported upstream too."""
+    j = os.path.join
+    if os.path.exists(j(source_path, "sparse")):
+        return "Colmap"
+    if os.path.exists(j(source_path, "transforms_train.json")):
+        return "Blender_cv"
+    if os.path.exists(j(source_path, "cameras_sphere.npz")):
+        return "DTU"
+    if os.path.exists(j(source_path, "dataset.json")):
+        return "nerfies"
+    if os.path.exists(j(source_path, "poses_bounds.npy")):
+        raise NotImplementedError(
+            "plenopticVideo marker found: unsupported in the reference "
+            "(SceneInfo misses pred_cameras) and out of scope here")
+    if os.path.exists(j(source_path, "transforms.json")):
+        raise NotImplementedError("dynamic360 marker: dead path upstream")
+    if os.path.exists(j(source_path, "init_pt_cld.npz")):
+        raise NotImplementedError("PenopticSports marker: dead path upstream")
+    return "ResFields"

@@ -15,8 +15,14 @@ Loading is strict: a key the module lacks, a module key the tree lacks,
 or a shape mismatch raises. Gradients and Adam moments, which have the
 params' shape, convert the same way (``flax_to_state_dict``,
 ``adam_state_from_numpy``), so both packages can start from one state.
-No flax or msgpack is needed; reading ``deform.msgpack`` checkpoints
-without flax is a ROADMAP item.
+
+``module_to_flax`` is the inverse: a module's parameters and persistent
+buffers as the flax variable tree, the leaf renamed by the module's type
+(``nn.Linear`` and conv ``weight`` -> ``kernel``, ``nn.GroupNorm``
+``weight`` -> ``scale``, ``ResFieldLinear`` keeps ``weight``). With
+``utils/msgpack.py`` the field weights then read and write as the JAX
+package's ``deform.msgpack`` (``models/deform_model.py``), with neither
+flax nor msgpack installed.
 """
 from __future__ import annotations
 
@@ -24,8 +30,10 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from splatfields_torch.device import resolve_device
+from splatfields_torch.models.resfields import ResFieldLinear
 from splatfields_torch.models.splats import AdamState, SplatParams
 
 
@@ -124,3 +132,49 @@ def adam_state_from_numpy(state, device=None) -> AdamState:
 
     return AdamState(count=int(np.asarray(state.count)), mu=tree(state.mu),
                      nu=tree(state.nu))
+
+
+def _flax_leaf(module: nn.Module, leaf: str, value: np.ndarray):
+    if leaf in ("bias", "table"):
+        return leaf, value
+    if leaf != "weight":
+        raise KeyError(f"no flax counterpart for parameter {leaf!r} of "
+                       f"{type(module).__name__}")
+    if isinstance(module, nn.GroupNorm):
+        return "scale", value
+    if value.ndim == 2:   # nn.Linear kernel / ResFieldLinear weight [in, out]
+        name = "weight" if isinstance(module, ResFieldLinear) else "kernel"
+        return name, value.T
+    if value.ndim == 4:   # conv OIHW -> HWIO
+        return "kernel", value.transpose(2, 3, 1, 0)
+    raise ValueError(f"{type(module).__name__}.weight: unexpected rank "
+                     f"{value.ndim}")
+
+
+def module_to_flax(module: nn.Module) -> dict:
+    """The module's parameters and persistent buffers as a flax variable
+    tree ``{"params": ..., "buffers": ...}`` of contiguous numpy arrays
+    (``buffers`` only when the module has some)."""
+    tree: dict = {"params": {}, "buffers": {}}
+
+    def put(collection, path, value):
+        node = tree[collection]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(value)
+
+    for mod_name, mod in module.named_modules():
+        path = tuple(mod_name.split(".")) if mod_name else ()
+        for leaf, p in mod.named_parameters(recurse=False):
+            name, value = _flax_leaf(mod, leaf, p.detach().cpu().numpy())
+            put("params", path + (name,), value)
+        for leaf, b in mod.named_buffers(recurse=False):
+            if leaf in mod._non_persistent_buffers_set:
+                continue
+            if leaf != "noise" or b.ndim != 4:
+                raise KeyError(f"unknown buffer {mod_name}.{leaf}")
+            put("buffers", path + (leaf,),
+                b.detach().cpu().numpy().transpose(0, 2, 3, 1))
+    if not tree["buffers"]:
+        del tree["buffers"]
+    return tree

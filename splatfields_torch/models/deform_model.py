@@ -1,17 +1,24 @@
 """Field-model holder: the SplatFields net and its Adam (counterpart of
 ``splatfields_tpu/models/deform_model.py``). One Adam (eps 1e-15) over all
 field parameters at ``position_lr_init * 5``, decaying exponentially to
-``position_lr_final`` over ``deform_lr_max_steps``. Checkpoint IO comes
-with the host loop; ``interop.load_flax_variables`` carries JAX weights
-across."""
+``position_lr_final`` over ``deform_lr_max_steps``. The weights are saved
+as ``model_path/deform/iteration_N/deform.msgpack`` in the JAX package's
+own format (flax's msgpack of the variable tree, written and read by
+``utils/msgpack.py`` and ``interop``), so either package renders a run
+directory the other trained."""
 from __future__ import annotations
+
+import os
 
 import torch
 
+from splatfields_torch import interop
 from splatfields_torch.device import resolve_device
 from splatfields_torch.models import splats as splats_lib
 from splatfields_torch.models.splatfields import SplatFields
+from splatfields_torch.utils import msgpack
 from splatfields_torch.utils.schedules import expon_lr_func
+from splatfields_torch.utils.system import search_for_max_iteration
 
 SPATIAL_LR_SCALE = 5.0
 
@@ -71,3 +78,26 @@ class DeformModel:
         with torch.no_grad():
             for k, p in self.net.named_parameters():
                 p.copy_(new_params[k])
+
+    def save_weights(self, model_path: str, iteration: int):
+        out = os.path.join(model_path, f"deform/iteration_{iteration}")
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "deform.msgpack"), "wb") as f:
+            f.write(msgpack.flax_to_bytes(interop.module_to_flax(self.net)))
+
+    def load_weights(self, model_path: str, iteration: int = -1) -> int:
+        """Load ``deform/iteration_N/deform.msgpack`` (N = the latest for
+        -1), written by either package; returns N."""
+        if iteration == -1:
+            iteration = search_for_max_iteration(
+                os.path.join(model_path, "deform"))
+        path = os.path.join(model_path, f"deform/iteration_{iteration}",
+                            "deform.msgpack")
+        with open(path, "rb") as f:
+            tree = msgpack.flax_from_bytes(f.read())
+        interop.load_flax_variables(self.net, tree)
+        self.opt_state = splats_lib.adam_init(self.params)
+        return iteration
+
+    def log_variables(self):
+        return {}

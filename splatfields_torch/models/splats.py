@@ -1,6 +1,5 @@
-"""Explicit splat parameters, their activations, Adam and densification
-(counterpart of ``splatfields_tpu/models/splats.py``; PLY IO comes with the
-host loop).
+"""Explicit splat parameters, their activations, Adam, densification
+and PLY IO (counterpart of ``splatfields_tpu/models/splats.py``).
 
 Parameters live in fixed-capacity tensors with a validity mask, as in the
 JAX package, and every function here is a plain function on tensors that
@@ -14,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any
 
 import numpy as np
@@ -365,3 +365,114 @@ def reset_opacity(params: SplatParams, opt_state: AdamState):
             AdamState(count=opt_state.count,
                       mu=dataclasses.replace(opt_state.mu, opacity=zeros),
                       nu=dataclasses.replace(opt_state.nu, opacity=zeros)))
+
+
+@torch.no_grad()
+def grow_capacity(params: SplatParams, stats: SplatStats, opt: AdamState,
+                  new_cap: int):
+    """Pad params, stats and both Adam moments to ``new_cap`` rows with
+    zeros (invalid slots), keeping their device (the JAX package's
+    ``train.py::_grow_capacity``)."""
+    def pad(a):
+        out = torch.zeros((new_cap,) + tuple(a.shape[1:]), dtype=a.dtype,
+                          device=a.device)
+        out[:a.shape[0]] = a
+        return out
+
+    return (tree_map(pad, params), tree_map(pad, stats),
+            AdamState(count=opt.count, mu=tree_map(pad, opt.mu),
+                      nu=tree_map(pad, opt.nu)))
+
+
+# ---------------------------------------------------------------------------
+# PLY IO: the reference's layout, the same file format as the JAX package
+# ---------------------------------------------------------------------------
+
+def save_ply(path: str, params: SplatParams, valid):
+    """The valid splats as a binary-little-endian PLY in the reference's
+    layout (``scene/gaussian_model.py:167-205``): x y z nx ny nz f_dc_*
+    f_rest_* (features as [N, 3, K] flattened) opacity scale_* rot_*."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    v = _numpy(valid).astype(bool)
+    xyz, f_dc, f_rest, opacity, scaling, rotation = (
+        _numpy(getattr(params, k))[v] for k in (
+            "xyz", "features_dc", "features_rest", "opacity", "scaling",
+            "rotation"))
+    n = xyz.shape[0]
+
+    f_dc_flat = np.transpose(f_dc, (0, 2, 1)).reshape(n, -1)
+    f_rest_flat = np.transpose(f_rest, (0, 2, 1)).reshape(n, -1)
+    attrs = (["x", "y", "z", "nx", "ny", "nz"]
+             + [f"f_dc_{i}" for i in range(f_dc_flat.shape[1])]
+             + [f"f_rest_{i}" for i in range(f_rest_flat.shape[1])]
+             + ["opacity"]
+             + [f"scale_{i}" for i in range(scaling.shape[1])]
+             + [f"rot_{i}" for i in range(rotation.shape[1])])
+    data = np.concatenate([xyz, np.zeros_like(xyz), f_dc_flat, f_rest_flat,
+                           opacity, scaling, rotation], 1).astype(np.float32)
+    rec = np.empty(n, dtype=np.dtype([(a, "<f4") for a in attrs]))
+    for i, a in enumerate(attrs):
+        rec[a] = data[:, i]
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {n}\n"
+              + "".join(f"property float {a}\n" for a in attrs)
+              + "end_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        rec.tofile(f)
+
+
+def load_ply(path: str, capacity: int | None = None, isotropic: bool = False,
+             device=None) -> tuple[SplatParams, SplatStats, int]:
+    """A reference-layout splat PLY -> (params, stats, SH degree from the
+    f_rest count), padded to ``capacity`` on ``device`` (None means the
+    GPU)."""
+    from splatfields_torch.data.ply import read_ply_vertices
+    dev = resolve_device(device)
+    names, data = read_ply_vertices(path)
+    col = {nm: data[:, i] for i, nm in enumerate(names)}
+    n = data.shape[0]
+
+    def numbered(prefix):
+        return sorted((nm for nm in names if nm.startswith(prefix)),
+                      key=lambda s: int(s.split("_")[-1]))
+
+    xyz = np.stack([col["x"], col["y"], col["z"]], -1)
+    opacity = col["opacity"][:, None]
+    f_dc = np.stack([col["f_dc_0"], col["f_dc_1"], col["f_dc_2"]],
+                    -1)[:, None, :]
+    rest_names = numbered("f_rest_")
+    n_rest = len(rest_names)
+    if n_rest:
+        rest = np.stack([col[nm] for nm in rest_names], -1)
+        rest = rest.reshape(n, 3, n_rest // 3).transpose(0, 2, 1)
+    else:
+        rest = np.zeros((n, 0, 3), np.float32)
+    scaling = np.stack([col[nm] for nm in numbered("scale_")], -1)
+    if isotropic and scaling.shape[1] == 3:
+        scaling = scaling[:, :1]
+    rotation = np.stack([col[nm] for nm in numbered("rot_")], -1)
+    capacity = capacity or n
+    sh_degree = int(np.sqrt(n_rest // 3 + 1)) - 1
+
+    def pad(a):
+        out = torch.zeros((capacity,) + a.shape[1:], dtype=torch.float32,
+                          device=dev)
+        out[:n] = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        return out
+
+    params = SplatParams(
+        xyz=pad(xyz), features_dc=pad(f_dc), features_rest=pad(rest),
+        scaling=pad(scaling), rotation=pad(rotation), opacity=pad(opacity))
+    valid = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    valid[:n] = True
+    zeros = torch.zeros(capacity, device=dev)
+    stats = SplatStats(valid=valid, max_radii2d=zeros,
+                       xyz_gradient_accum=zeros.clone(), denom=zeros.clone())
+    return params, stats, sh_degree
+
+
+def _numpy(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

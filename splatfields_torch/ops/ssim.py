@@ -52,3 +52,9 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     if size_average:
         return ssim_map.mean()
     return ssim_map.mean(dim=(1, 2))
+
+
+def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """PSNR over all pixels (reference ``utils/image_utils.py:15-21``)."""
+    mse = torch.mean((img1 - img2) ** 2)
+    return 20 * torch.log10(1.0 / torch.sqrt(mse))

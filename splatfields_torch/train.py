@@ -1,0 +1,493 @@
+"""Training entry point — ``python -m splatfields_torch.train`` (counterpart
+of ``splatfields_tpu/train.py``).
+
+The reference's ``training()`` loop around the port's step
+(``train_lib.make_train_step``): a random view a step (``random.Random``
+passed in, drawing what the JAX loop's global ``random`` draws after the
+same seed), the all_training same-fid view batches, the xyz and field
+learning-rate schedules, the warm-up field mode, SH-degree bumps every
+1,000 iterations, ``overwrite_loc`` after 1,500, ``densify_and_prune``
+on the reference's cadence (growing the capacity when splats drop),
+periodic evaluation, PLY / field-weight / train-state saves, ``--resume``.
+
+Every per-iteration decision is one pure function of the iteration and
+the configs, ``iteration_events``; the loop reads it. The step is cached
+by (field mode, SH degree, capacity, dup_factor), as the JAX loop caches
+its jitted steps; eager PyTorch has no re-jit, but a grown capacity or
+``dup_factor`` builds a new step. The loop reads the loss and the dropped
+instance count once a step (one device sync), as the JAX loop does.
+
+Flags without a counterpart here: the device mesh and multi-process
+flags raise NotImplementedError (ROADMAP Queue 1 item 9), so do
+``--profile`` and ``--watchdog_min`` (item 5); ``--scan_k`` is accepted
+and has no effect (it batches iterations into one TPU dispatch).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import random
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from splatfields_torch import checkpointing
+from splatfields_torch import config as cfg_lib
+from splatfields_torch import train_lib
+from splatfields_torch.device import resolve_device
+from splatfields_torch.models import splats as splats_lib
+from splatfields_torch.models.deform_model import DeformModel
+from splatfields_torch.ops.ssim import psnr as psnr_fn
+from splatfields_torch.render_lib import render_camera
+from splatfields_torch.scene import Scene
+from splatfields_torch.utils.metrics_writer import MetricsWriter
+from splatfields_torch.utils.schedules import expon_lr_func
+
+
+@dataclasses.dataclass(frozen=True)
+class IterationEvents:
+    """What the loop does at one iteration besides the step."""
+    field_mode: bool        # the field predicts the attributes (no warm-up)
+    sh_bump: bool           # active SH degree + 1, before the step
+    densify: bool           # densify_and_prune after the step
+    size_threshold: float   # its max_screen_size: 20 after the opacity reset
+    overwrite_loc: bool     # copy the field's means into the splats' xyz
+    test: bool              # evaluate
+    save: bool              # PLY, field weights and train state
+
+
+def iteration_events(iteration: int, is_static: bool, opt_cfg,
+                     test_iterations=(), save_iterations=()) -> IterationEvents:
+    """The JAX loop's conditions (``splatfields_tpu/train.py``: warm-up
+    :202-205, SH bump :301-302, overwrite_loc :390, densify :434-437,
+    test and save :481-487) as one function of the iteration."""
+    enable_g_opt = not opt_cfg.disable_gaussian_opt
+    warm = (opt_cfg.warm_up is not None and 0 < opt_cfg.warm_up
+            and iteration < opt_cfg.warm_up)
+    field_mode = not is_static and not warm
+    return IterationEvents(
+        field_mode=field_mode,
+        sh_bump=enable_g_opt and iteration % 1000 == 0,
+        densify=(enable_g_opt and iteration < opt_cfg.densify_until_iter
+                 and iteration > opt_cfg.densify_from_iter
+                 and iteration % opt_cfg.densification_interval == 0),
+        size_threshold=(20.0 if iteration > opt_cfg.opacity_reset_interval
+                        else 0.0),
+        overwrite_loc=(iteration > 1500 and opt_cfg.overwrite_loc
+                       and field_mode),
+        test=iteration in test_iterations,
+        save=iteration in save_iterations)
+
+
+@dataclasses.dataclass
+class TrainResult:
+    """What ``training`` returns: the final state, the best test PSNR and
+    what the loop did on the way."""
+    params: splats_lib.SplatParams
+    stats: splats_lib.SplatStats
+    deform: DeformModel | None
+    best_psnr: float
+    start_iteration: int    # 1, or the resumed iteration + 1
+    ms_per_it: float        # loop wall time, evaluation and saves included
+    # (iteration, instances dropped past dup_cap, the grown dup_factor)
+    dup_growth: list = dataclasses.field(default_factory=list)
+    # (iteration, valid splats before, after, splats dropped for capacity)
+    densified: list = dataclasses.field(default_factory=list)
+
+
+def build_view_batch(cams, num_views, bg, with_mask, with_depth):
+    """Stack up to ``num_views`` cameras (padded by repeating the last)
+    into one batch on ``bg``'s device, from the cameras' device tensors."""
+    sel = list(cams)
+    while len(sel) < num_views:
+        sel.append(sel[-1])
+    sel = sel[:num_views]
+    dev = bg.device
+    h, w = sel[0].image_height, sel[0].image_width
+
+    def stack(key, blank_shape, fill):
+        return torch.stack([
+            getattr(c, key) if getattr(c, key) is not None
+            else torch.full(blank_shape, fill, device=dev) for c in sel])
+
+    batch = {k: torch.stack([c.device_consts[k] for c in sel])
+             for k in ("viewmatrix", "projmatrix", "campos")}
+    batch.update(
+        tanfovx=np.array([c.tanfovx for c in sel], np.float32),
+        tanfovy=np.array([c.tanfovy for c in sel], np.float32),
+        fid=float(np.float32(sel[0].fid)),
+        image=stack("image", (3, h, w), 0.0), bg=bg,
+        mask=(stack("mask", (1, h, w), 1.0) if with_mask
+              else torch.zeros(num_views, 1, 1, 1, device=dev)),
+        depth=(stack("depth", (h, w), 0.0) if with_depth
+               else torch.zeros(num_views, 1, 1, device=dev)))
+    return batch
+
+
+def _rng_state(rng: random.Random) -> list:
+    version, state, gauss = rng.getstate()
+    return [version, list(state), gauss]
+
+
+def _set_rng_state(rng: random.Random, saved: list):
+    rng.setstate((saved[0], tuple(saved[1]), saved[2]))
+
+
+def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
+             save_iterations, args=None, quiet=False,
+             progress_callback=None, resume=False,
+             rng: random.Random | None = None, device=None) -> TrainResult:
+    """Train one scene.
+
+    ``rng`` orders the views and shuffles the cameras (a fresh
+    ``random.Random(0)`` when None); the field's weights and the densify
+    noise (a ``torch.Generator`` on the device) come from seed 0, as the
+    JAX loop's from its fixed key; ``device=None`` means the GPU.
+    ``progress_callback(iteration, loss, params, stats)`` runs after
+    every iteration."""
+    dev = resolve_device(device)
+    rng = rng if rng is not None else random.Random(0)
+    n_frames = model_cfg.load_time_step if model_cfg.load_time_step > 1 else 0
+    if n_frames:
+        raise NotImplementedError(
+            "4-D training (--load_time_step > 1): ROADMAP Queue 1 item 6")
+    hidden_cfg.n_frames = n_frames
+    is_static = model_cfg.is_static
+    enable_g_opt = not opt_cfg.disable_gaussian_opt
+
+    if model_cfg.model_path:
+        os.makedirs(model_cfg.model_path, exist_ok=True)
+        if args is not None:
+            cfg_lib.save_cfg_args(model_cfg.model_path, args)
+
+    t_scene = time.time()
+    scene = Scene(model_cfg, rng=rng, device=dev)
+    if not quiet:
+        print(f"Scene: {len(scene.get_train_cameras())} train, "
+              f"{len(scene.get_test_cameras())} test cameras, "
+              f"{scene.splats.capacity} splats, "
+              f"{time.time() - t_scene:.2f} s")
+    deform = None
+    if not is_static:
+        deform = DeformModel(hidden_cfg, radius=scene.cameras_extent,
+                             seed=0, device=dev)
+        deform.train_setting(opt_cfg)
+
+    params, stats = scene.splats, scene.splat_stats
+    splat_opt = splats_lib.adam_init(params)
+    xyz_sched = expon_lr_func(
+        lr_init=opt_cfg.position_lr_init * 5.0,
+        lr_final=opt_cfg.position_lr_final * 5.0,
+        lr_delay_mult=opt_cfg.position_lr_delay_mult,
+        max_steps=opt_cfg.position_lr_max_steps)
+    bg_np = np.array([1, 1, 1] if model_cfg.white_background else [0, 0, 0],
+                     np.float32)
+    bg = torch.as_tensor(bg_np, device=dev)
+
+    train_cams = scene.get_train_cameras()
+    h, w = train_cams[0].image_height, train_cams[0].image_width
+    with_mask = opt_cfg.lambda_mask > 0 and train_cams[0].mask is not None
+    with_depth = (opt_cfg.lambda_depth > 0 or opt_cfg.lambda_depthl1 > 0) \
+        and train_cams[0].depth is not None
+    # the mask loss needs masks: off when the dataset has none
+    opt_eff = (opt_cfg if with_mask or opt_cfg.lambda_mask <= 0
+               else dataclasses.replace(opt_cfg, lambda_mask=0.0))
+    by_fid = defaultdict(list)
+    for c in train_cams:
+        by_fid[c.fid].append(c)
+    num_views = 1
+    if opt_cfg.all_training:
+        num_views = min(opt_cfg.num_views,
+                        max(len(v) for v in by_fid.values()))
+
+    writer = MetricsWriter(model_cfg.model_path)
+    densify_gen = torch.Generator(device=dev).manual_seed(0)
+    step_cache = {}
+
+    def get_step(field_mode, sh_deg):
+        key = (field_mode, sh_deg, params.capacity, pipe_cfg.dup_factor)
+        if key not in step_cache:
+            step_cache[key] = train_lib.make_train_step(
+                deform.net if deform else None, opt_eff, pipe_cfg, w, h,
+                num_views, field_mode, n_frames, sh_deg,
+                n_splats=opt_cfg.n_splats, enable_gaussian_opt=enable_g_opt)
+        return step_cache[key]
+
+    test_set, save_set = set(test_iterations), set(save_iterations)
+    active_sh = 0
+    ema_loss = 0.0
+    best_psnr, best_iter = 0.0, 0
+    t_start = time.time()
+    times, dup_growth, densified = [], [], []
+    start_iteration = 1
+
+    if resume and model_cfg.model_path:
+        restored = checkpointing.load_train_state(model_cfg.model_path, dev)
+        if restored is not None:
+            state, meta = restored
+            params = state["splat_params"]
+            stats = state["splat_stats"]
+            splat_opt = state["splat_opt"]
+            if deform:
+                deform.net.load_state_dict(state["field_state"])
+                deform.opt_state = state["field_opt"]
+            densify_gen.set_state(state["densify_rng"])
+            pipe_cfg = dataclasses.replace(
+                pipe_cfg, dup_factor=meta.get("dup_factor",
+                                              pipe_cfg.dup_factor))
+            if "view_rng" in meta:
+                _set_rng_state(rng, meta["view_rng"])
+            it0 = meta["iteration"]
+            start_iteration = it0 + 1
+            active_sh = (min(it0 // 1000, model_cfg.sh_degree)
+                         if enable_g_opt else 0)
+            print(f"Resumed training state at iteration {it0}")
+
+    def next_batch():
+        vp = train_cams[rng.randint(0, len(train_cams) - 1)]
+        if opt_cfg.all_training:
+            cam_list = list(by_fid[vp.fid])
+            rng.shuffle(cam_list)
+        else:
+            cam_list = [vp]
+        return build_view_batch(cam_list, num_views, bg, with_mask,
+                                with_depth)
+
+    for iteration in range(start_iteration, opt_cfg.iterations + 1):
+        ev = iteration_events(iteration, is_static, opt_cfg, test_set,
+                              save_set)
+        if ev.sh_bump:
+            active_sh = min(active_sh + 1, model_cfg.sh_degree)
+        batch = next_batch()
+        lrs = splats_lib.splat_lr_tree(
+            xyz_sched(iteration) / 5.0, opt_cfg.feature_lr,
+            opt_cfg.opacity_lr, opt_cfg.scaling_lr, opt_cfg.rotation_lr)
+        field_lr = deform.learning_rate(iteration) if deform else 0.0
+        step = get_step(ev.field_mode, active_sh if not ev.field_mode else 0)
+        field_params = deform.params if (deform and ev.field_mode) else {}
+        field_opt = deform.opt_state if deform else splats_lib.adam_init({})
+
+        t0 = time.time()
+        params, stats, splat_opt, new_fp, new_fo, out = step(
+            params, stats, splat_opt, field_params, field_opt, batch, lrs,
+            field_lr)
+        if deform and ev.field_mode:
+            deform.params = new_fp
+            deform.opt_state = new_fo
+        out_loss = float(out.loss)
+        dropped = int(out.loss_dict.get("bin_dropped", 0))
+        times.append(time.time() - t0)
+
+        if ev.overwrite_loc and out.means3d.shape[0] == params.xyz.shape[0]:
+            # the field's means become the splats' xyz (reference
+            # train.py:153-155); skipped for an n_splats subset, as in the
+            # JAX loop
+            params = dataclasses.replace(params, xyz=out.means3d)
+
+        ema_loss = 0.4 * out_loss + 0.6 * ema_loss
+        if iteration % 10 == 0:
+            log = {"train_loss_patches/total_loss": out_loss,
+                   "train_loss_patches/l1_loss": float(out.l1),
+                   "iter_time": times[-1] * 1000.0,
+                   "total_points": int(stats.valid.sum())}
+            for k, v in out.loss_dict.items():
+                if k != "l1":
+                    log[f"train_loss_patches/{k}"] = v
+            writer.scalars(iteration, log)
+        if dropped > 0:
+            # grow the duplicated-instance budget so no instance is lost
+            new_factor = max(pipe_cfg.dup_factor + 1,
+                             int(pipe_cfg.dup_factor * 1.5))
+            print(f"iter {iteration}: {dropped} rasterizer instances beyond "
+                  f"dup budget — growing dup_factor "
+                  f"{pipe_cfg.dup_factor} -> {new_factor}", flush=True)
+            pipe_cfg = dataclasses.replace(pipe_cfg, dup_factor=new_factor)
+            dup_growth.append((iteration, dropped, new_factor))
+            step_cache.clear()
+        if iteration % 100 == 0 and not quiet:
+            print(f"iter {iteration}: loss {ema_loss:.5f} "
+                  f"({np.mean(times[-50:]) * 1000:.1f} ms/it)", flush=True)
+
+        if ev.densify:
+            noise = torch.randn(params.capacity, 2, 3, generator=densify_gen,
+                                device=dev)
+            n_before = int(stats.valid.sum())
+            params, stats, splat_opt, lost = splats_lib.densify_and_prune(
+                params, stats, splat_opt, noise,
+                opt_cfg.densify_grad_threshold, 0.005, scene.cameras_extent,
+                ev.size_threshold, percent_dense=opt_cfg.percent_dense)
+            lost = int(lost)
+            if lost > 0:
+                params, stats, splat_opt = splats_lib.grow_capacity(
+                    params, stats, splat_opt,
+                    int(params.capacity * 1.5) + lost)
+                step_cache.clear()
+            densified.append((iteration, n_before, int(stats.valid.sum()),
+                              lost))
+            if not quiet:
+                print(f"[ITER {iteration}] densify: {n_before} -> "
+                      f"{densified[-1][2]} splats, {lost} dropped, "
+                      f"capacity {params.capacity}", flush=True)
+
+        if ev.test:
+            cur = evaluate(scene, params, stats, deform, pipe_cfg, bg_np,
+                           active_sh, ev.field_mode, n_frames, iteration,
+                           quiet=quiet, writer=writer)
+            if cur > best_psnr:
+                best_psnr, best_iter = cur, iteration
+        if ev.save and model_cfg.model_path:
+            if not quiet:
+                print(f"[ITER {iteration}] saving")
+            scene.save(iteration, params, stats)
+            if deform:
+                deform.save_weights(model_cfg.model_path, iteration)
+            checkpointing.save_train_state(
+                model_cfg.model_path, iteration, params, stats, splat_opt,
+                deform.net.state_dict() if deform else {},
+                deform.opt_state if deform else splats_lib.adam_init({}),
+                densify_gen, extra={"dup_factor": pipe_cfg.dup_factor,
+                                    "view_rng": _rng_state(rng)})
+        if progress_callback:
+            progress_callback(iteration, out_loss, params, stats)
+
+    total = time.time() - t_start
+    writer.close()
+    n_its = len(times)
+    ms_per_it = total * 1000 / max(n_its, 1)
+    if not quiet:
+        print(f"Best PSNR = {best_psnr} at iteration {best_iter}")
+        print(f"Loop: {n_its} iterations in {total:.3f} s, "
+              f"{ms_per_it:.3f} ms/it (evaluation and saves included); "
+              f"step {np.mean(times) * 1000:.3f} ms mean, "
+              f"{np.median(times) * 1000:.3f} ms median")
+    return TrainResult(params, stats, deform, best_psnr, start_iteration,
+                       ms_per_it, dup_growth, densified)
+
+
+@torch.no_grad()
+def evaluate(scene, params, stats, deform, pipe_cfg, bg, active_sh,
+             field_mode, n_frames, iteration, quiet=False, writer=None):
+    """In-training evaluation (reference ``training_report``): L1 and PSNR
+    of the test cameras and the first 5 train cameras, render / gt / mask
+    / depth panels of the first 5 views of each, the opacity histogram.
+    Returns the test PSNR (the train PSNR when there is no test set)."""
+    results = {}
+    for name, cams in (("test", scene.get_test_cameras()),
+                       ("train", scene.get_train_cameras()[:5])):
+        if not cams:
+            continue
+        psnrs, l1s = [], []
+        for idx, cam in enumerate(cams[:25]):
+            out = render_camera(cam, params, stats, deform, pipe_cfg, bg,
+                                field_mode=field_mode, n_frames=n_frames,
+                                sh_degree=active_sh)
+            img = torch.clamp(out["render"], 0, 1)
+            gt = torch.clamp(cam.image, 0, 1)
+            psnrs.append(float(psnr_fn(img, gt)))
+            l1s.append(float(torch.mean(torch.abs(img - gt))))
+            if writer is not None and idx < 5:
+                img_np, gt_np = img.cpu().numpy(), gt.cpu().numpy()
+                panels = {"render": img_np, "gt": gt_np}
+                if cam.mask is not None:
+                    panels["render_mask"] = img_np * cam.mask.cpu().numpy()
+                depth = out["depth"][0].cpu().numpy()
+                dmax = max(float(depth.max()), 9.0 + 1e-3)
+                panels["depth"] = np.clip((depth - 9.0) / (dmax - 9.0), 0, 1)
+                writer.images(iteration, f"{name}_view_{idx}", panels)
+        results[name] = (np.mean(l1s), np.mean(psnrs))
+        if writer is not None:
+            writer.scalars(iteration, {
+                f"{name}/loss_viewpoint - l1_loss": results[name][0],
+                f"{name}/loss_viewpoint - psnr": results[name][1],
+            })
+        if not quiet:
+            print(f"\n[ITER {iteration}] Evaluating {name}: "
+                  f"L1 {results[name][0]:.5f} PSNR {results[name][1]:.3f}")
+    if writer is not None:
+        valid = stats.valid
+        opac = splats_lib.get_opacity(params)[valid][:, 0].cpu().numpy()
+        writer.histogram(iteration, "scene/opacity_histogram", opac)
+        writer.scalars(iteration, {"total_points": float(valid.sum())})
+    return results.get("test", results.get("train", (0, 0)))[1]
+
+
+def build_train_parser():
+    """The JAX CLI's parser, flag for flag."""
+    parser = cfg_lib.build_parser("SplatFields (PyTorch) training")
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--detect_anomaly", action="store_true")
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[i * 1000 for i in range(0, 120)]
+                        + [100_000, 200_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[100, 500, 1000, 7000, 10000, 20000, 30000,
+                                 40000, 100_000, 200_000])
+    parser.add_argument("--configs", type=str, default="")
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from the latest train_state ckpt")
+    parser.add_argument("--profile", action="store_true",
+                        help="not ported (ROADMAP Queue 1 item 5)")
+    parser.add_argument("--mesh_model", type=int, default=0,
+                        help="device mesh: not ported (ROADMAP Queue 1 "
+                             "item 9); 0 only")
+    parser.add_argument("--mesh_data", type=int, default=1,
+                        help="device mesh: not ported (item 9); 1 only")
+    parser.add_argument("--ring", action="store_true",
+                        help="ring exchange: not ported (item 9)")
+    parser.add_argument("--scan_k", type=int, default=None,
+                        help="accepted with no effect: it batches "
+                             "iterations into one TPU dispatch, and eager "
+                             "PyTorch needs no twin (ROADMAP Queue 1 item 5)")
+    parser.add_argument("--watchdog_min", type=float, default=0.0,
+                        help="relay-stall watchdog: not ported (item 5); "
+                             "0 only")
+    parser.add_argument("--coordinator_address", type=str, default="",
+                        help="multi-host: not ported (item 9)")
+    parser.add_argument("--num_processes", type=int, default=1,
+                        help="multi-host: not ported (item 9); 1 only")
+    parser.add_argument("--process_id", type=int, default=0,
+                        help="multi-host: not ported (item 9)")
+    return parser
+
+
+def check_ported_flags(args):
+    """NotImplementedError, naming the ROADMAP item, for a flag of the JAX
+    CLI the port does not run yet."""
+    if (args.mesh_model > 0 or args.mesh_data > 1 or args.ring
+            or args.num_processes > 1 or args.coordinator_address):
+        raise NotImplementedError(
+            "device meshes and multi-process training (--mesh_model, "
+            "--mesh_data, --ring, --num_processes, --coordinator_address): "
+            "ROADMAP Queue 1 item 9")
+    if args.profile:
+        raise NotImplementedError("--profile: ROADMAP Queue 1 item 5")
+    if args.watchdog_min and args.watchdog_min > 0:
+        raise NotImplementedError("--watchdog_min: ROADMAP Queue 1 item 5")
+
+
+def main(argv=None, device=None):
+    """The CLI -> ``training``'s ``TrainResult``."""
+    parser = build_train_parser()
+    args = parser.parse_args(argv if argv is not None else sys.argv[1:])
+    check_ported_flags(args)
+    args.save_iterations.append(args.iterations)
+    if args.configs:
+        args = cfg_lib.merge_yaml_config(args, args.configs)
+    if args.detect_anomaly:
+        torch.autograd.set_detect_anomaly(True)
+    model_cfg, pipe_cfg, hidden_cfg, opt_cfg = cfg_lib.extract_configs(args)
+    print("Optimizing " + model_cfg.model_path)
+    out = training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg,
+                   args.test_iterations, args.save_iterations, args=args,
+                   quiet=args.quiet, resume=args.resume, device=device)
+    print("\nTraining complete.")
+    return out
+
+
+if __name__ == "__main__":
+    main()

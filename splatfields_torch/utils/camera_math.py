@@ -37,3 +37,20 @@ def get_projection_matrix(znear: float, zfar: float, fovx: float,
     P[2, 2] = zfar / (zfar - znear)
     P[2, 3] = -(zfar * znear) / (zfar - znear)
     return np.float32(P)
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
+def get_nerfpp_norm(w2c_list: list[np.ndarray]) -> dict:
+    """Camera-centre bounding sphere -> {translate, radius}: the centres'
+    mean, and 1.1 times the largest distance from it."""
+    cam_centers = np.hstack([np.linalg.inv(w2c)[:3, 3:4] for w2c in w2c_list])
+    avg = np.mean(cam_centers, axis=1, keepdims=True)
+    dist = np.linalg.norm(cam_centers - avg, axis=0, keepdims=True)
+    return {"translate": -avg[:, 0], "radius": np.max(dist) * 1.1}

@@ -1,5 +1,8 @@
 """The port stands alone: it imports neither JAX, flax nor the JAX
-package, and its entry points refuse to drop to the CPU on their own."""
+package, nor any of the host libraries the GPU machine lacks (PIL, cv2,
+imageio, sklearn, yaml, msgpack; yaml only lazily, inside
+``config.merge_yaml_config``), and its entry points refuse to drop to the
+CPU on their own."""
 import ast
 import pathlib
 import subprocess
@@ -10,6 +13,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "splatfields_tpu")
+# not installed on the GPU machine
+HOST_LIBS = ("PIL", "cv2", "imageio", "sklearn", "yaml", "msgpack")
 
 
 MODULES = ("splatfields_torch", "splatfields_torch.render_lib",
@@ -20,7 +25,19 @@ MODULES = ("splatfields_torch", "splatfields_torch.render_lib",
            "splatfields_torch.ops.raster.blend_cuda",
            "splatfields_torch.ops.cuda_build", "splatfields_torch.ops.segsum",
            "splatfields_torch.models.encoders",
-           "splatfields_torch.ops.fused_mlp", "chip_smoke")
+           "splatfields_torch.ops.fused_mlp",
+           "splatfields_torch.utils.system",
+           "splatfields_torch.utils.camera_math",
+           "splatfields_torch.utils.msgpack",
+           "splatfields_torch.utils.metrics_writer",
+           "splatfields_torch.data.png", "splatfields_torch.data.types",
+           "splatfields_torch.data.ply", "splatfields_torch.data.point_init",
+           "splatfields_torch.data.cameras",
+           "splatfields_torch.data.readers.blender",
+           "splatfields_torch.data.registry", "splatfields_torch.scene",
+           "splatfields_torch.checkpointing", "splatfields_torch.metrics",
+           "splatfields_torch.train", "splatfields_torch.render",
+           "chip_smoke")
 
 
 def test_import_pulls_in_no_jax():
@@ -29,6 +46,45 @@ def test_import_pulls_in_no_jax():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_import_with_the_host_libraries_blocked():
+    """The GPU machine's installation: every name of FORBIDDEN and
+    HOST_LIBS blocked in ``sys.modules``, so importing one raises."""
+    blocked = FORBIDDEN + HOST_LIBS
+    code = (f"import sys\nfor m in {blocked!r}: sys.modules[m] = None\n"
+            f"import {', '.join(MODULES)}\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{blocked!r} and sys.modules[m] is not None]\n"
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def _yaml_allowed(tree):
+    """Import nodes inside ``merge_yaml_config``, the one lazy yaml."""
+    return {id(n) for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+            and f.name == "merge_yaml_config" for n in ast.walk(f)}
+
+
+def test_sources_import_no_host_libraries():
+    files = sorted((ROOT / "splatfields_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = []
+    for f in files:
+        tree = ast.parse(f.read_text(), filename=str(f))
+        allowed = _yaml_allowed(tree)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.module else [])
+            for m in names:
+                top = m.split(".")[0]
+                if top in HOST_LIBS and not (top == "yaml"
+                                             and id(node) in allowed):
+                    bad.append((f.relative_to(ROOT), m))
+    assert not bad, bad
 
 
 def _imports(path):
