@@ -108,12 +108,38 @@ Phases, each raising on failure:
     read back equal; ms/it and the render CLI's ms/frame.
 17. ``train.training`` for 5 iterations of a 64x64 scene, 3DGS and
     SplatFields3D, on the card and on the CPU with the same seeds:
-    per-iteration losses within phase 7's 1e-5 relative.
+    per-iteration losses within phase 7's 1e-5 relative (``card_vs_cpu``).
+18. ``scripts/run_blender.sh``'s third command line (3DGS + Moran,
+    ``--lambda_corr 0.01``) on phase 14's scene, 100 iterations: the
+    Moran term once a step, timed by CUDA events (``CorrTimer``), its
+    share of the step, the splats its KNN saw; the kernels on the loop's
+    own inputs as in phase 15. Then 8 steps with ``--corr_interval 4``:
+    the term, KNN included, runs at 2 of them.
+19. ``splatfields_torch.extract_geo.main`` on phase 15's 3DGS and phase
+    16's SplatFields3D run with ``--mesh_resolution 128``:
+    ``MoransI_iteration_N.yaml`` (its four values within 1e-5 of the
+    port's on the CPU from the same saved state, relative to |value| +
+    0.1) and a mesh PLY with vertices and faces.
+20. ``scripts/run_dtu.sh``'s four command lines on a synthetic DTU scan
+    (``write_dtu_scene``: 4 views of 1600x1200 with masks, ground truth
+    rendered through the port's DTU cameras): 3DGS 200 iterations at
+    ``-r 2`` (800x600, random-cube init of 100,000 points) and its render,
+    SplatFields3D (``--W 128 --deform_weight 0 --pc_path``) 10
+    iterations and its render; the kernels on each loop's inputs as in
+    phase 15 and on its partial bottom row of tiles (600 = 37.5 tiles),
+    where the backward's upstream gradient must be 0 off the image
+    (``check_partial_tiles``).
+21. ``card_vs_cpu`` for the Moran line (the 64x64 scene) and the DTU
+    3DGS line (a 160x120 scan at ``-r 2``).
+22. The render CLI with ``--lpips_weights`` (a seeded random VGG16 file,
+    ``write_lpips_weights``) on phase 20's 3DGS run: results.yaml's lpips
+    within 1e-4 relative of the CPU's on the same PNGs.
 
 The line before the last is a JSON object of the kernels (the blend
-kernels' ``loop_launches``: their counts in phases 15 and 16, and
-``loop_max_abs_err``: their errors on those phases' inputs); the last
-line is
+kernels' ``loop_launches``: their counts in phases 15, 16, 18 and 20,
+``loop_max_abs_err``: their errors on those phases' inputs, and
+``partial_tile_max_abs_err`` / ``partial_tile_max_err``: their errors on
+phase 20's partial tiles); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, or with ``SPLATFIELDS_FUSED_MLP`` set
 (it would override each phase's choice of head path), the script exits
@@ -345,6 +371,89 @@ def write_blender_scene(root, res, n_train, test_thetas, device, n_splats=300,
             png.write(os.path.join(root, name, f"r_{i}.png"),
                       (rgba.permute(1, 2, 0).cpu().numpy() * 255).astype(
                           np.uint8), level=level)
+    return root
+
+
+def dtu_world_mat(theta, width, height, focal, radius):
+    """One DTU ``world_mat``: K [R | t] of a camera on a circle of
+    ``radius`` at height 0.35 looking at the origin (tests/
+    test_protocol_scripts.py's fixture, non-square)."""
+    c, s = np.cos(theta), np.sin(theta)
+    center = np.array([radius * s, 0.35, radius * c], np.float32)
+    fwd = -center / np.linalg.norm(center)
+    right = np.cross(np.array([0.0, 1.0, 0.0], np.float32), fwd)
+    right /= np.linalg.norm(right)
+    r_c2w = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, :3] = r_c2w.T
+    w2c[:3, 3] = -r_c2w.T @ center
+    k = np.eye(4, dtype=np.float32)
+    k[0, 0] = k[1, 1] = focal
+    k[0, 2], k[1, 2] = width / 2.0, height / 2.0
+    return (k @ w2c).astype(np.float32)
+
+
+def write_dtu_scene(root, width, height, n_views, device, n_splats=30_000,
+                    seed=0, level=1):
+    """A synthetic DTU scan under ``root`` (``scan_t``): ``cameras_sphere
+    .npz`` with ``n_views`` cameras (``dtu_world_mat`` at radius 6 and a
+    focal of 1.2 times the width, scale_mat 1.5: the reader's frame puts
+    them 4 from the origin, outside the random-cube init's [-1.3, 1.3]^3,
+    which then covers the frame, partial tiles included), RGB
+    images and RGB masks, the ground truth rendered by the port's
+    ``rasterize`` on ``device`` through the port's DTU reader's own
+    cameras from a seeded known splat set, the mask alpha > 0.2. Returns
+    the scan's path."""
+    import os
+
+    import torch
+
+    from splatfields_torch.data import png
+    from splatfields_torch.data.cameras import load_cam
+    from splatfields_torch.data.readers.neus import read_dtu_cameras
+    from splatfields_torch.ops.raster.api import rasterize
+
+    root = os.path.join(str(root), "scan_t")
+    for sub in ("image", "mask"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    npz = {}
+    blank = png.encode(np.zeros((height, width, 3), np.uint8), level=level)
+    full = png.encode(np.full((height, width, 3), 255, np.uint8),
+                      level=level)
+    for i in range(n_views):
+        th = 2 * np.pi * i / n_views
+        npz[f"world_mat_{i}"] = dtu_world_mat(th, width, height,
+                                              1.2 * width, 6.0)
+        npz[f"scale_mat_{i}"] = np.diag([1.5, 1.5, 1.5, 1.0]).astype(
+            np.float32)
+        for sub, data in (("image", blank), ("mask", full)):
+            with open(os.path.join(root, sub, f"{i:03d}.png"), "wb") as f:
+                f.write(data)
+    np.savez(os.path.join(root, "cameras_sphere.npz"), **npz)
+
+    rng = np.random.RandomState(seed)
+    scale = (300 / n_splats) ** (1 / 3)
+    t = {k: torch.as_tensor(v.astype(np.float32), device=device) for k, v in (
+        ("means", rng.uniform(-0.6, 0.6, (n_splats, 3))),
+        ("scales", (0.03 + 0.04 * rng.rand(n_splats, 3)) * scale),
+        ("rots", rng.randn(n_splats, 4)),
+        ("ops", rng.uniform(0.5, 0.95, n_splats)),
+        ("cols", rng.rand(n_splats, 3)))}
+    white = torch.ones(3, device=device)
+    for i, info in enumerate(read_dtu_cameras(root)):
+        cam = load_cam(info, 1, i, device=device)
+        c = cam.device_consts
+        out = rasterize(t["means"], t["scales"], t["rots"], t["ops"],
+                        c["viewmatrix"], c["projmatrix"], c["campos"], white,
+                        cam.tanfovx, cam.tanfovy, width, height,
+                        colors_precomp=t["cols"], tile_cap=256, k_chunk=64)
+        rgb = (out.color.clamp(0, 1).permute(1, 2, 0).cpu().numpy() * 255)
+        mask = (out.alpha[0] > 0.2).cpu().numpy()
+        png.write(os.path.join(root, "image", f"{i:03d}.png"),
+                  rgb.astype(np.uint8), level=level)
+        png.write(os.path.join(root, "mask", f"{i:03d}.png"),
+                  np.repeat(mask[..., None], 3, -1).astype(np.uint8) * 255,
+                  level=level)
     return root
 
 
@@ -1862,8 +1971,9 @@ class LoopBlends:
 
 def check_loop_blends(label, cap):
     """Both kernels against their plain versions on ``cap``'s captured
-    arguments (a ``LoopBlends``), the backward twice bitwise equal ->
-    {which: max abs err}."""
+    arguments (a ``LoopBlends``; its evaluation frame when the loop
+    evaluated), the backward twice bitwise equal -> {which: max abs
+    err}."""
     import torch
 
     from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
@@ -1874,6 +1984,8 @@ def check_loop_blends(label, cap):
     errs = {}
     for which, args in (("step", cap.step_fwd),
                         ("evaluation frame", cap.eval_fwd)):
+        if args is None:    # a loop without an evaluation
+            continue
         pack, _, counts = args[:3]
         print(f"{label}, {which}: sorted_pack {tuple(pack.shape)}, "
               f"{int(counts.sum())} instances, max tile count "
@@ -1890,6 +2002,62 @@ def check_loop_blends(label, cap):
         raise AssertionError(f"{label}: the step's backward is all zero")
     if not torch.equal(blend_bwd(*cap.step_bwd), got):
         raise AssertionError(f"{label}: two blend_bwd launches differ")
+    return errs
+
+
+def check_partial_tiles(label, cap, width, height):
+    """A frame whose size is not a multiple of the tile (``cap`` a
+    ``LoopBlends`` of it): the tiles partly off the image hold rows, both
+    kernels agree with their plain versions on those tiles (TOL; TOL_BWD of
+    each column's max over the tiles' rows), and the upstream gradient
+    the backward reads is 0 on every off-image pixel -> {which: err}."""
+    import torch
+
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.ops.raster.blend_torch import (
+        blend_bwd_plain,
+        blend_sorted_plain,
+    )
+    pack, tile_start, counts, tiles_x, tiles_y, tile_size, tile_cap, \
+        k_chunk = cap.step_fwd[:8]
+    # [T, P]: the pixels of each tile that lie off the image
+    pix = torch.arange(tile_size * tile_size, device=pack.device)
+    t = torch.arange(tiles_x * tiles_y, device=pack.device)
+    off = (((t // tiles_x)[:, None] * tile_size + (pix // tile_size)[None]
+            >= height)
+           | ((t % tiles_x)[:, None] * tile_size + (pix % tile_size)[None]
+              >= width))
+    partial = off.any(dim=1)
+    n_rows = int(counts[partial].clamp(max=tile_cap).sum())
+    if not (bool(partial.any()) and n_rows > 0):
+        raise AssertionError(f"{label}: no rows in a partial tile")
+    got, want = blend_fwd(*cap.step_fwd), blend_sorted_plain(*cap.step_fwd)
+    errs = {k: float((g[partial] - w[partial]).abs().max())
+            for k, g, w in zip(TOL, got, want)}
+    for k, e in errs.items():
+        if not e <= TOL[k]:
+            raise AssertionError(f"{label}: partial tiles' {k} err {e}")
+    g_color, g_depth, g_tfinal = cap.step_bwd[4:7]
+    leak = max(float(g_color.abs().amax(dim=1)[off].max()),
+               float(g_depth.abs()[off].max()),
+               float(g_tfinal.abs()[off].max()))
+    reach = float(g_color.abs().amax(dim=1)[partial][~off[partial]].max())
+    if not (leak == 0.0 and reach > 0):
+        raise AssertionError(f"{label}: upstream gradient {leak} off the "
+                             f"image, {reach} on it")
+    rows = torch.cat([torch.arange(int(tile_start[t]), int(tile_start[t])
+                                   + min(int(counts[t]), tile_cap),
+                                   device=pack.device)
+                      for t in torch.nonzero(partial).flatten().tolist()])
+    bwd_got = blend_bwd(*cap.step_bwd)[rows]
+    bwd_want = blend_bwd_plain(*cap.step_bwd, k_chunk)[rows]
+    col, _ = column_errs(bwd_got, bwd_want)
+    errs["backward"] = float(col.max())
+    if not errs["backward"] <= TOL_BWD:
+        raise AssertionError(f"{label}: partial tiles' backward {col}")
+    print(f"{label}: {int(partial.sum())} partial tiles, {n_rows} rows, "
+          f"{int(off.sum())} off-image pixels with upstream gradient "
+          f"{leak}; errors {errs}")
     return errs
 
 
@@ -1950,7 +2118,6 @@ def protocol_phases(dev, smi):
     Returns ({kernel name: {phase: launches}}, {phase: check_loop_blends'
     errors})."""
     import argparse
-    import random
     import shutil
     import time
 
@@ -2167,27 +2334,330 @@ def protocol_phases(dev, smi):
                                          "VarTriPlaneEncoder",
                                          "--lambda_norm", "0.01",
                                          "--pts_samples", "random"])):
-        losses = {}
-        for name, device in (("cuda", dev), ("cpu", "cpu")):
-            args = train.build_train_parser().parse_args(
-                ["-s", small, "-m", os.path.join(base, "small_out", name,
-                                                 mode),
-                 "--white_background", "--eval", "--n_views", "4",
-                 "--num_pts", "2000", "--load_time_step", "0",
-                 "--composition_rank", "0", "--iterations", "5"] + flags)
-            model, pipe, hidden, opt = train.cfg_lib.extract_configs(args)
-            got = []
-            train.training(model, hidden, opt, pipe, [], [], quiet=True,
-                           rng=random.Random(0), device=device,
-                           progress_callback=lambda it, loss, *_: got.append(
-                               loss))
-            losses[name] = np.array(got)
-        rel = np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])
-        print(f"phase 17 {mode}: losses card {losses['cuda'].tolist()}, "
-              f"CPU {losses['cpu'].tolist()}, worst rel {rel.max():.3e}")
-        if not rel.max() <= 1e-5:
-            raise AssertionError(f"phase 17 {mode}: losses differ")
+        card_vs_cpu(f"phase 17 {mode}",
+                    ["-s", small, "--white_background", "--eval",
+                     "--n_views", "4", "--num_pts", "2000",
+                     "--load_time_step", "0", "--composition_rank", "0"]
+                    + flags, os.path.join(base, "small_out", mode), dev)
     return launches, loop_errs
+
+
+PROTOCOL_MORAN = ("--white_background --eval --is_static --n_views 10 "
+                  "--pts_samples hull --max_num_pts 300000 --lambda_corr 0.01 "
+                  "--load_time_step 0 --composition_rank 0").split()
+MORAN_ITERS = 100
+# run_dtu.sh's flags (its 3DGS lines keep --load_time_step at its default)
+DTU_3DGS = ("--white_background --lambda_mask 0.1 -r 2 --is_static "
+            "--n_views 3").split()
+DTU_FIELD = ("--deform_weight 0 --white_background --lambda_mask 0.1 "
+             "--n_views 3 --lambda_norm 0.01 --encoder_type "
+             "VarTriPlaneEncoder --W 128 --max_num_pts 300000 -r 2 "
+             "--load_time_step 0 --composition_rank 0").split()
+DTU_SIZE, DTU_VIEWS = (1600, 1200), 4
+DTU_ITERS, DTU_FIELD_ITERS = 200, 10
+MESH_RES, MESH_THRESHOLD = 128, 0.5
+
+
+class CorrTimer:
+    """Inside ``with``: CUDA events around each ``train_lib.corr_term``
+    call (the Moran terms' forward: parking, KNN, weights, the sums), and
+    the valid mask it saw."""
+
+    def __enter__(self):
+        from splatfields_torch import train_lib
+        self.orig, self.calls = train_lib.corr_term, []
+
+        def timed(attrs, valid, opt):
+            import torch
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self.orig(attrs, valid, opt)
+            ev[1].record()
+            self.calls.append((ev, valid))
+            return out
+
+        train_lib.corr_term = timed
+        return self
+
+    def __exit__(self, *exc):
+        from splatfields_torch import train_lib
+        train_lib.corr_term = self.orig
+
+    def summary(self):
+        """([ms of each call], [(capacity, valid splats) of each call])."""
+        import torch
+        torch.cuda.synchronize()
+        return ([a.elapsed_time(b) for (a, b), _ in self.calls],
+                [(int(v.shape[0]), int(v.sum())) for _, v in self.calls])
+
+
+def write_lpips_weights(path, seed=0):
+    """A seeded random VGG16-LPIPS weight file in ``ops/lpips.py``'s
+    layout (He-scaled convs, positive ``lins``) -> its path."""
+    chans = [3, 64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512]
+    convs = [i for blk in ((0, 2), (5, 7), (10, 12, 14), (17, 19, 21),
+                           (24, 26, 28)) for i in blk]
+    rng = np.random.RandomState(seed)
+    w = {}
+    for n, i in enumerate(convs):
+        cin, cout = chans[n], chans[n + 1]
+        w[f"features.{i}.weight"] = (rng.randn(cout, cin, 3, 3) * np.sqrt(
+            2.0 / (9 * cin))).astype(np.float32)
+        w[f"features.{i}.bias"] = (rng.randn(cout) * 0.01).astype(np.float32)
+    for k, c in enumerate((64, 128, 256, 512, 512)):
+        w[f"lins.{k}.weight"] = rng.rand(1, c, 1, 1).astype(np.float32)
+    np.savez(path, **w)
+    return str(path)
+
+
+def mesh_counts(path):
+    """(vertices, faces) of a mesh PLY's header."""
+    with open(path, "rb") as f:
+        head = f.read(400).split(b"end_header")[0].decode()
+    return (int(head.split("element vertex ")[1].split()[0]),
+            int(head.split("element face ")[1].split()[0]))
+
+
+def static_phases(dev, smi):
+    """Phases 18-22: the Moran line, extract_geo, run_dtu.sh, card against
+    CPU, and the render CLI's LPIPS. Returns ({kernel name: {phase:
+    launches}}, {phase: check_loop_blends' errors}, {phase:
+    check_partial_tiles' errors})."""
+    import argparse
+    import shutil
+    import time
+
+    import torch
+
+    from splatfields_torch import extract_geo, render, train
+    from splatfields_torch.data import png
+    from splatfields_torch.metrics import read_results
+    from splatfields_torch.models import splats
+    from splatfields_torch.models.deform_model import DeformModel
+    from splatfields_torch.ops.lpips import load_lpips
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.utils.system import search_for_max_iteration
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proto = os.path.join(here, "build", "blender_protocol")
+    base = os.path.join(here, "build", "static_protocol")
+    shutil.rmtree(base, ignore_errors=True)
+    root = os.path.join(proto, "lego")
+    launches = {"blend_fwd": {}, "blend_bwd": {}}
+    loop_errs, partial_errs = {}, {}
+
+    def counted(phase, want_fwd, want_bwd):
+        torch.cuda.synchronize()
+        got = (blend_fwd.launches, blend_bwd.launches)
+        launches["blend_fwd"][phase], launches["blend_bwd"][phase] = got
+        if got != (want_fwd, want_bwd):
+            raise AssertionError(f"phase {phase}: blend launches {got}; want "
+                                 f"{(want_fwd, want_bwd)}")
+
+    # --- 18. run_blender.sh's Moran line ------------------------------------
+    out = os.path.join(base, "3DGS_Lmoran")
+    evals = len(PROTOCOL_TEST_THETAS) + 5
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = 0
+    with LoopBlends() as cap, CorrTimer() as corr:
+        res = train.main(["-s", root, "-m", out] + PROTOCOL_MORAN
+                         + ["--iterations", str(MORAN_ITERS),
+                            "--test_iterations", "1", str(MORAN_ITERS)])
+    counted("18", MORAN_ITERS + 2 * evals, MORAN_ITERS)
+    on_card("phase 18", {**dict(vars(res.params)), **dict(vars(res.stats))})
+    corr_ms, seen = corr.summary()
+    if len(corr_ms) != MORAN_ITERS:
+        raise AssertionError(f"phase 18: {len(corr_ms)} Moran terms in "
+                             f"{MORAN_ITERS} steps")
+    term_ms = float(np.mean(corr_ms[1:]))
+    # the KNN's least time: per pair a float64 dot (3 multiplies, 2 adds)
+    # and the f32 formula and top-k compare (2 adds, 1 multiply, 1
+    # compare), all at 67 TFLOP/s; its bytes (positions in, k indices
+    # out) are negligible
+    knn_bound_ms = seen[0][0] ** 2 * 9 / F32_FLOPS * 1e3
+    psnr = dict(read_metrics(out)["test/loss_viewpoint - psnr"])
+    if not psnr[MORAN_ITERS] > psnr[1]:
+        raise AssertionError(f"phase 18: test PSNR {psnr}")
+    print(f"phase 18: 3DGS + Moran (--lambda_corr 0.01) {MORAN_ITERS} "
+          f"iterations, {res.ms_per_it:.3f} ms/it, step {res.step_ms:.3f} ms "
+          f"mean; the Moran term (KNN of every splat, query_nn, four Moran "
+          f"sums; forward, CUDA events) {term_ms:.3f} ms a step (first "
+          f"{corr_ms[0]:.3f}), {term_ms / res.step_ms:.4f} of the step; its "
+          f"KNN's bound {knn_bound_ms:.4f} ms (operations); KNN "
+          f"over (capacity, valid) {seen[0]} at the first step, {seen[-1]} "
+          f"at the last; test PSNR {psnr[1]:.3f} at 1 -> "
+          f"{psnr[MORAN_ITERS]:.3f} at {MORAN_ITERS}; blend "
+          f"launches {blend_fwd.launches} fwd, {blend_bwd.launches} bwd; "
+          f"{smi}")
+    loop_errs["18"] = check_loop_blends("phase 18", cap)
+    del cap, res
+    blend_fwd.launches = blend_bwd.launches = 0
+    with CorrTimer() as corr4:
+        res4 = train.main(["-s", root, "-m", out + "_interval4"]
+                          + PROTOCOL_MORAN
+                          + ["--iterations", "8", "--corr_interval", "4",
+                             "--test_iterations", "-1"])
+    counted("18 interval 4", 8, 8)
+    if len(corr4.calls) != 2:
+        raise AssertionError(f"phase 18: --corr_interval 4 ran the Moran "
+                             f"term {len(corr4.calls)} times in 8 steps")
+    print(f"phase 18, --corr_interval 4: 8 steps, the Moran term (and its "
+          f"KNN) at 2 of them, {corr4.summary()[0]} ms; step "
+          f"{res4.step_ms:.3f} ms mean")
+    del res4
+
+    # --- 19. extract_geo ------------------------------------------------------
+    for name, model in (("3DGS", os.path.join(proto, "out", "3DGS")),
+                        ("SplatFields3D",
+                         os.path.join(proto, "out", "SplatFields"))):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        report = extract_geo.main(["-m", model, "--mesh_resolution",
+                                   str(MESH_RES), "--mesh_threshold",
+                                   str(MESH_THRESHOLD)])
+        torch.cuda.synchronize()
+        geo_s = time.time() - t0
+        it = search_for_max_iteration(os.path.join(model, "point_cloud"))
+        with open(os.path.join(model, f"MoransI_iteration_{it}.yaml")) as f:
+            text = f.read()
+        if not (text == extract_geo.yaml_text(report) and len(report) == 4):
+            raise AssertionError(f"phase 19 {name}: MoransI yaml {text!r}")
+        verts, faces = mesh_counts(os.path.join(model,
+                                                f"mesh_iteration_{it}.ply"))
+        if not (verts > 0 and faces > 0):
+            raise AssertionError(f"phase 19 {name}: empty mesh")
+        # the port on the CPU, from the same saved state
+        params, stats, _ = splats.load_ply(os.path.join(
+            model, "point_cloud", f"iteration_{it}", "point_cloud.ply"),
+            device="cpu")
+        deform = None
+        if name != "3DGS":
+            hidden = train.cfg_lib.extract_configs(argparse.Namespace(
+                **train.cfg_lib.load_cfg_args(model)))[2]
+            deform = DeformModel(hidden, radius=1.0, device="cpu")
+            deform.load_weights(model, it)
+        cpu = extract_geo.morans_report(params, stats, deform, 0)
+        gap = {k: abs(report[k] - v) / (abs(v) + 0.1) for k, v in cpu.items()}
+        print(f"phase 19 {name}: extract_geo at iteration {it}, "
+              f"{int(stats.valid.sum())} splats, mesh {MESH_RES}^3 -> {verts} "
+              f"vertices, {faces} faces, {geo_s:.3f} s (scene load "
+              f"included); MoransI {report}; the CPU's {cpu}; |diff| / "
+              f"(|CPU| + 0.1) {gap}; {smi}")
+        if not (set(cpu) == set(report) and max(gap.values()) <= 1e-5):
+            raise AssertionError(f"phase 19 {name}: card and CPU differ")
+        del params, stats, deform
+
+    # --- 20. run_dtu.sh -------------------------------------------------------
+    t0 = time.time()
+    dtu = write_dtu_scene(base, *DTU_SIZE, DTU_VIEWS, dev)
+    print(f"phase 20: synthetic DTU scan, {DTU_VIEWS} views of "
+          f"{DTU_SIZE[0]}x{DTU_SIZE[1]} with masks, written in "
+          f"{time.time() - t0:.2f} s")
+    out_3dgs = os.path.join(base, "dtu", "3DGS")
+    out_field = os.path.join(base, "dtu", "SplatFields3D")
+    pc = os.path.join(out_3dgs, "point_cloud", f"iteration_{DTU_ITERS}",
+                      "point_cloud.ply")
+    w, h = DTU_SIZE[0] // 2, DTU_SIZE[1] // 2
+    for name, argv, iters in (
+            ("3DGS", ["-s", dtu, "-m", out_3dgs] + DTU_3DGS, DTU_ITERS),
+            ("SplatFields3D", ["-s", dtu, "-m", out_field, "--pc_path", pc]
+             + DTU_FIELD, DTU_FIELD_ITERS)):
+        argv = argv + ["--iterations", str(iters)]
+        phase = f"20 {name}"
+        blend_fwd.launches = blend_bwd.launches = 0
+        with LoopBlends() as cap:
+            res = train.main(argv)
+        counted(phase, iters, iters)
+        on_card(f"phase {phase}",
+                {**dict(vars(res.params)), **dict(vars(res.stats))})
+        ms_it, step_ms, growth = res.ms_per_it, res.step_ms, res.dup_growth
+        del res
+        loop_errs[phase] = check_loop_blends(f"phase {phase}", cap)
+        partial_errs[phase] = check_partial_tiles(f"phase {phase}", cap, w, h)
+        del cap
+        blend_fwd.launches = 0
+        t0 = time.time()
+        results = render.main(argv)
+        torch.cuda.synchronize()
+        render_s = time.time() - t0
+        if blend_fwd.launches != DTU_VIEWS:
+            raise AssertionError(f"phase {phase}: render launched "
+                                 f"{blend_fwd.launches} blends")
+        ours = os.path.join(argv[3], "train", f"ours_{iters}")
+        got = read_results(os.path.join(ours, "results.yaml"))
+        if not (results["train"]["psnr"] == got["psnr"]
+                and np.isfinite(got["psnr"])):
+            raise AssertionError(f"phase {phase}: render.py PSNR {got}")
+        print(f"phase {phase}: {iters} iterations at {w}x{h} (-r 2 of "
+              f"{DTU_SIZE[0]}x{DTU_SIZE[1]}), {ms_it:.3f} ms/it, step "
+              f"{step_ms:.3f} ms mean, dup_factor growth {growth}; render CLI "
+              f"{DTU_VIEWS} train views in {render_s:.3f} s, PSNR "
+              f"{got['psnr']:.3f}, SSIM {got['ssim']:.3f}; {smi}")
+
+    # --- 21. card against CPU: the Moran and DTU lines ------------------------
+    small = os.path.join(proto, "small", "lego")
+    card_vs_cpu("phase 21 Moran",
+                ["-s", small, "--white_background", "--eval", "--is_static",
+                 "--n_views", "4", "--pts_samples", "hull", "--num_pts",
+                 "2000", "--lambda_corr", "0.01", "--load_time_step", "0",
+                 "--composition_rank", "0"],
+                os.path.join(base, "small_out", "moran"), dev)
+    dtu_small = write_dtu_scene(os.path.join(base, "dtu_small"), 160, 120,
+                                3, torch.device("cpu"), n_splats=3000)
+    card_vs_cpu("phase 21 DTU 3DGS",
+                ["-s", dtu_small, "--num_pts", "2000"] + DTU_3DGS,
+                os.path.join(base, "small_out", "dtu"), dev)
+
+    # --- 22. the render CLI with --lpips_weights ------------------------------
+    weights = write_lpips_weights(os.path.join(base, "lpips_vgg.npz"))
+    argv = (["-s", dtu, "-m", out_3dgs] + DTU_3DGS
+            + ["--iterations", str(DTU_ITERS), "--lpips_weights", weights])
+    render.main(argv)
+    ours = os.path.join(out_3dgs, "train", f"ours_{DTU_ITERS}")
+    card = read_results(os.path.join(ours, "results.yaml"))["lpips"]
+    cpu_fn, card_fn = load_lpips(weights, "cpu"), load_lpips(weights)
+    vals, pair = [], None
+    for i in range(DTU_VIEWS):
+        pair = [png.read(os.path.join(ours, sub, f"{i:05d}.png"))[..., 2::-1]
+                / np.float32(255) for sub in ("renders", "gt")]
+        vals.append(cpu_fn(*pair) * 100)
+    lpips_ms = cuda_ms(lambda: card_fn(*pair), 5)
+    rel = abs(card - np.mean(vals)) / abs(np.mean(vals))
+    print(f"phase 22: render CLI with --lpips_weights (seeded random VGG16 "
+          f"weights): results.yaml lpips {card}, the CPU's {np.mean(vals)}, "
+          f"rel {rel:.3e}; the last pair on the card {card_fn(*pair)!r}, on "
+          f"the CPU {cpu_fn(*pair)!r}; LPIPS of one {w}x{h} pair on the "
+          f"card {lpips_ms:.3f} ms (upload included); {smi}")
+    if not (card is not None and rel <= 1e-4):
+        raise AssertionError("phase 22: lpips differs between card and CPU")
+    return launches, loop_errs, partial_errs
+
+
+def card_vs_cpu(label, argv, out_root, dev, iters=5):
+    """``train.training`` for ``iters`` iterations of the command line
+    ``argv`` on the card and on the CPU with the same seeds: the losses of
+    every iteration within phase 7's 1e-5 relative -> the worst."""
+    import random
+
+    from splatfields_torch import train
+    losses = {}
+    for name, device in (("cuda", dev), ("cpu", "cpu")):
+        args = train.build_train_parser().parse_args(
+            argv + ["-m", os.path.join(out_root, name), "--iterations",
+                    str(iters)])
+        model, pipe, hidden, opt = train.cfg_lib.extract_configs(args)
+        got = []
+        train.training(model, hidden, opt, pipe, [], [], quiet=True,
+                       rng=random.Random(0), device=device,
+                       progress_callback=lambda it, loss, *_: got.append(
+                           loss))
+        losses[name] = np.array(got)
+    rel = np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])
+    print(f"{label}: losses card {losses['cuda'].tolist()}, CPU "
+          f"{losses['cpu'].tolist()}, worst rel {rel.max():.3e}")
+    if not (len(rel) == iters and rel.max() <= 1e-5):
+        raise AssertionError(f"{label}: losses differ")
+    return float(rel.max())
 
 
 def check_small_step(card, cpu):
@@ -2372,9 +2842,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     # --- 14-17. the Blender protocol through the CLIs ---------------------------
     loop_launches, loop_errs = protocol_phases(dev, smi)
+    torch.cuda.empty_cache()
+    # --- 18-22. the Moran line, extract_geo, run_dtu.sh, LPIPS ---------------
+    static_launches, static_errs, partial_errs = static_phases(dev, smi)
+    for k in loop_launches:
+        loop_launches[k].update(static_launches[k])
+    loop_errs.update(static_errs)
     bwd_entry["loop_launches"] = loop_launches["blend_bwd"]
     bwd_entry["loop_max_abs_err"] = {
         ph: e["step backward"] for ph, e in loop_errs.items()}
+    bwd_entry["partial_tile_max_err"] = {
+        ph: e["backward"] for ph, e in partial_errs.items()}
 
     kernels = [{
         "name": "blend_fwd",
@@ -2391,8 +2869,11 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None,
         "loop_launches": loop_launches["blend_fwd"],
-        "loop_max_abs_err": {ph: {k: e[k] for k in ("step", "evaluation frame")}
+        "loop_max_abs_err": {ph: {k: e[k] for k in ("step", "evaluation frame")
+                                  if k in e}
                              for ph, e in loop_errs.items()},
+        "partial_tile_max_abs_err": {
+            ph: {k: e[k] for k in TOL} for ph, e in partial_errs.items()},
     }, bwd_entry, segsum_entry, *fused_entries]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Dataset-type registry and marker-file sniffing (counterpart of
-``splatfields_tpu/data/registry.py``). The Blender loaders are ported;
-the other readers raise NotImplementedError naming their ROADMAP item."""
+``splatfields_tpu/data/registry.py``). The Blender and DTU loaders are
+ported; the other readers raise NotImplementedError naming their ROADMAP
+item."""
 from __future__ import annotations
 
 import os
@@ -9,6 +10,7 @@ from splatfields_torch.data.readers.blender import (
     read_nerf_synthetic,
     read_nerf_synthetic_cv,
 )
+from splatfields_torch.data.readers.neus import read_neus_dtu_scene
 
 
 def _not_ported(name: str, item: int):
@@ -24,7 +26,7 @@ SCENE_LOADERS = {
     "ColmapHold": _not_ported("ColmapHold", 5),
     "Blender_cv": read_nerf_synthetic_cv,
     "Blender": read_nerf_synthetic,
-    "DTU": _not_ported("DTU (NeuS)", 6),
+    "DTU": read_neus_dtu_scene,
     "nerfies": _not_ported("nerfies", 5),
     "ResFields": _not_ported("ResFields (Owlii)", 6),
 }

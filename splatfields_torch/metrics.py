@@ -4,14 +4,17 @@
 ``compute_psnr``; ``compute_ssim``, the multinerf SSIM with valid-mode
 separable Gaussian filtering and the box-count renormalisation of the
 mask (the reference's quirk: the mask is renormalised with a box filter
-while the image uses the Gaussian); ``eval_all``, which writes PSNR and
-SSIM * 100 over a render directory into ``results.yaml``.
+while the image uses the Gaussian); ``eval_all``, which writes PSNR,
+SSIM * 100 and LPIPS * 100 over a render directory into
+``results.yaml``.
 
 PNGs are read by ``data/png.py`` in RGB order, where the JAX package
 reads BGR through cv2; PSNR and SSIM are per-channel sums and means, so
 the order does not change them (tests/test_torch_train_loop.py shows
-it). LPIPS needs VGG weights (``ops/lpips.py``, ROADMAP item 8), so
-``lpips`` is null, as the JAX package reports without the weights.
+it). LPIPS does depend on it, and the reference and the JAX package feed
+it cv2's BGR images, so ``eval_imgs`` hands it the channels reversed.
+LPIPS needs a local VGG weight file (``ops/lpips.py``); without one
+``lpips`` is null, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,9 +27,11 @@ import numpy as np
 from scipy import signal
 
 from splatfields_torch.data import png
+from splatfields_torch.ops.lpips import load_lpips
 
-LPIPS_NOTE = ("lpips unavailable: the VGG-LPIPS network is not ported yet "
-              "(ROADMAP Queue 1 item 8)")
+LPIPS_NOTE = ("lpips unavailable: no local VGG-LPIPS weight file found "
+              "(pass --lpips_weights, set $SPLATFIELDS_LPIPS or place "
+              "weights/lpips_vgg.npz; see ops/lpips.py for the format)")
 
 
 def compute_psnr(img0: np.ndarray, img1: np.ndarray) -> float:
@@ -75,32 +80,41 @@ def compute_ssim(img0: np.ndarray, img1: np.ndarray,
     return float(np.mean(numer / denom))
 
 
-def eval_imgs(pred: np.ndarray, gt: np.ndarray,
-              scale_ssim: float = 100.0) -> dict:
-    """uint8 [H, W, 3] prediction and ground truth -> psnr, ssim."""
+def eval_imgs(pred: np.ndarray, gt: np.ndarray, lpips_fn=None,
+              scale_ssim: float = 100.0, scale_lpips: float = 100.0) -> dict:
+    """uint8 [H, W, 3] RGB prediction and ground truth -> psnr, ssim and,
+    given ``lpips_fn`` (``ops/lpips.load_lpips``), lpips of the BGR
+    images."""
     p = pred.astype(np.float32) / 255.0
     g = gt.astype(np.float32) / 255.0
-    return {"psnr": compute_psnr(p, g),
-            "ssim": compute_ssim(p, g) * scale_ssim}
+    out = {"psnr": compute_psnr(p, g),
+           "ssim": compute_ssim(p, g) * scale_ssim}
+    if lpips_fn is not None:
+        out["lpips"] = lpips_fn(p[..., ::-1], g[..., ::-1]) * scale_lpips
+    return out
 
 
 def _pngs(d: str) -> list[str]:
     return sorted(glob.glob(os.path.join(d, "*.png")))
 
 
-def eval_all(src_dir: str, scale_ssim: float = 100.0) -> dict:
+def eval_all(src_dir: str, scale_ssim: float = 100.0,
+             scale_lpips: float = 100.0,
+             lpips_weights_path: str | None = None, device=None) -> dict:
     """Mean metrics of ``renders/*.png`` against ``gt/*.png`` -> the
-    summary dict, also written to ``src_dir/results.yaml``."""
+    summary dict, also written to ``src_dir/results.yaml``. LPIPS runs on
+    ``device`` (None: the GPU) when a weight file is found."""
     gt_paths = _pngs(os.path.join(src_dir, "gt"))
     pred_paths = _pngs(os.path.join(src_dir, "renders"))
     if [os.path.basename(p) for p in gt_paths] != [
             os.path.basename(p) for p in pred_paths]:
         raise ValueError(f"gt and renders differ in {src_dir}: "
                          f"{len(gt_paths)} vs {len(pred_paths)} files")
+    lpips_fn = load_lpips(lpips_weights_path, device)
     results = collections.defaultdict(list)
     for gp, pp in zip(gt_paths, pred_paths):
         ev = eval_imgs(png.read(pp)[..., :3], png.read(gp)[..., :3],
-                       scale_ssim)
+                       lpips_fn, scale_ssim, scale_lpips)
         for k, v in ev.items():
             results[k].append(v)
     summary = {k: float(np.mean(v)) for k, v in results.items()}
@@ -108,7 +122,10 @@ def eval_all(src_dir: str, scale_ssim: float = 100.0) -> dict:
     with open(dst, "w") as f:
         f.write(f"ssim: {summary.get('ssim')}\n")
         f.write(f"psnr: {summary.get('psnr')}\n")
-        f.write(f"lpips: null  # {LPIPS_NOTE}\n")
+        if "lpips" in summary:
+            f.write(f"lpips: {summary['lpips']}\n")
+        else:
+            f.write(f"lpips: null  # {LPIPS_NOTE}\n")
     print("Saved results to", dst)
     for k, v in summary.items():
         print(k, "=", v)

@@ -70,3 +70,8 @@ def sh_to_rgb_clamped(deg: int, sh: torch.Tensor,
 def rgb_to_sh(rgb):
     """RGB in [0, 1] -> DC SH coefficient (tensor or numpy array)."""
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh):
+    """DC SH coefficient -> RGB (tensor or float32 numpy array)."""
+    return sh * C0 + 0.5

@@ -4,10 +4,13 @@ render`` (counterpart of ``splatfields_tpu/render.py``).
 Reloads a run directory (``cfg_args``, the iteration's PLY and, in field
 mode, ``deform.msgpack``; written by either package), renders the train,
 test and (optionally) pred cameras to PNGs through ``data/png.py``, with
-JET-coloured depth maps on request, and writes PSNR and SSIM into
+depth maps coloured by cv2's ``COLORMAP_JET`` on request, and writes
+PSNR, SSIM and (given VGG weights, ``--lpips_weights``) LPIPS into
 ``results.yaml`` (``metrics.eval_all``). The JAX CLI also writes
 ``video.mp4`` (or ``video.gif``); the GPU machine has no video encoder,
-so this one writes none and says so (ROADMAP Queue 1 item 5).
+so this one writes none and says so (ROADMAP Queue 1 item 5). The parser
+takes every flag of the JAX CLI; ``--render_batch`` has no effect (it
+batches frames into one TPU dispatch).
 """
 from __future__ import annotations
 
@@ -36,18 +39,46 @@ def _to_png(img_chw: torch.Tensor) -> np.ndarray:
     return (img.transpose(1, 2, 0) * 255).astype(np.uint8)
 
 
+# cv2's COLORMAP_JET lookup table in RGB order, 256 x 3 bytes
+JET_LUT = np.frombuffer(bytes.fromhex(
+    "00008000008400008800008c00009000009400009800009c0000a00000a40000"
+    "a80000ac0000b00000b40000b80000bc0000c00000c40000c80000cc0000d000"
+    "00d40000d80000dc0000e00000e40000e80000ec0000f00000f40000f80000fc"
+    "0000ff0004ff0008ff000cff0010ff0014ff0018ff001cff0020ff0024ff0028"
+    "ff002cff0030ff0034ff0038ff003cff0040ff0044ff0048ff004cff0050ff00"
+    "54ff0058ff005cff0060ff0064ff0068ff006cff0070ff0074ff0078ff007cff"
+    "0080ff0084ff0088ff008cff0090ff0094ff0098ff009cff00a0ff00a4ff00a8"
+    "ff00acff00b0ff00b4ff00b8ff00bcff00c0ff00c4ff00c8ff00ccff00d0ff00"
+    "d4ff00d8ff00dcff00e0ff00e4ff00e8ff00ecff00f0ff00f4ff00f8ff00fcff"
+    "02fffe06fffa0afff60efff212ffee16ffea1affe61effe222ffde26ffda2aff"
+    "d62effd232ffce36ffca3affc63effc242ffbe46ffba4affb64effb252ffae56"
+    "ffaa5affa65effa262ff9e66ff9a6aff966eff9272ff8e76ff8a7aff867eff82"
+    "82ff7e86ff7a8aff768eff7292ff6e96ff6a9aff669eff62a2ff5ea6ff5aaaff"
+    "56aeff52b2ff4eb6ff4abaff46beff42c2ff3ec6ff3acaff36ceff32d2ff2ed6"
+    "ff2adaff26deff22e2ff1ee6ff1aeaff16eeff12f2ff0ef6ff0afaff06feff01"
+    "fffc00fff800fff400fff000ffec00ffe800ffe400ffe000ffdc00ffd800ffd4"
+    "00ffd000ffcc00ffc800ffc400ffc000ffbc00ffb800ffb400ffb000ffac00ff"
+    "a800ffa400ffa000ff9c00ff9800ff9400ff9000ff8c00ff8800ff8400ff8000"
+    "ff7c00ff7800ff7400ff7000ff6c00ff6800ff6400ff6000ff5c00ff5800ff54"
+    "00ff5000ff4c00ff4800ff4400ff4000ff3c00ff3800ff3400ff3000ff2c00ff"
+    "2800ff2400ff2000ff1c00ff1800ff1400ff1000ff0c00ff0800ff0400ff0000"
+    "fc0000f80000f40000f00000ec0000e80000e40000e00000dc0000d80000d400"
+    "00d00000cc0000c80000c40000c00000bc0000b80000b40000b00000ac0000a8"
+    "0000a40000a000009c00009800009400009000008c0000880000840000800000"),
+    np.uint8).reshape(256, 3)
+
+
 def jet(x: np.ndarray) -> np.ndarray:
-    """[H, W] in [0, 1] -> uint8 [H, W, 3] RGB, the classic JET ramp
-    (dark blue, blue, cyan, yellow, red, dark red), where the JAX CLI
-    writes cv2's ``COLORMAP_JET``."""
-    x = np.clip(x, 0.0, 1.0)[..., None]
-    rgb = np.clip(1.5 - np.abs(4.0 * x - np.array([3.0, 2.0, 1.0])), 0, 1)
-    return (rgb * 255).astype(np.uint8)
+    """[H, W] in [0, 1] -> uint8 [H, W, 3] RGB: the value quantized as
+    ``(x * 255).astype(uint8)``, then cv2's ``COLORMAP_JET``, as the JAX
+    CLI colours depth (``cv2.applyColorMap``; it writes the BGR result
+    with ``cv2.imwrite``, so the file holds these RGB bytes)."""
+    return JET_LUT[(x * 255).astype(np.uint8)]
 
 
 def render_set(model_path, name, iteration, views, params, stats, deform,
                pipe_cfg, bg, field_mode, n_frames, sh_degree,
-               render_depth=False):
+               render_depth=False, lpips_weights=None):
     """Render ``views`` into ``model_path/name/ours_<iteration>/`` and
     evaluate against their images -> the metrics summary ({} when the
     views have no images)."""
@@ -80,24 +111,28 @@ def render_set(model_path, name, iteration, views, params, stats, deform,
         if render_depth:
             depth = out["depth"][0].cpu().numpy()
             dmax = max(float(depth.max()), DEPTH_MIN + 1e-3)
-            png.write(os.path.join(depth_path, f"{idx:05d}.png"),
-                      jet((depth - DEPTH_MIN) / (dmax - DEPTH_MIN)))
+            dvis = np.clip((depth - DEPTH_MIN) / (dmax - DEPTH_MIN), 0, 1)
+            png.write(os.path.join(depth_path, f"{idx:05d}.png"), jet(dvis))
     if views:
         print(NO_VIDEO)
     if any(v.image is not None for v in views):
-        return metrics.eval_all(base)
+        return metrics.eval_all(base, lpips_weights_path=lpips_weights,
+                                device=params.xyz.device)
     return {}
 
 
 @torch.no_grad()
 def render_sets(model_cfg, hidden_cfg, pipe_cfg, iteration, skip_train=False,
                 skip_test=False, skip_pred=True, render_depth=False,
-                device=None):
+                lpips_weights=None, device=None):
     """Load the run at ``iteration`` (-1: the latest) and render the
     chosen camera sets -> {set name: metrics summary}. ``device=None``
     means the GPU."""
     dev = resolve_device(device)
-    n_frames = model_cfg.load_time_step if model_cfg.load_time_step > 1 else 0
+    # the frame count only reaches a field: a static run (run_dtu.sh's
+    # 3DGS lines keep the default --load_time_step 100) ignores it
+    n_frames = (model_cfg.load_time_step if model_cfg.load_time_step > 1
+                and not model_cfg.is_static else 0)
     if n_frames:
         raise NotImplementedError(
             "4-D rendering (--load_time_step > 1): ROADMAP Queue 1 item 6")
@@ -124,7 +159,7 @@ def render_sets(model_cfg, hidden_cfg, pipe_cfg, iteration, skip_train=False,
             results[name] = render_set(
                 model_cfg.model_path, name, it, cams(), params, stats,
                 deform, pipe_cfg, bg, not is_static, n_frames, sh_degree,
-                render_depth)
+                render_depth, lpips_weights)
     return results
 
 
@@ -136,6 +171,13 @@ def build_render_parser():
     parser.add_argument("--skip_test", action="store_true")
     parser.add_argument("--render_pred", action="store_true")
     parser.add_argument("--render_depth", action="store_true")
+    parser.add_argument("--lpips_weights", default=None, type=str,
+                        help="local VGG-LPIPS .npz (see ops/lpips.py); "
+                             "defaults to $SPLATFIELDS_LPIPS or "
+                             "weights/lpips_vgg.npz")
+    parser.add_argument("--render_batch", default=8, type=int,
+                        help="accepted with no effect: it batches frames "
+                             "into one TPU dispatch")
     return parser
 
 
@@ -147,7 +189,9 @@ def main(argv=None, device=None):
     return render_sets(model_cfg, hidden_cfg, pipe_cfg, args.iteration,
                        skip_train=args.skip_train, skip_test=args.skip_test,
                        skip_pred=not args.render_pred,
-                       render_depth=args.render_depth, device=device)
+                       render_depth=args.render_depth,
+                       lpips_weights=getattr(args, "lpips_weights", None),
+                       device=device)
 
 
 if __name__ == "__main__":

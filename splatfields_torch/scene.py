@@ -48,6 +48,8 @@ class Scene:
                 load_time_step=cfg.load_time_step, n_views=cfg.n_views,
                 num_pts=cfg.num_pts, max_num_pts=cfg.max_num_pts,
                 pts_samples=cfg.pts_samples, pc_path=cfg.pc_path)
+        elif scene_type == "DTU":
+            scene_info = loader(cfg.source_path, num_pts=cfg.num_pts)
         else:  # the other loaders raise, naming their ROADMAP item
             scene_info = loader(cfg.source_path)
         self.scene_info = scene_info

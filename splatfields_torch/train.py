@@ -96,6 +96,7 @@ class TrainResult:
     dup_growth: list = dataclasses.field(default_factory=list)
     # (iteration, valid splats before, after, splats dropped for capacity)
     densified: list = dataclasses.field(default_factory=list)
+    step_ms: float = 0.0    # mean wall time of a step, its sync included
 
 
 def build_view_batch(cams, num_views, bg, with_mask, with_depth):
@@ -150,7 +151,10 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
     every iteration."""
     dev = resolve_device(device)
     rng = rng if rng is not None else random.Random(0)
-    n_frames = model_cfg.load_time_step if model_cfg.load_time_step > 1 else 0
+    # the frame count only reaches a field: a static run (run_dtu.sh's
+    # 3DGS lines keep the default --load_time_step 100) ignores it
+    n_frames = (model_cfg.load_time_step if model_cfg.load_time_step > 1
+                and not model_cfg.is_static else 0)
     if n_frames:
         raise NotImplementedError(
             "4-D training (--load_time_step > 1): ROADMAP Queue 1 item 6")
@@ -246,22 +250,27 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
                          if enable_g_opt else 0)
             print(f"Resumed training state at iteration {it0}")
 
-    def next_batch():
+    def next_batch(iteration):
         vp = train_cams[rng.randint(0, len(train_cams) - 1)]
         if opt_cfg.all_training:
             cam_list = list(by_fid[vp.fid])
             rng.shuffle(cam_list)
         else:
             cam_list = [vp]
-        return build_view_batch(cam_list, num_views, bg, with_mask,
-                                with_depth)
+        batch = build_view_batch(cam_list, num_views, bg, with_mask,
+                                 with_depth)
+        if opt_cfg.corr_interval > 1:
+            # the Moran terms run on every corr_interval-th step only
+            # (train_lib.compute_losses scales them by the interval)
+            batch["corr_gate"] = iteration % opt_cfg.corr_interval == 0
+        return batch
 
     for iteration in range(start_iteration, opt_cfg.iterations + 1):
         ev = iteration_events(iteration, is_static, opt_cfg, test_set,
                               save_set)
         if ev.sh_bump:
             active_sh = min(active_sh + 1, model_cfg.sh_degree)
-        batch = next_batch()
+        batch = next_batch(iteration)
         lrs = splats_lib.splat_lr_tree(
             xyz_sched(iteration) / 5.0, opt_cfg.feature_lr,
             opt_cfg.opacity_lr, opt_cfg.scaling_lr, opt_cfg.rotation_lr)
@@ -364,7 +373,8 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
               f"step {np.mean(times) * 1000:.3f} ms mean, "
               f"{np.median(times) * 1000:.3f} ms median")
     return TrainResult(params, stats, deform, best_psnr, start_iteration,
-                       ms_per_it, dup_growth, densified)
+                       ms_per_it, dup_growth, densified,
+                       float(np.mean(times)) * 1000 if times else 0.0)
 
 
 @torch.no_grad()

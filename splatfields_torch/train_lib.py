@@ -15,9 +15,12 @@ view's offset gradient and radii, the reference's loop-variable reuse.
 
 PyTorch runs eagerly, so there is no jit and no scanned twin; the
 ``n_splats`` subsample needs the JAX step's rng and is not ported yet, nor
-are the Moran terms or 4-D fields: each raises NotImplementedError with
-its ROADMAP item. The depth-SSIM regularizer runs over the [1, H, W] depth
-map, the JAX package's documented deviation.
+are 4-D fields: each raises NotImplementedError with its ROADMAP item.
+The depth-SSIM regularizer runs over the [1, H, W] depth map, the JAX
+package's documented deviation. The Moran terms (``corr_term``) run once
+a step, after the view average; with ``--corr_interval k`` the loop marks
+every k-th step in ``batch["corr_gate"]`` and the others skip the term,
+KNN included, on the host.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from torch.func import functional_call
 
 from splatfields_torch.models import splats as splats_lib
+from splatfields_torch.ops import knn as knn_ops
 from splatfields_torch.ops.raster.api import rasterize
 from splatfields_torch.ops.ssim import ssim as ssim_fn
 
@@ -100,10 +104,6 @@ def _masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def compute_losses(render_outs, batch, attrs, opt, valid):
     """Per-view photometric loss plus the regularizers -> (loss, aux)."""
-    if opt.lambda_corr > 0.0 or opt.lambda_corr_color > 0.0:
-        raise NotImplementedError(
-            "lambda_corr / lambda_corr_color (Moran terms): ROADMAP Queue 1 "
-            "item 8")
     loss_list, l1_list = [], []
     mask_l, depth_l, depthl1_l = [], [], []
     for v, out in enumerate(render_outs):
@@ -144,6 +144,16 @@ def compute_losses(render_outs, batch, attrs, opt, valid):
 
     loss = sum(loss_list) / len(render_outs)
     aux = {"l1": sum(l1_list) / len(render_outs)}
+    if opt.lambda_corr > 0.0 or opt.lambda_corr_color > 0.0:
+        interval = max(opt.corr_interval, 1)
+        if interval > 1 and "corr_gate" in batch:
+            # the budget knob: every k-th step only, scaled by k so the
+            # expected gradient matches the every-step schedule; a
+            # gated-off step runs no KNN at all
+            if batch["corr_gate"]:
+                loss = loss + corr_term(attrs, valid, opt) * float(interval)
+        else:
+            loss = loss + corr_term(attrs, valid, opt)
     if mask_l:
         aux["mask"] = sum(mask_l) / len(mask_l)
     if depth_l:
@@ -160,6 +170,42 @@ def compute_losses(render_outs, batch, attrs, opt, valid):
         loss = loss + opt.lambda_gradient * lg
         aux["gradient"] = lg
     return loss, aux
+
+
+def corr_term(attrs, valid, opt) -> torch.Tensor:
+    """The Moran regularizers (reference ``train.py:203-215``), view
+    invariant, so computed once a step. Invalid splats are parked at
+    ``1e3 + index`` before the KNN of the detached positions, and a
+    neighbourhood counts only if all its splats are valid (self comes
+    first, so an invalid splat masks its own). The colour feature is the
+    flattened SH matrix in static mode and the predicted rgb in field
+    mode; ``lambda_corr_color`` is weighted by ``lambda_corr`` (the
+    reference's quirk)."""
+    n = valid.shape[0]
+    parked = 1e3 + torch.arange(n, dtype=torch.float32,
+                                device=valid.device)[:, None]
+    pts = torch.where(valid[:, None], attrs["means3d"].detach(), parked)
+    w, nn_ix = knn_ops.query_nn(pts)
+    nb_valid = valid[nn_ix].all(dim=1).to(torch.float32)
+
+    def moran(feat):
+        per = knn_ops.neighborhood_morans(w, feat[nn_ix], w_floor=1e-12)
+        return 1.0 - torch.clamp(
+            (per * nb_valid).sum() / torch.clamp_min(nb_valid.sum(), 1.0),
+            0.0, 1.0)
+
+    feat_vec = (attrs["shs"].reshape(n, -1) if "shs" in attrs
+                else attrs.get("rgb"))
+    term = torch.zeros((), device=valid.device)
+    if opt.lambda_corr > 0.0:
+        lc = (moran(attrs["scales"]) + moran(attrs["rotations"])
+              + moran(attrs["opacity"][:, None]))
+        if feat_vec is not None:
+            lc = lc + moran(feat_vec)
+        term = term + opt.lambda_corr * lc
+    if opt.lambda_corr_color > 0.0 and feat_vec is not None:
+        term = term + opt.lambda_corr * moran(feat_vec)
+    return term
 
 
 def _leaves(tree) -> dict:

@@ -348,8 +348,7 @@ def test_unported_flags_raise(flags, item):
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("Colmap", 5), ("ColmapHold", 5), ("nerfies", 5), ("DTU", 6),
-    ("ResFields", 6)])
+    ("Colmap", 5), ("ColmapHold", 5), ("nerfies", 5), ("ResFields", 6)])
 def test_unported_readers_raise(kind, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         treg.SCENE_LOADERS[kind]("somewhere")

@@ -37,7 +37,9 @@ MODULES = ("splatfields_torch", "splatfields_torch.render_lib",
            "splatfields_torch.data.registry", "splatfields_torch.scene",
            "splatfields_torch.checkpointing", "splatfields_torch.metrics",
            "splatfields_torch.train", "splatfields_torch.render",
-           "chip_smoke")
+           "splatfields_torch.ops.knn", "splatfields_torch.ops.marching",
+           "splatfields_torch.ops.lpips", "splatfields_torch.extract_geo",
+           "splatfields_torch.data.readers.neus", "chip_smoke")
 
 
 def test_import_pulls_in_no_jax():

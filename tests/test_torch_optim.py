@@ -358,9 +358,6 @@ def test_compute_losses_match_jax(case):
 
 
 def test_unported_loss_terms_raise():
-    opt = config.OptimizationConfig(lambda_corr=0.01)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train_lib.compute_losses([], {}, {}, opt, torch.ones(1, dtype=bool))
     with pytest.raises(NotImplementedError, match="n_splats"):
         train_lib.make_train_step(None, config.OptimizationConfig(),
                                   config.PipelineConfig(), 8, 8, 1, True, 0,
