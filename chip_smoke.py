@@ -135,9 +135,43 @@ Phases, each raising on failure:
     ``write_lpips_weights``) on phase 20's 3DGS run: results.yaml's lpips
     within 1e-4 relative of the CPU's on the same PNGs.
 
+23. The 4-D step at full width, ``bench.py --variant owlii4d``: 100,000
+    splats, VarTriPlane, rank-40 ResField layers in every head, 100
+    frames, the offset flow head, 800x800, ``lambda_norm`` 0.01, a
+    different fid every step, at 1 and at 5 views a step: ms/step, rays/s,
+    ``blend_fwd`` and ``blend_bwd`` launched V times a step, after the
+    first step (Adam from zero moments) only row ``frame`` of every
+    ``weights_t`` moved and every ``matrix_t`` did, the GPU's idle share
+    and top device events over 3 profiled steps; both kernels against
+    their plain versions on a step's own inputs and an evaluation frame's,
+    the backward twice bitwise equal.
+24. A small 4-D step (``SMALL_4D``, 2,000 splats, 64x64, 2 views) on the
+    card (kernels) and on the CPU (plain versions) must agree as in phase
+    7.
+25. ``scripts/run_owlii.sh``'s two command lines, read from the script,
+    through ``splatfields_torch.train.main`` and ``render.main`` on a
+    synthetic ResFields scene under ``build/owlii_protocol``
+    (``write_owlii_scene``: 100 frames of 10 ``cam_train_*`` and
+    ``cam_test`` at ``OWLII_RES``, ground truth rendered on the card from
+    30,000 seeded splats that move with the frame, masks from alpha):
+    hull init of 100,000 points, 5 views, rank 40, ``ITERS`` cut to
+    ``OWLII_ITERS`` with densification at its last iteration and
+    evaluation at 1 and at the end: ms/it, dup_factor growth, instances
+    dropped, test PSNR rose, the reader's and the 256^3 carve's seconds,
+    the loop's own iterations timed and profiled (``LoopProfile``: ms/it,
+    GPU busy ms and idle share, top device events), the kernels on the
+    loop's own inputs as in phase 15; the render CLI's results.yaml over
+    1,100 frames, its ms/frame and its split (scene load, metrics, the
+    rest); then ``extract_geo.main`` on the run (fid 0, a 64^3 mesh).
+26. A 5-iteration 4-D loop (``OWLII_SMALL_ARGV``: ``run_owlii.sh``'s
+    flags on a 64x64, 2-frame ResFields scene, 2 views, 2,000 hull
+    points) on the CPU, and on the card each iteration from the CPU's
+    train state before it (``--resume``): losses within phase 7's 1e-5
+    relative (``owlii_card_vs_cpu``; why not free-running there).
+
 The line before the last is a JSON object of the kernels (the blend
-kernels' ``loop_launches``: their counts in phases 15, 16, 18 and 20,
-``loop_max_abs_err``: their errors on those phases' inputs, and
+kernels' ``loop_launches``: their counts in phases 15, 16, 18, 20, 23
+and 25, ``loop_max_abs_err``: their errors on those phases' inputs, and
 ``partial_tile_max_abs_err`` / ``partial_tile_max_err``: their errors on
 phase 20's partial tiles); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -455,6 +489,107 @@ def write_dtu_scene(root, width, height, n_views, device, n_splats=30_000,
                   np.repeat(mask[..., None], 3, -1).astype(np.uint8) * 255,
                   level=level)
     return root
+
+
+OWLII_TRAIN_CAMS = 10
+
+
+def write_owlii_scene(root, res, n_frames, device, n_splats=300, seed=0,
+                      level=1, depth=False):
+    """A synthetic ResFields (Owlii layout) scene under ``root``
+    (``dancer_t``): ``cam_train_0 .. cam_train_9`` on a circle of radius 4
+    at height 0.35 (``dtu_world_mat``, focal 1.1 x ``res``) and
+    ``cam_test`` between two of them, each a NeuS directory of
+    ``n_frames`` frames (``cameras_sphere.npz`` with identity
+    ``scale_mat``, ``image/``, ``mask/`` and with ``depth`` a 16-bit
+    ``depth/`` in millimetres, 0 off the mask). The ground truth is
+    rendered by the port's ``rasterize`` on ``device``, through the port
+    reader's own cameras, from a seeded splat set that moves 0.2 along x
+    over the frames; the mask is alpha > 0.5, an 8-bit grey PNG; all PNGs
+    through ``data/png.py`` (filter 0). Returns the scene's path."""
+    import os
+
+    import torch
+
+    from splatfields_torch.data import png
+    from splatfields_torch.data.cameras import load_cam
+    from splatfields_torch.data.readers.neus import read_cameras_from_neus
+    from splatfields_torch.ops.raster.api import rasterize
+
+    root = os.path.join(str(root), "dancer_t")
+    names = [f"cam_train_{c}" for c in range(OWLII_TRAIN_CAMS)] + [
+        "cam_test"]
+    thetas = [2 * np.pi * c / OWLII_TRAIN_CAMS
+              for c in range(OWLII_TRAIN_CAMS)] + [np.pi / OWLII_TRAIN_CAMS]
+    blank = png.encode(np.zeros((res, res, 3), np.uint8), level=level)
+    rng = np.random.RandomState(seed)
+    scale = (300 / n_splats) ** (1 / 3)
+    t = {k: torch.as_tensor(v.astype(np.float32), device=device) for k, v in (
+        ("means", rng.uniform(-0.5, 0.5, (n_splats, 3))),
+        ("scales", (0.03 + 0.04 * rng.rand(n_splats, 3)) * scale),
+        ("rots", rng.randn(n_splats, 4)),
+        ("ops", rng.uniform(0.5, 0.95, n_splats)),
+        ("cols", rng.rand(n_splats, 3)))}
+    white = torch.ones(3, device=device)
+    for name, th in zip(names, thetas):
+        cam_dir = os.path.join(root, name)
+        for sub in ("image", "mask"):
+            os.makedirs(os.path.join(cam_dir, sub), exist_ok=True)
+        if depth:
+            os.makedirs(os.path.join(cam_dir, "depth"), exist_ok=True)
+        wm = dtu_world_mat(th, res, res, 1.1 * res, 4.0)
+        np.savez(os.path.join(cam_dir, "cameras_sphere.npz"), **{
+            f"{k}_{f}": v for f in range(n_frames) for k, v in (
+                ("world_mat", wm), ("scale_mat", np.eye(4, dtype=np.float32)))})
+        for f in range(n_frames):
+            with open(os.path.join(cam_dir, "image", f"{f:03d}.png"),
+                      "wb") as fh:
+                fh.write(blank)
+        infos, _ = read_cameras_from_neus(cam_dir, True)
+        for f, info in enumerate(infos):
+            cam = load_cam(info, -1, f, 1.0, max_resolution=res,
+                           device=device)
+            c = cam.device_consts
+            shift = torch.tensor([0.2 * f / max(n_frames - 1, 1), 0.0, 0.0],
+                                 device=device)
+            out = rasterize(
+                t["means"] + shift, t["scales"], t["rots"], t["ops"],
+                c["viewmatrix"], c["projmatrix"], c["campos"], white,
+                cam.tanfovx, cam.tanfovy, res, res,
+                colors_precomp=t["cols"], tile_cap=256, k_chunk=64)
+            mask = (out.alpha[0] > 0.5).cpu().numpy()
+            rgb = out.color.clamp(0, 1).permute(1, 2, 0).cpu().numpy()
+            png.write(os.path.join(cam_dir, "image", f"{f:03d}.png"),
+                      (rgb * 255).astype(np.uint8), level=level)
+            png.write(os.path.join(cam_dir, "mask", f"{f:03d}.png"),
+                      mask.astype(np.uint8) * 255, level=level)
+            if depth:
+                mm = np.round(out.depth[0].cpu().numpy() * 1000) * mask
+                png.write(os.path.join(cam_dir, "depth", f"{f:03d}.png"),
+                          mm.astype(np.uint16), level=level)
+    return root
+
+
+def owlii_command_lines(env=None):
+    """``scripts/run_owlii.sh``'s train and render command lines as
+    argument lists, its variables expanded (``env`` overrides the
+    script's defaults, as its environment would)."""
+    import re
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "run_owlii.sh")
+    with open(path) as f:
+        text = f.read().replace("\\\n", " ")
+    env = dict(env or {})
+    values = {m[1]: str(env.get(m[1], m[2])) for m in re.finditer(
+        r"^(\w+)=\$\{\w+:-([^}]*)\}", text, re.M)}
+    lines = {}
+    for line in text.splitlines():
+        words = line.split()
+        if words and words[0].startswith("$PY."):
+            lines[words[0][4:]] = [re.sub(
+                r"\$\{(\w+)\}|\$(\w+)",
+                lambda m: values[m[1] or m[2]], w) for w in words[1:]]
+    return lines["train"], lines["render"]
 
 
 def cuda_ms(fn, iters):
@@ -1160,6 +1295,27 @@ def check_layers(label, plan, emb, feat, w, b, gs):
           f"explaining one {st['gap']:.3e} of its terms' magnitudes "
           f"(TOL_LAYER {TOL_LAYER})")
     return st
+
+
+# the small 4-D field of phase 24 (and tests/test_torch_4d.py): VarTriPlane
+# at noise 4x4, 4 frames, ResField rank 2 on every head, the offset flow
+# head, 16-wide heads
+SMALL_4D = dict(
+    n_frames=4, encoder_type="VarTriPlaneEncoder",
+    encoder_args={"noise_res": 4}, composition_rank=2, flow_model="offset",
+    deform_w=16, deform_d=3, deform_skips=(1,), rgb_w=16, rgb_d=3,
+    rgb_skips=(1,), scale_w=16, scale_d=2, scale_skips=(1,), opacity_w=16,
+    opacity_d=2, opacity_skips=(1,), rotation_w=16, rotation_d=2, flow_w=16,
+    flow_d=3, flow_skips=(1,))
+
+
+def small_4d_net(device, seed=0):
+    """``SMALL_4D``'s port net, weights from ``seed``, on ``device``."""
+    import torch
+
+    from splatfields_torch.models.splatfields import SplatFields
+    return SplatFields(**SMALL_4D, generator=torch.Generator().manual_seed(
+        seed)).to(device)
 
 
 def ngp_model(device=None, **small):
@@ -2633,6 +2789,528 @@ def static_phases(dev, smi):
     return launches, loop_errs, partial_errs
 
 
+OWLII_HIDDEN = dict(encoder_type="VarTriPlaneEncoder", composition_rank=40,
+                   n_frames=100, flow_model="offset")
+OWLII_FRAMES = 100
+# phase 25's scene: its 1,100 frames go through the render CLI's host
+# metrics (scipy SSIM) in the time limit at this resolution
+OWLII_RES = 160
+OWLII_ITERS = 60
+OWLII_DENSIFY = 30       # densify_from_iter and densification_interval
+OWLII_PROFILE = (35, 10)  # iterations 36-45 timed, 46-55 profiled
+OWLII_MESH_RES = 64
+OWLII_ENV = {}           # further run_owlii.sh variables (the defaults)
+OWLII_GT_SPLATS = 30_000
+OWLII_STEPS = {1: 10, 5: 6}   # timed steps at each num_views
+
+
+def owlii_batch(cams, fid, rng, device):
+    """V views' batch for make_train_step at time step ``fid``: random
+    targets."""
+    import torch
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    res = cams[0].image_width
+    return {"viewmatrix": f32([c.world_view_transform for c in cams]),
+            "projmatrix": f32([c.full_proj_transform for c in cams]),
+            "campos": f32([c.camera_center for c in cams]),
+            "tanfovx": [c.tanfovx for c in cams],
+            "tanfovy": [c.tanfovy for c in cams], "fid": fid,
+            "image": f32(rng.rand(len(cams), 3, res, res)),
+            "bg": f32(np.ones(3))}
+
+
+def device_idle(fn):
+    """(wall ms without the profiler, device-busy ms, idle share, top
+    device events) of ``fn()``, which ends in a synchronize."""
+    import time
+
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:80])
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    return wall_ms, busy_ms, 1 - busy_ms / wall_ms, rows[:12]
+
+
+class Timed:
+    """Inside ``with``: the wall seconds of every call of the ResFields
+    loader (``reader``, carve included), ``visual_hull_samples``
+    (``carve``), the render CLI's ``Scene`` (``scene``) and its
+    ``metrics.eval_all`` (``metrics``: PNG reads and scipy SSIM)."""
+
+    def __enter__(self):
+        import time
+
+        from splatfields_torch import metrics, render
+        from splatfields_torch.data import registry
+        from splatfields_torch.data.readers import neus
+        self.times = {k: [] for k in ("reader", "carve", "scene", "metrics")}
+        self.saved = (registry.SCENE_LOADERS["ResFields"],
+                      neus.visual_hull_samples, render.Scene,
+                      metrics.eval_all)
+
+        def timed(fn, into):
+            def wrapper(*a, **k):
+                t0 = time.time()
+                out = fn(*a, **k)
+                self.times[into].append(time.time() - t0)
+                return out
+            return wrapper
+
+        registry.SCENE_LOADERS["ResFields"] = timed(self.saved[0], "reader")
+        neus.visual_hull_samples = timed(self.saved[1], "carve")
+        render.Scene = timed(self.saved[2], "scene")
+        metrics.eval_all = timed(self.saved[3], "metrics")
+        return self
+
+    def seconds(self, key):
+        return sum(self.times[key])
+
+    def __exit__(self, *exc):
+        from splatfields_torch import metrics, render
+        from splatfields_torch.data import registry
+        from splatfields_torch.data.readers import neus
+        (registry.SCENE_LOADERS["ResFields"], neus.visual_hull_samples,
+         render.Scene, metrics.eval_all) = self.saved
+
+
+class LoopProfile:
+    """Inside ``with``: the training loop's own iterations, whole (step,
+    batch, loss read, schedules), in two adjacent windows of ``n`` after
+    iteration ``start``: the first timed on the host clock, the second
+    under ``torch.profiler`` -> ``ms_per_it``, ``busy_ms`` (device time an
+    iteration), ``idle`` (1 - busy / wall), ``top`` (device events), and
+    ``rebuilt``: steps the loop built inside the windows (a grown
+    dup_factor or capacity, which makes the windows' work differ)."""
+
+    def __init__(self, start, n):
+        self.start, self.n = start, n
+        self.calls = self.builds = self.builds0 = 0
+        self.rebuilt = self.t0 = self.prof = None
+        self.ms_per_it = self.busy_ms = self.idle = None
+        self.top = []
+
+    def __enter__(self):
+        import time
+
+        import torch
+
+        from splatfields_torch import train_lib
+        self.make = train_lib.make_train_step
+        timed, profiled, end = (self.start, self.start + self.n,
+                                self.start + 2 * self.n)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+
+        def make(*a, **k):
+            step = self.make(*a, **k)
+            self.builds += 1
+
+            def counted(*sa):
+                if self.calls in (timed, profiled, end):
+                    torch.cuda.synchronize()
+                    now = time.perf_counter()
+                if self.calls == timed:
+                    self.t0, self.builds0 = now, self.builds
+                elif self.calls == profiled:
+                    self.ms_per_it = (now - self.t0) * 1e3 / self.n
+                    self.prof = torch.profiler.profile(activities=acts)
+                    self.prof.__enter__()
+                elif self.calls == end:
+                    self.prof.__exit__(None, None, None)
+                    self.rebuilt = self.builds - self.builds0
+                    self._report()
+                self.calls += 1
+                return step(*sa)
+            return counted
+
+        train_lib.make_train_step = make
+        return self
+
+    def _report(self):
+        import torch
+        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:80])
+                       for e in self.prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      reverse=True)
+        self.busy_ms = sum(r[0] for r in rows) / self.n
+        self.idle = 1 - self.busy_ms / self.ms_per_it
+        self.top = rows[:12]
+        self.prof = None
+
+    def __exit__(self, *exc):
+        from splatfields_torch import train_lib
+        train_lib.make_train_step = self.make
+
+
+def owlii_step(dev, smi, views, sc_pts, sc_cols):
+    """Phase 23 at ``views`` views a step: bench.py --variant owlii4d.
+    Returns (launches, check_loop_blends' errors, ms/step)."""
+    import torch
+
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.models import splats
+    from splatfields_torch.models.deform_model import DeformModel
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.render_lib import render_camera
+
+    label = f"phase 23, {views} view{'s' if views > 1 else ''}"
+    deform = DeformModel(config.HiddenConfig(**OWLII_HIDDEN), radius=1.0,
+                         seed=0, device=dev)
+    pipe = config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128)
+    step = train_lib.make_train_step(
+        deform.net, config.OptimizationConfig(lambda_mask=0.0,
+                                              lambda_norm=0.01),
+        pipe, RES, RES, views, True, OWLII_FRAMES, 0)
+    sp, st = splats.create_from_pcd(sc_pts, sc_cols, 0, capacity=N_SPLATS,
+                                    device=dev)
+    sopt, fp, fopt = splats.adam_init(sp), deform.params, deform.opt_state
+    lrs = splats.splat_lr_tree(*SPLAT_LRS)
+    rng = np.random.RandomState(views)
+    n_steps = TRAIN_WARMUP + OWLII_STEPS[views]
+    frames = np.resize(rng.permutation(OWLII_FRAMES), n_steps + 4)
+    cams = make_views(views * (n_steps + 4), RES)
+    batches = [owlii_batch(cams[views * i: views * (i + 1)],
+                           float(f) / (OWLII_FRAMES - 1), rng, dev)
+               for i, f in enumerate(frames)]
+    rank_keys = [k for k in fp if k.endswith(".weights_t")]
+    if not (len(rank_keys) > 0 and all(
+            fp[k].shape == (OWLII_FRAMES, 40) for k in rank_keys)):
+        raise AssertionError(f"{label}: ResField ranks {rank_keys}")
+    fp0 = {k: v.clone() for k, v in fp.items()}
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    losses = []
+    for i, b in enumerate(batches[:n_steps]):
+        if i == TRAIN_WARMUP:
+            start.record()
+        sp, st, sopt, fp, fopt, out = step(sp, st, sopt, fp, fopt, b, lrs,
+                                           FIELD_LR)
+        losses.append(out.loss)
+        if i == 0:
+            # Adam from zero moments: a row without gradient stays put
+            frame = int(round(b["fid"] * (OWLII_FRAMES - 1)))
+            for k in rank_keys:
+                moved = (fp[k] != fp0[k]).any(dim=1)
+                if not (bool(moved[frame]) and int(moved.sum()) == 1):
+                    raise AssertionError(
+                        f"{label}: {k} rows moved {moved.nonzero().tolist()}"
+                        f", want [{frame}]")
+            if not all(bool((fp[k] != fp0[k]).any()) for k in fp
+                       if k.endswith(".matrix_t")):
+                raise AssertionError(f"{label}: a matrix_t did not move")
+    end.record()
+    torch.cuda.synchronize()
+    launches = (blend_fwd.launches, blend_bwd.launches)
+    if launches != (views * n_steps, views * n_steps):
+        raise AssertionError(f"{label}: blend launches {launches} for "
+                             f"{n_steps} steps of {views} views")
+    losses = torch.stack(losses)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{label}: losses {losses.tolist()}")
+    step_ms = start.elapsed_time(end) / OWLII_STEPS[views]
+
+    state = [sp, st, sopt, fp, fopt]
+
+    def run3():
+        for b in batches[n_steps:n_steps + 3]:
+            state[:5] = step(*state, b, lrs, FIELD_LR)[:5]
+        torch.cuda.synchronize()
+
+    wall_ms, busy_ms, idle, top = device_idle(run3)
+    print(f"{label}: bench.py --variant owlii4d ({N_SPLATS} splats, "
+          f"VarTriPlane, rank-40 ResField heads, {OWLII_FRAMES} frames, "
+          f"offset flow, {RES}x{RES}, lambda_norm 0.01), a different fid "
+          f"each step; {step_ms:.4f} ms/step, rays/s "
+          f"{views * RES * RES / step_ms * 1e3:.1f} ({OWLII_STEPS[views]} "
+          f"steps after {TRAIN_WARMUP} warm-up); losses "
+          f"{[round(x, 6) for x in losses.tolist()]}; blend launches "
+          f"{launches} for {n_steps} steps; after the first step only "
+          f"weights_t[frame] moved in {len(rank_keys)} ResField layers; "
+          f"3 profiled steps: wall {wall_ms:.3f} ms, GPU busy "
+          f"{busy_ms:.3f} ms, GPU idle share {idle:.4f}; {smi}")
+    print(f"{label}: top device events (ms over 3 steps, calls): "
+          + "; ".join(f"{k} {ms:.3f} ({c})" for ms, c, k in top))
+    # both kernels on this step's own inputs and an evaluation frame's
+    with LoopBlends() as cap:
+        state[:5] = step(*state, batches[n_steps + 3], lrs, FIELD_LR)[:5]
+        eval_cam = dataclasses.replace(cams[0], fid=batches[0]["fid"])
+        render_camera(eval_cam, state[0], state[1], deform, pipe,
+                      np.ones(3, np.float32), n_frames=OWLII_FRAMES)
+    torch.cuda.synchronize()
+    errs = check_loop_blends(label, cap)
+    return launches, errs, step_ms
+
+
+def owlii_phases(dev, smi):
+    """Phases 23-26: the Owlii 4D protocol. Returns ({kernel name: {phase:
+    launches}}, {phase: check_loop_blends' errors})."""
+    import torch
+
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.models import splats
+
+    launches = {"blend_fwd": {}, "blend_bwd": {}}
+    loop_errs = {}
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-0.9, 0.9, (N_SPLATS, 3)).astype(np.float32)
+    cols = rng.rand(N_SPLATS, 3).astype(np.float32)
+
+    # --- 23. the 4-D step at full width, 1 and 5 views ---------------------
+    for views in (1, 5):
+        phase = f"23 V{views}"
+        got, loop_errs[phase], _ = owlii_step(dev, smi, views, pts, cols)
+        launches["blend_fwd"][phase], launches["blend_bwd"][phase] = got
+        torch.cuda.empty_cache()
+
+    # --- 24. a small 4-D step on the card and on the CPU ---------------------
+    res = {}
+    cams = make_views(3, 64)[1:]
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        net = small_4d_net(device)
+        p_, s_ = splats.create_from_pcd(pts[:2000], cols[:2000], 0,
+                                        device=device)
+        fp = {k: v.detach() for k, v in net.named_parameters()}
+        step = train_lib.make_train_step(
+            net, config.OptimizationConfig(lambda_mask=0.0,
+                                           lambda_norm=0.01),
+            config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128),
+            64, 64, 2, True, SMALL_4D["n_frames"], 0)
+        res[name] = step(p_, s_, nonzero_adam(p_, 1), fp,
+                         nonzero_adam(fp, 2),
+                         owlii_batch(cams, 2 / 3, np.random.RandomState(1),
+                                     device),
+                         splats.splat_lr_tree(*SPLAT_LRS), FIELD_LR)
+    print("phase 24: a small 4-D step (chip_smoke.SMALL_4D, 2,000 splats, "
+          "64x64, 2 views, fid 2/3), card against CPU:")
+    check_small_step(res["cuda"], res["cpu"])
+    del res
+
+    launches_25, loop_errs["25"] = owlii_protocol(dev, smi)
+    for k in launches:
+        launches[k]["25"] = launches_25[k]
+    owlii_card_vs_cpu(dev)
+    return launches, loop_errs
+
+
+def owlii_protocol(dev, smi):
+    """Phase 25; returns ({kernel name: launches}, check_loop_blends'
+    errors)."""
+    import glob
+    import shutil
+    import time
+
+    import torch
+
+    from splatfields_torch import extract_geo, render, train
+    from splatfields_torch.metrics import read_results
+    from splatfields_torch.models.splatfields import frame_id_of
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.utils.system import search_for_max_iteration
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "owlii_protocol")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.time()
+    scene = write_owlii_scene(base, OWLII_RES, OWLII_FRAMES, dev,
+                              n_splats=OWLII_GT_SPLATS)
+    torch.cuda.synchronize()
+    print(f"phase 25: ResFields scene at {OWLII_RES}x{OWLII_RES} (the "
+          f"resolution that keeps the phase in time), {OWLII_FRAMES} frames "
+          f"of {OWLII_TRAIN_CAMS} cam_train_* and cam_test, "
+          f"{OWLII_GT_SPLATS} moving ground-truth splats, written in "
+          f"{time.time() - t0:.2f} s")
+    out = os.path.join(base, "out")
+    env = dict(OWLII_ENV, DATASET_ROOT=base, SCENE=os.path.basename(scene),
+               OUT=out, ITERS=OWLII_ITERS)
+    train_argv, render_argv = owlii_command_lines(env)
+    run = os.path.join(out, "8views", os.path.basename(scene),
+                       "SplatFields4D")
+    extra = ["--densify_from_iter", str(OWLII_DENSIFY),
+             "--densification_interval", str(OWLII_DENSIFY),
+             "--test_iterations", "1", str(OWLII_ITERS)]
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = 0
+    with Timed() as timed, LoopBlends() as cap, LoopProfile(
+            *OWLII_PROFILE) as prof:
+        res = train.main(train_argv + extra)
+    torch.cuda.synchronize()
+    # two evaluations: 25 test frames (of the test camera's OWLII_FRAMES)
+    # and 5 train frames each
+    evals = 2 * (min(25, OWLII_FRAMES) + 5)
+    got = (blend_fwd.launches, blend_bwd.launches)
+    launches = {"blend_fwd": got[0], "blend_bwd": got[1]}
+    if got != (5 * OWLII_ITERS + evals, 5 * OWLII_ITERS):
+        raise AssertionError(f"phase 25: blend launches {got}; want "
+                             f"{(5 * OWLII_ITERS + evals, 5 * OWLII_ITERS)}")
+    on_card("phase 25", {**dict(vars(res.params)), **dict(vars(res.stats)),
+                         **res.deform.params})
+    if [d[0] for d in res.densified] != list(range(
+            2 * OWLII_DENSIFY, OWLII_ITERS + 1, OWLII_DENSIFY)):
+        raise AssertionError(f"phase 25: densified {res.densified}")
+    m = read_metrics(run)
+    psnr = dict(m["test/loss_viewpoint - psnr"])
+    if not psnr[OWLII_ITERS] > psnr[1]:
+        raise AssertionError(f"phase 25: test PSNR {psnr}")
+    dropped = [int(v) for _, v in m.get("train_loss_patches/bin_dropped", [])]
+    reader_s, carve_s = timed.seconds("reader"), timed.seconds("carve")
+    print(f"phase 25: run_owlii.sh's train line (ITERS={OWLII_ITERS}, "
+          f"{' '.join(extra)}), {res.ms_per_it:.3f} ms/it, step "
+          f"{res.step_ms:.3f} ms mean ({OWLII_RES}x{OWLII_RES}, 5 views, "
+          f"{int(res.stats.valid.sum())} splats at the end); test PSNR "
+          f"{psnr[1]:.3f} at 1 -> {psnr[OWLII_ITERS]:.3f} at {OWLII_ITERS}; "
+          f"densify (iteration, before, after, dropped) {res.densified}; "
+          f"dup_factor growth (iteration, dropped, new factor) "
+          f"{res.dup_growth}; instances dropped past dup_cap a step (every "
+          f"10th): max {max(dropped, default=0)}; reader {reader_s:.3f} s "
+          f"for {OWLII_FRAMES} frames of {OWLII_TRAIN_CAMS + 1} cameras "
+          f"(the carve included), 256^3 hull carve {carve_s:.3f} s;"
+          f" blend launches {got}; {smi}")
+    w0, n = OWLII_PROFILE[0] + 1, OWLII_PROFILE[1]
+    print(f"phase 25: loop iterations {w0}-{w0 + n - 1}: "
+          f"{prof.ms_per_it:.3f} ms/it on the host clock; iterations "
+          f"{w0 + n}-{w0 + 2 * n - 1} profiled: GPU busy "
+          f"{prof.busy_ms:.3f} ms/it, GPU idle share {prof.idle:.4f} (steps "
+          f"rebuilt inside the windows: {prof.rebuilt}); top device events "
+          f"(ms over {OWLII_PROFILE[1]} iterations, calls): "
+          + "; ".join(f"{k} {ms:.3f} ({c})" for ms, c, k in prof.top))
+    errs = check_loop_blends("phase 25", cap)
+    del cap, res
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with Timed() as timed:
+        results = render.main(render_argv)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    it = search_for_max_iteration(os.path.join(run, "point_cloud"))
+    n_render = sum(len(glob.glob(os.path.join(run, s, f"ours_{it}",
+                                              "renders", "*.png")))
+                   for s in ("train", "test"))
+    yaml = read_results(os.path.join(run, "test", f"ours_{it}",
+                                     "results.yaml"))
+    if not (n_render == (OWLII_TRAIN_CAMS + 1) * OWLII_FRAMES
+            and np.isfinite(yaml["psnr"]) and yaml["psnr"] > psnr[1]):
+        raise AssertionError(f"phase 25: render CLI {n_render} frames, "
+                             f"{yaml}, {results.keys()}")
+    scene_s, metrics_s = timed.seconds("scene"), timed.seconds("metrics")
+    print(f"phase 25: run_owlii.sh's render line, {n_render} frames at "
+          f"{OWLII_RES}x{OWLII_RES} in {render_s:.3f} s "
+          f"({render_s * 1000 / n_render:.1f} ms/frame): scene load "
+          f"{scene_s:.3f} s, metrics (PNG reads, scipy SSIM) {metrics_s:.3f} "
+          f"s ({metrics_s * 1000 / n_render:.1f} ms/frame), renders and PNG "
+          f"writes {render_s - scene_s - metrics_s:.3f} s; test results.yaml "
+          f"{yaml}; {smi}")
+    t0 = time.time()
+    report = extract_geo.main(["-m", run, "--mesh_resolution",
+                               str(OWLII_MESH_RES)])
+    torch.cuda.synchronize()
+    verts, faces = mesh_counts(os.path.join(run, f"mesh_iteration_{it}.ply"))
+    if not (len(report) == 4 and verts > 0 and faces > 0):
+        raise AssertionError(f"phase 25: extract_geo {report}, mesh "
+                             f"{verts}, {faces}")
+    print(f"phase 25: extract_geo at fid 0 (frame "
+          f"{frame_id_of(0.0, OWLII_FRAMES)}), {time.time() - t0:.3f} s, "
+          f"MoransI {report}, mesh {OWLII_MESH_RES}^3 -> {verts} vertices, "
+          f"{faces} faces; {smi}")
+    shutil.rmtree(base, ignore_errors=True)
+    return launches, errs
+
+
+OWLII_SMALL_ARGV = ("--white_background --eval --load_time_step 2 "
+                    "--flow_model offset --all_training --num_views 2 "
+                    "--pts_samples hull --num_pts 2000 --encoder_type "
+                    "VarTriPlaneEncoder --composition_rank 40").split()
+
+
+def owlii_small_scene(root):
+    """Phase 26's scene: 64x64, 2 frames, written on the CPU."""
+    import torch
+    return write_owlii_scene(root, 64, 2, torch.device("cpu"))
+
+
+def owlii_card_vs_cpu(dev, iters=5):
+    """Phase 26: a 5-iteration 4-D loop on the CPU, and on the card each
+    iteration k from the CPU's train state after k - 1 (``--resume``):
+    the losses of every iteration within phase 7's 1e-5 relative -> the
+    worst. The CPU runs the loop twice, and the two runs' spread is
+    printed: Adam from zero moments moves every ResField entry by its
+    learning rate whatever the size of its gradient, so f32 noise in
+    near-zero gradients compounds over free-running iterations (rank 40:
+    ~1e-5 in 5, the CPU against itself), and the card is compared on
+    shared states."""
+    import random
+    import shutil
+
+    import torch
+
+    from splatfields_torch import train
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "owlii_small")
+    shutil.rmtree(base, ignore_errors=True)
+    argv = ["-s", owlii_small_scene(base)] + OWLII_SMALL_ARGV
+
+    def loop(name, device, last, resume=False):
+        args = train.build_train_parser().parse_args(
+            argv + ["-m", os.path.join(base, name), "--iterations",
+                    str(last)])
+        model, pipe, hidden, opt = train.cfg_lib.extract_configs(args)
+        got = []
+        train.training(model, hidden, opt, pipe, [],
+                       list(range(1, last + 1)), quiet=True,
+                       rng=random.Random(0), device=device, resume=resume,
+                       progress_callback=lambda it, loss, *_: got.append(
+                           loss))
+        return got
+
+    cpu = np.array(loop("cpu", "cpu", iters))
+    again = np.array(loop("cpu_again", "cpu", iters))
+    card = []
+    for k in range(1, iters + 1):
+        name = f"card_{k}"
+        if k > 1:
+            src = os.path.join(base, "cpu", "train_state",
+                               f"iteration_{k - 1}")
+            dst = os.path.join(base, name, "train_state",
+                               f"iteration_{k - 1}")
+            shutil.copytree(src, dst)
+            # a CPU generator's state does not load into the card's; the
+            # densify noise is not drawn in these iterations
+            state = torch.load(os.path.join(dst, "state.pt"),
+                               weights_only=True)
+            state["densify_rng"] = torch.Generator(
+                device=dev).manual_seed(0).get_state()
+            torch.save(state, os.path.join(dst, "state.pt"))
+        got = loop(name, dev, k, resume=k > 1)
+        if len(got) != 1:
+            raise AssertionError(f"phase 26: iteration {k} ran {len(got)} "
+                                 "iterations on the card")
+        card.append(got[0])
+    card = np.array(card)
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    spread = np.abs(again - cpu) / np.abs(cpu)
+    print(f"phase 26 run_owlii.sh (64x64, 2 frames, rank 40, 2 views): CPU "
+          f"losses {cpu.tolist()}; the card's, each iteration from the "
+          f"CPU's state before it, {card.tolist()}, worst rel "
+          f"{rel.max():.3e}; the CPU run again, free-running, rel "
+          f"{spread.tolist()}")
+    if not rel.max() <= 1e-5:
+        raise AssertionError("phase 26: losses differ")
+    shutil.rmtree(base, ignore_errors=True)
+    return float(rel.max())
+
+
 def card_vs_cpu(label, argv, out_root, dev, iters=5):
     """``train.training`` for ``iters`` iterations of the command line
     ``argv`` on the card and on the CPU with the same seeds: the losses of
@@ -2845,9 +3523,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     # --- 18-22. the Moran line, extract_geo, run_dtu.sh, LPIPS ---------------
     static_launches, static_errs, partial_errs = static_phases(dev, smi)
+    torch.cuda.empty_cache()
+    # --- 23-26. the Owlii 4-D protocol -------------------------------------
+    owlii_launches, owlii_errs = owlii_phases(dev, smi)
     for k in loop_launches:
         loop_launches[k].update(static_launches[k])
+        loop_launches[k].update(owlii_launches[k])
     loop_errs.update(static_errs)
+    loop_errs.update(owlii_errs)
     bwd_entry["loop_launches"] = loop_launches["blend_bwd"]
     bwd_entry["loop_max_abs_err"] = {
         ph: e["step backward"] for ph, e in loop_errs.items()}

@@ -1,18 +1,23 @@
-"""8-bit PNG codec on ``zlib`` and NumPy (no counterpart in the JAX
-package, which reads and writes images through PIL and cv2; the GPU
-machine has neither).
+"""PNG codec on ``zlib`` and NumPy (no counterpart in the JAX package,
+which reads and writes images through PIL and cv2; the GPU machine has
+neither).
 
 Decoding takes the five colour types (gray, gray+alpha, RGB, RGBA,
-palette, with a ``tRNS`` chunk) at bit depth 8, non-interlaced, and all
-five row filters. A file whose rows use only None, Sub and Up unfilters
+palette, with a ``tRNS`` chunk) at bit depth 8, the four non-palette
+types at bit depth 16 (as uint16, what ``cv2.imread(...,
+IMREAD_UNCHANGED)`` gives for a 16-bit depth map, channels in the file's
+order), non-interlaced, and all five row filters. A file whose rows use only None, Sub and Up unfilters
 row by row with vector ops (Sub as a cumulative sum mod 256 along the
 row). Average and Paeth depend on the reconstructed pixel to the left,
 so a file with such rows unfilters along anti-diagonals: every pixel of
 diagonal y + x = d depends only on diagonals d - 1 and d - 2, so
 H + W - 1 vector steps rebuild the image, each row with its own filter.
 
-Encoding writes one filter for every row (0, None, by default; the others
-exist so tests can exercise the decoder) and no ancillary chunks.
+Encoding takes uint8 (bit depth 8) or uint16 (bit depth 16) images,
+writes one filter for every row (0, None, by default; the others exist so
+tests can exercise the decoder) and no ancillary chunks. A filter works on
+bytes, so a 16-bit pixel is two bytes per channel: the rows are filtered
+as 8-bit rows of twice the channels.
 """
 from __future__ import annotations
 
@@ -68,9 +73,9 @@ def _unfilter_diagonal(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
 
 
 def decode(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 [H, W, C]: C = 1 (gray), 2 (gray+alpha), 3 (RGB)
-    or 4 (RGBA); a palette image comes back as RGB, or RGBA when it has a
-    ``tRNS`` chunk."""
+    """PNG bytes -> uint8 [H, W, C] (uint16 at bit depth 16): C = 1 (gray),
+    2 (gray+alpha), 3 (RGB) or 4 (RGBA); a palette image comes back as
+    RGB, or RGBA when it has a ``tRNS`` chunk."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos, idat, palette, trns, hdr = 8, [], None, None, None
@@ -92,19 +97,23 @@ def decode(data: bytes) -> np.ndarray:
     if hdr is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _CHANNELS or interlace:
+    if (ctype not in _CHANNELS or interlace or depth not in (8, 16)
+            or (depth == 16 and ctype == 3)):
         raise ValueError(f"unsupported PNG: bit depth {depth}, colour type "
-                         f"{ctype}, interlace {interlace} (8-bit, "
-                         "non-interlaced only)")
+                         f"{ctype}, interlace {interlace} (8-bit, or 16-bit "
+                         "without a palette, non-interlaced only)")
     ch = _CHANNELS[ctype]
+    nb = ch * depth // 8    # bytes a pixel: the filters' left neighbour
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows[:h * (w * ch + 1)].reshape(h, w * ch + 1)
-    ftype, raw = rows[:, 0], rows[:, 1:].reshape(h, w, ch)
+    rows = rows[:h * (w * nb + 1)].reshape(h, w * nb + 1)
+    ftype, raw = rows[:, 0], rows[:, 1:].reshape(h, w, nb)
     if ftype.max(initial=0) > 4:
         raise ValueError("bad PNG row filter")
     unfilter = _unfilter_rows if ftype.max(initial=0) <= 2 \
         else _unfilter_diagonal
     img = unfilter(raw, ftype)
+    if depth == 16:
+        img = img.view(">u2").astype(np.uint16)   # big-endian samples
     if ctype == 3:
         idx = img[..., 0]
         rgb = palette[idx]
@@ -115,7 +124,8 @@ def decode(data: bytes) -> np.ndarray:
         return np.concatenate([rgb, alpha[idx][..., None]], -1)
     if trns is not None and ctype in (0, 2):
         key = np.array(struct.unpack(f">{ch}H", trns), np.uint16)
-        alpha = np.where((img == key).all(-1), 0, 255).astype(np.uint8)
+        opaque = np.iinfo(img.dtype).max
+        alpha = np.where((img == key).all(-1), 0, opaque).astype(img.dtype)
         return np.concatenate([img, alpha[..., None]], -1)
     return img
 
@@ -158,21 +168,27 @@ def _filter(img: np.ndarray, ftype: int) -> np.ndarray:
 
 
 def encode(img: np.ndarray, ftype: int = 0, level: int = 6) -> bytes:
-    """uint8 [H, W] or [H, W, C] (C = 1, 2, 3, 4) -> PNG bytes, every row
-    with filter ``ftype`` (0-4), zlib level ``level``."""
+    """uint8 or uint16 [H, W] or [H, W, C] (C = 1, 2, 3, 4) -> PNG bytes
+    at bit depth 8 or 16, every row with filter ``ftype`` (0-4), zlib
+    level ``level``."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise TypeError(f"PNG encode takes uint8, got {img.dtype}")
+    if img.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"PNG encode takes uint8 or uint16, got {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     h, w, ch = img.shape
     ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
-    rows = np.empty((h, w * ch + 1), np.uint8)
+    depth = 8 * img.dtype.itemsize
+    if depth == 16:     # big-endian samples, filtered as bytes
+        img = img.astype(">u2").view(np.uint8).reshape(h, w, 2 * ch)
+    nb = img.shape[2]
+    rows = np.empty((h, w * nb + 1), np.uint8)
     rows[:, 0] = ftype
-    rows[:, 1:] = _filter(img, ftype).reshape(h, w * ch)
+    rows[:, 1:] = _filter(img, ftype).reshape(h, w * nb)
     return b"".join((
         _SIGNATURE,
-        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)),
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                    0)),
         _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)),
         _chunk(b"IEND", b"")))
 

@@ -1,7 +1,7 @@
 """Dataset-type registry and marker-file sniffing (counterpart of
-``splatfields_tpu/data/registry.py``). The Blender and DTU loaders are
-ported; the other readers raise NotImplementedError naming their ROADMAP
-item."""
+``splatfields_tpu/data/registry.py``). The Blender, DTU and ResFields
+(Owlii) loaders are ported; the other readers raise NotImplementedError
+naming their ROADMAP item."""
 from __future__ import annotations
 
 import os
@@ -10,7 +10,10 @@ from splatfields_torch.data.readers.blender import (
     read_nerf_synthetic,
     read_nerf_synthetic_cv,
 )
-from splatfields_torch.data.readers.neus import read_neus_dtu_scene
+from splatfields_torch.data.readers.neus import (
+    read_neus_dtu_scene,
+    read_resfield_scene,
+)
 
 
 def _not_ported(name: str, item: int):
@@ -28,7 +31,7 @@ SCENE_LOADERS = {
     "Blender": read_nerf_synthetic,
     "DTU": read_neus_dtu_scene,
     "nerfies": _not_ported("nerfies", 5),
-    "ResFields": _not_ported("ResFields (Owlii)", 6),
+    "ResFields": read_resfield_scene,
 }
 
 

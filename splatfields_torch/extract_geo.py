@@ -9,7 +9,8 @@ into the run directory (reference ``extract_geo.py:145-197``). The file's
 text is what ``yaml.safe_dump`` writes for the same dict, without yaml.
 With ``--mesh_resolution R`` it also meshes an opacity-weighted gaussian
 mixture of the splats on an R^3 grid (``ops/marching.py``) into
-``mesh_iteration_N.ply``.
+``mesh_iteration_N.ply``. A 4-D run (``--load_time_step > 1``) is
+analysed at time step 0, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -23,17 +24,10 @@ from splatfields_torch import config as cfg_lib
 from splatfields_torch.device import resolve_device
 from splatfields_torch.models import splats as splats_lib
 from splatfields_torch.models.deform_model import DeformModel
+from splatfields_torch.models.splatfields import time_inputs
 from splatfields_torch.ops import knn as knn_ops
 from splatfields_torch.ops.marching import extract_geometry, write_mesh_ply
 from splatfields_torch.scene import Scene
-
-
-def _no_4d(field: bool, n_frames: int):
-    """The frame count only reaches a field; 4-D fields are not ported."""
-    if field and n_frames > 0:
-        raise NotImplementedError(
-            "4-D Moran analysis (--load_time_step > 1): ROADMAP Queue 1 "
-            "item 6")
 
 
 @torch.no_grad()
@@ -41,13 +35,13 @@ def morans_report(params, stats, deform, n_frames, fid=0.0) -> dict:
     """{"moran_<attr>": Moran's I} of the valid splats: scale, rotation,
     opacity and rgb (the flattened SH matrix in static mode, the field's
     rgb in field mode), over the neighbourhoods of the splats' positions
-    (the field's means in field mode)."""
-    _no_4d(deform is not None, n_frames)
-    del fid
+    (the field's means in field mode; a 4-D field's at time step
+    ``fid``)."""
     valid = stats.valid
     xyz = params.xyz[valid]
     if deform is not None:
-        ret = deform.net(xyz)
+        ret = deform.net(xyz, **time_inputs(xyz.shape[0], fid, n_frames,
+                                            xyz.device))
         attrs = {
             "scale": ret["scales"] + splats_lib.get_scaling(params)[valid],
             "rotation": ret["rotations"], "opacity": ret["opacity"]}
@@ -79,15 +73,14 @@ def splat_density_query(params, stats, deform, n_frames, fid=0.0,
     """Density for iso-surface extraction: the opacity-weighted isotropic
     gaussian mixture of the (field-deformed) valid splats, summed over each
     query's ``n_neighbors`` nearest centres -> ``query(pts [M, 3]) -> [M]``
-    on the splats' device."""
-    _no_4d(deform is not None, n_frames)
-    del fid
+    on the splats' device; a 4-D field at time step ``fid``."""
     valid = stats.valid
     xyz = params.xyz[valid]
     scales = splats_lib.get_scaling(params)[valid]
     opac = splats_lib.get_opacity(params)[valid].reshape(-1)
     if deform is not None:
-        ret = deform.net(xyz)
+        ret = deform.net(xyz, **time_inputs(xyz.shape[0], fid, n_frames,
+                                            xyz.device))
         xyz = ret["means3D"]
         # the field's scale is added in activated space, as the render does
         scales = torch.clamp_min(scales + ret["scales"], 1e-9)
@@ -146,7 +139,6 @@ def main(argv=None, device=None) -> dict:
     model_cfg, _, hidden_cfg, _ = cfg_lib.extract_configs(args)
     n_frames = (model_cfg.load_time_step if model_cfg.load_time_step > 1
                 and not model_cfg.is_static else 0)
-    _no_4d(not model_cfg.is_static, n_frames)
     hidden_cfg.n_frames = n_frames
 
     scene = Scene(model_cfg, load_iteration=args.iteration, shuffle=False,

@@ -9,7 +9,10 @@ leaf; only the layouts differ:
 - conv ``kernel`` HWIO -> ``weight`` OIHW;
 - GroupNorm ``scale`` -> ``weight``;
 - the frozen noise buffers NHWC -> NCHW;
-- the NGP hash ``table`` [L, T, F] keeps its layout.
+- the NGP hash ``table`` [L, T, F], the ResField ``weights_t`` [C, R]
+  and ``matrix_t`` [R, out * in] (already in the port's ``(out, in)``
+  order, so never transposed) and the DCT flow head's
+  ``trajectory_basis`` keep their layouts.
 
 Loading is strict: a key the module lacks, a module key the tree lacks,
 or a shape mismatch raises. Gradients and Adam moments, which have the
@@ -37,6 +40,10 @@ from splatfields_torch.models.resfields import ResFieldLinear
 from splatfields_torch.models.splats import AdamState, SplatParams
 
 
+# leaves whose layout is the same in both packages
+_KEPT = ("bias", "table", "weights_t", "matrix_t", "trajectory_basis")
+
+
 def _flatten(tree: Mapping, prefix=()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
@@ -61,7 +68,7 @@ def _convert(path: tuple, value: np.ndarray, collection: str):
         leaf = "weight"
     elif leaf == "scale":
         leaf = "weight"
-    elif leaf not in ("bias", "table"):
+    elif leaf not in _KEPT:
         raise KeyError(f"unknown parameter {'/'.join(path)}")
     return ".".join((*mods, leaf)), value
 
@@ -135,7 +142,7 @@ def adam_state_from_numpy(state, device=None) -> AdamState:
 
 
 def _flax_leaf(module: nn.Module, leaf: str, value: np.ndarray):
-    if leaf in ("bias", "table"):
+    if leaf in _KEPT:
         return leaf, value
     if leaf != "weight":
         raise KeyError(f"no flax counterpart for parameter {leaf!r} of "

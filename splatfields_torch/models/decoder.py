@@ -8,9 +8,11 @@ conv_out. GroupNorm uses 32 groups and eps 1e-6; attention softmax is f32.
 Convs init kaiming-normal fan_out; every resnet conv2 and the attention
 output projection start at zero.
 
-The per-frame conv deltas of the 4-D path (``strategy='per_frame'``) come
-with the 4-D slice (ROADMAP Queue 1, item 6); ``VarTriPlaneEncoder``
-refuses 4-D arguments before they reach the decoder.
+The per-frame conv deltas (``strategy='per_frame'``) are not ported
+(ROADMAP Queue 1 item 6, per_frame TimeConv); ``VarTriPlaneEncoder``
+refuses that strategy before it reaches the decoder. With the default
+``strategy='none'`` a 4-D field's convs do not depend on the frame, as in
+the JAX ``TimeConv``.
 """
 from __future__ import annotations
 

@@ -4,8 +4,9 @@ field parameters at ``position_lr_init * 5``, decaying exponentially to
 ``position_lr_final`` over ``deform_lr_max_steps``. The weights are saved
 as ``model_path/deform/iteration_N/deform.msgpack`` in the JAX package's
 own format (flax's msgpack of the variable tree, written and read by
-``utils/msgpack.py`` and ``interop``), so either package renders a run
-directory the other trained."""
+``utils/msgpack.py`` and ``interop``; a 4-D field's ResField and flow
+leaves too), so either package renders a run directory the other
+trained."""
 from __future__ import annotations
 
 import os
@@ -35,6 +36,7 @@ def build_splatfields(hidden_cfg, radius: float | None = None, *,
         composition_rank=h.composition_rank, deform_weight=h.deform_weight,
         use_view_dep_rgb=h.use_view_dep_rgb,
         geo_model_disable_pts=h.geo_model_disable_pts, rgb_w=h.rgb_w,
+        flow_model=h.flow_model, dct_basis=h.dct_basis,
         contract_ngp=h.contract_ngp, log2_hashmap_size=h.log2_hashmap_size,
         n_levels=h.n_levels, generator=generator)
 

@@ -3,7 +3,9 @@
 Ported:
 
 - ``VarTriPlaneEncoder``, the released-config encoder: one ``Tensorial2D``
-  noise -> CNN generator per plane, planes regenerated on every call,
+  noise -> CNN generator per plane, planes regenerated on every call (for
+  4-D scenes too: with ``strategy='none'`` they do not depend on the
+  frame),
   sampled bilinearly (torch grid_sample semantics) at the xy / yz / zx
   coordinates and fused by concatenation (out_dim 3 * 16 = 48);
 - ``HashGridEncoder`` and ``NGPMLP``, the NGP variant: a multi-resolution
@@ -16,7 +18,8 @@ Ported:
 
 The JAX package's bf16 gather source (``SPLATFIELDS_NGP_BF16_TABLE``) is
 not ported: the port gathers from f32, the JAX package's CPU default. The
-other encoders come with later slices (ROADMAP Queue 1, item 6).
+other encoders come with later slices (ROADMAP Queue 1 item 6, the
+Hex/Tri/Grid encoders).
 """
 from __future__ import annotations
 
@@ -47,14 +50,17 @@ class VarTriPlaneEncoder(nn.Module):
                  strategy: str = "none", n_planes: int = 3, *,
                  generator: torch.Generator):
         super().__init__()
-        if n_frames > 0 or n_planes != 3:
+        if n_planes != 3:
             raise NotImplementedError(
-                "VarTriPlaneEncoder with frames or time planes: ROADMAP "
-                "Queue 1 item 6")
+                "VarTriPlaneEncoder with time planes: ROADMAP Queue 1 item "
+                "6 (the Hex/Tri/Grid encoders)")
+        if strategy == "per_frame" and n_frames > 1:
+            raise NotImplementedError(
+                "per-frame conv deltas (layer_strategy 'per_frame'): "
+                "ROADMAP Queue 1 item 6 (per_frame TimeConv)")
         if fuse_mode != "cat":
             raise NotImplementedError(
                 f"fuse mode {fuse_mode!r}: only 'cat' is ported")
-        del strategy  # only the per-frame 4-D decoders read it
         self.out_dim = n_planes * out_ch
         self.n_planes = n_planes
         for i in range(n_planes):

@@ -7,9 +7,12 @@ input in front (``h = cat([h_in, h])``) after layer i in ``skips``; the
 activation (leaky_relu 0.01) follows EVERY layer including the last, and
 ``out_activation`` is applied on top of it.
 
+ResField ranks go on the created hidden layers with index >= 1 only, with
+capacity ``n_frames``; ``frame_id`` (a host int) reaches every layer.
+
 Activations stay f32. The JAX package defaults static fields to bf16
-activations (``SPLATFIELDS_MLP_BF16=auto``); that option is not ported yet
-(ROADMAP).
+activations (``SPLATFIELDS_MLP_BF16=auto``; f32 when ``n_frames > 0``);
+that option is not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -66,9 +69,11 @@ class GeneralMLP(nn.Module):
                 fin, fout, rank, n_frames if rank else 0, generator=generator))
 
     def forward(self, xyz: torch.Tensor, xyz_feat: torch.Tensor | None = None,
-                xyz_embedded: torch.Tensor | None = None) -> torch.Tensor:
+                xyz_embedded: torch.Tensor | None = None,
+                frame_id: int | None = None) -> torch.Tensor:
         """``xyz_embedded``: a shared embedding of xyz at >= this head's
-        multires; its leading columns are this head's embedding."""
+        multires; its leading columns are this head's embedding.
+        ``frame_id``: the frame of the ResField layers' residuals."""
         if xyz_embedded is not None and self.multires > 0:
             h_in = xyz_embedded[:, : embed_dim(self.multires, xyz.shape[-1])]
         else:
@@ -77,7 +82,7 @@ class GeneralMLP(nn.Module):
             h_in = torch.cat([h_in, xyz_feat], dim=-1)
         h = h_in
         for i in range(self.n_layers):
-            h = self.act(getattr(self, f"net_{i}")(h))
+            h = self.act(getattr(self, f"net_{i}")(h, frame_id))
             if i in self.skips and i != self.n_layers - 1:
                 h = torch.cat([h_in, h], dim=-1)
         return self.out_activation(h)

@@ -1,4 +1,4 @@
-"""The SplatFields network, static path (counterpart of
+"""The SplatFields network (counterpart of
 ``splatfields_tpu/models/splatfields.py``).
 
 Given N points: encoder features (VarTriPlane, or the NGP hash grid +
@@ -8,27 +8,37 @@ offsets the points (``xyz_can = xyz + deform_weight * delta``);
 ``mlp_rgb`` (sigmoid) read (xyz_can, features), sharing one positional
 embedding of xyz_can at the largest multires.
 
+4-D fields (``n_frames > 0``): the features gain a ``time_multires``
+positional embedding of the time step t (appended after the refined
+plane features); every head's hidden layers carry ResField ranks
+(``composition_rank``); ``mlp_flow`` and the ``FlowHead``
+(``mlp_flow_head``) move ``xyz_can`` to the frame's means. The frame is
+``round(t * (n_frames - 1))`` in float32, half to even, as the JAX
+package computes it; the caller passes it as a host int
+(``frame_id_of``), so no device value is read back.
+
 ``fused_pallas="on"`` (or ``SPLATFIELDS_FUSED_MLP=on``, which overrides
 the attribute) runs the heads through ``ops/fused_mlp.py``: one fused call
 for ``mlp_deform`` on pe(xyz) and one for the other four heads on
 pe(xyz_can), hand-written CUDA kernels on the card. ``"auto"`` means off,
 as in the JAX package.
 
-Not ported yet, each raising NotImplementedError: 4-D fields
-(``n_frames > 0``, flow head, ResField ranks; ROADMAP Queue 1 item 6),
-the view-dependent colour head and ``geo_model_disable_pts``, and the
-encoders other than VarTriPlane and NGPMLP (item 6).
+Not ported yet, each raising NotImplementedError: the view-dependent
+colour head and ``geo_model_disable_pts``, and the encoders other than
+VarTriPlane and NGPMLP (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from splatfields_torch.models.encoders import NGPMLP, VarTriPlaneEncoder
+from splatfields_torch.models.flow import FlowHead
 from splatfields_torch.models.initializers import torch_linear_
 from splatfields_torch.models.mlp import GeneralMLP, positional_embed
 from splatfields_torch.models.resfields import _normalize
@@ -44,6 +54,22 @@ _JAX_ENCODERS = ("VarTriPlaneEncoder", "VarHexPlaneEncoder", "TriPlaneEncoder",
 _PORTED_ENCODERS = ("VarTriPlaneEncoder", "NGPMLP")
 
 
+def frame_id_of(fid: float, n_frames: int) -> int:
+    """The frame of time step ``fid``: ``round(fid * (n_frames - 1))`` in
+    float32, half to even, as the JAX ``SplatFields`` computes it."""
+    return int(np.round(np.float32(fid) * np.float32(n_frames - 1)))
+
+
+def time_inputs(n: int, fid: float, n_frames: int, device) -> dict:
+    """The keyword arguments that put ``n`` points of a 4-D field at time
+    step ``fid`` (a host number): t [n, 1] and its frame; none for a
+    static field."""
+    if n_frames <= 0:
+        return {}
+    return {"t": torch.full((n, 1), float(np.float32(fid)), device=device),
+            "frame_id": frame_id_of(fid, n_frames)}
+
+
 class SplatFields(nn.Module):
     """``fused_pallas``: "on", "off" or "auto" (= off), re-read with the
     ``SPLATFIELDS_FUSED_MLP`` override on every forward.
@@ -56,7 +82,7 @@ class SplatFields(nn.Module):
                  encoder_type: str = "", encoder_args: Any = None,
                  layer_strategy: str = "none", composition_rank: int = 0,
                  deform_weight: float = 1.0, use_view_dep_rgb: bool = False,
-                 geo_model_disable_pts: bool = False,
+                 geo_model_disable_pts: bool = False, time_multires: int = 3,
                  deform_w: int = 128, deform_d: int = 6, deform_skips=(3,),
                  deform_multires: int = 6,
                  rgb_w: int = 128, rgb_d: int = 6, rgb_skips=(3,),
@@ -67,20 +93,17 @@ class SplatFields(nn.Module):
                  opacity_multires: int = 3,
                  rotation_w: int = 64, rotation_d: int = 3,
                  rotation_skips=(20,), rotation_multires: int = 3,
-                 contract_ngp: bool = False, log2_hashmap_size: int = 20,
-                 n_levels: int = 16, fused_pallas: str = "auto",
-                 fused_block: int = 2048, fused_compute_dtype=None, *,
+                 flow_w: int = 128, flow_d: int = 6, flow_skips=(3,),
+                 flow_multires: int = 6, flow_model: str = "se3",
+                 dct_basis: int = 4, contract_ngp: bool = False,
+                 log2_hashmap_size: int = 20, n_levels: int = 16,
+                 fused_pallas: str = "auto", fused_block: int = 2048,
+                 fused_compute_dtype=None, *,
                  generator: torch.Generator):
         super().__init__()
         self.fused_pallas = fused_pallas
         self.fused_block = fused_block
         self.fused_compute_dtype = fused_compute_dtype
-        if n_frames > 0:
-            raise NotImplementedError(
-                "4-D fields (n_frames > 0): ROADMAP Queue 1 item 6")
-        if composition_rank > 0:
-            raise NotImplementedError(
-                "ResField composition_rank > 0: ROADMAP Queue 1 item 6")
         if use_view_dep_rgb:
             raise NotImplementedError(
                 "view-dependent colour head: ROADMAP pending items")
@@ -90,13 +113,16 @@ class SplatFields(nn.Module):
         if (encoder_type in _JAX_ENCODERS
                 and encoder_type not in _PORTED_ENCODERS):
             raise NotImplementedError(
-                f"encoder {encoder_type}: ROADMAP Queue 1 item 6")
+                f"encoder {encoder_type}: ROADMAP Queue 1 item 6 (the "
+                "Hex/Tri/Grid encoders)")
         gen = generator
         self.n_frames = n_frames
         self.geo_model_disable_pts = geo_model_disable_pts
         self.deform_weight = deform_weight
+        self.time_multires = time_multires
         self.max_multires = max(rgb_multires, scale_multires,
-                                opacity_multires, rotation_multires)
+                                opacity_multires, rotation_multires,
+                                flow_multires if n_frames > 0 else 0)
         args = dict(encoder_args or {})
         if encoder_type == "VarTriPlaneEncoder":
             args.setdefault("n_frames", n_frames)
@@ -120,11 +146,13 @@ class SplatFields(nn.Module):
             self.encoder = None
             self.feat_dim = 0
 
-        in_feat = 3 + self.feat_dim
+        time_ch = 1 + 2 * time_multires if n_frames > 0 else 0
+        in_feat = 3 + self.feat_dim + time_ch
 
         def head(out, w, d, skips, mr, out_act):
             return GeneralMLP(in_feat, out, w, d, skips, mr, out_act,
-                              "leaky_relu", 0, n_frames, generator=gen)
+                              "leaky_relu", composition_rank, n_frames,
+                              generator=gen)
 
         # like flax, which creates a head's params only when it runs
         self.mlp_deform = (head(3, deform_w, deform_d, deform_skips,
@@ -137,43 +165,63 @@ class SplatFields(nn.Module):
                                 opacity_multires, "sigmoid")
         self.mlp_rotation = head(4, rotation_w, rotation_d, rotation_skips,
                                  rotation_multires, "normalize")
+        self.mlp_flow = self.mlp_flow_head = None
+        if n_frames > 0:
+            self.mlp_flow = head(flow_w, flow_w, flow_d, flow_skips,
+                                 flow_multires, "none")
+            self.mlp_flow_head = FlowHead(flow_w, flow_model, dct_basis,
+                                          n_frames, generator=gen)
 
     def generate_planes(self) -> torch.Tensor:
         """The N-independent plane CNNs only (VarTriPlane)."""
         return self.encoder.planes()
 
-    def extract_features(self, x: torch.Tensor, planes=None):
-        if self.encoder is None:
-            return None
-        # only the VarTriPlane encoder takes planes
-        feat = self.encoder(x) if planes is None else self.encoder(
-            x, planes=planes)
-        return self.refine1(F.relu(self.refine0(feat)))
+    def extract_features(self, x: torch.Tensor, t=None, planes=None):
+        """Refined encoder features, then (4-D) the time embedding."""
+        feat = None
+        if self.encoder is not None:
+            # only the VarTriPlane encoder takes planes
+            feat = self.encoder(x) if planes is None else self.encoder(
+                x, planes=planes)
+            feat = self.refine1(F.relu(self.refine0(feat)))
+        if self.n_frames <= 0:
+            return feat
+        t_feat = positional_embed(t, self.time_multires)
+        return t_feat if feat is None else torch.cat([feat, t_feat], -1)
 
-    def forward(self, xyz_in: torch.Tensor,
-                planes: torch.Tensor | None = None) -> Dict[str, Any]:
-        pts_feat = self.extract_features(xyz_in, planes)
+    def forward(self, xyz_in: torch.Tensor, t: torch.Tensor | None = None,
+                planes: torch.Tensor | None = None,
+                frame_id: int | None = None) -> Dict[str, Any]:
+        """xyz_in [N, 3]; for a 4-D field t [N, 1] (one value) and its
+        ``frame_id`` (``frame_id_of``)."""
+        if self.n_frames > 0 and (t is None or frame_id is None):
+            raise ValueError("a 4-D field needs t and frame_id")
+        pts_feat = self.extract_features(xyz_in, t, planes)
         if self._fused_pallas_active():
             return self._call_fused(xyz_in, pts_feat)
-        return self._call_unfused(xyz_in, pts_feat)
+        return self._call_unfused(xyz_in, pts_feat, t, frame_id)
 
     def _call_unfused(self, xyz_in: torch.Tensor,
-                      pts_feat: torch.Tensor | None) -> Dict[str, Any]:
+                      pts_feat: torch.Tensor | None, t=None,
+                      frame_id: int | None = None) -> Dict[str, Any]:
         """The heads one GeneralMLP at a time."""
         xyz_can = xyz_in
         if self.mlp_deform is not None:
-            xyz_can = xyz_in + self.deform_weight * self.mlp_deform(xyz_in,
-                                                                    pts_feat)
+            xyz_can = xyz_in + self.deform_weight * self.mlp_deform(
+                xyz_in, pts_feat, frame_id=frame_id)
         # one shared sin/cos sweep; each head slices its prefix
         can_emb = positional_embed(xyz_can, self.max_multires)
-        return {
-            "scales": self.mlp_scale(xyz_can, pts_feat, can_emb),
-            "opacity": self.mlp_opacity(xyz_can, pts_feat, can_emb),
-            "rotations": self.mlp_rotation(xyz_can, pts_feat, can_emb),
-            "rgb": self.mlp_rgb(xyz_can, pts_feat, can_emb),
-            "flow": None,
-            "means3D": xyz_can,
-        }
+        out = {name: getattr(self, f"mlp_{head}")(
+                   xyz_can, pts_feat, can_emb, frame_id=frame_id)
+               for name, head in (("scales", "scale"), ("opacity", "opacity"),
+                                  ("rotations", "rotation"), ("rgb", "rgb"))}
+        out["flow"], out["means3D"] = None, xyz_can
+        if self.mlp_flow is not None:
+            hidden = self.mlp_flow(xyz_can, pts_feat, can_emb,
+                                   frame_id=frame_id)
+            out["flow"], out["means3D"] = self.mlp_flow_head(
+                hidden, xyz_can, time_step=t[:1], frame_id=frame_id)
+        return out
 
     def _fused_pallas_active(self) -> bool:
         """The fused path covers the static rank-0 point-conditioned

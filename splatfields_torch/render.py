@@ -3,7 +3,7 @@ render`` (counterpart of ``splatfields_tpu/render.py``).
 
 Reloads a run directory (``cfg_args``, the iteration's PLY and, in field
 mode, ``deform.msgpack``; written by either package), renders the train,
-test and (optionally) pred cameras to PNGs through ``data/png.py``, with
+test and (``--render_pred``) pred cameras, each at its own fid, to PNGs through ``data/png.py``, with
 depth maps coloured by cv2's ``COLORMAP_JET`` on request, and writes
 PSNR, SSIM and (given VGG weights, ``--lpips_weights``) LPIPS into
 ``results.yaml`` (``metrics.eval_all``). The JAX CLI also writes
@@ -130,12 +130,10 @@ def render_sets(model_cfg, hidden_cfg, pipe_cfg, iteration, skip_train=False,
     means the GPU."""
     dev = resolve_device(device)
     # the frame count only reaches a field: a static run (run_dtu.sh's
-    # 3DGS lines keep the default --load_time_step 100) ignores it
+    # 3DGS lines keep the default --load_time_step 100) ignores it; a
+    # field run renders each camera at its own fid
     n_frames = (model_cfg.load_time_step if model_cfg.load_time_step > 1
                 and not model_cfg.is_static else 0)
-    if n_frames:
-        raise NotImplementedError(
-            "4-D rendering (--load_time_step > 1): ROADMAP Queue 1 item 6")
     hidden_cfg.n_frames = n_frames
     scene = Scene(model_cfg, load_iteration=iteration, shuffle=False,
                   device=dev)

@@ -50,6 +50,14 @@ class Scene:
                 pts_samples=cfg.pts_samples, pc_path=cfg.pc_path)
         elif scene_type == "DTU":
             scene_info = loader(cfg.source_path, num_pts=cfg.num_pts)
+        elif scene_type == "ResFields":
+            scene_info = loader(
+                cfg.source_path, cfg.white_background,
+                train_cam_names=cfg.train_cam_names,
+                test_cam_names=cfg.test_cam_names,
+                pred_cam_names=cfg.pred_cam_names,
+                load_time_step=cfg.load_time_step, num_pts=cfg.num_pts,
+                pts_samples=cfg.pts_samples)
         else:  # the other loaders raise, naming their ROADMAP item
             scene_info = loader(cfg.source_path)
         self.scene_info = scene_info

@@ -4,7 +4,9 @@ of ``splatfields_tpu/train.py``).
 The reference's ``training()`` loop around the port's step
 (``train_lib.make_train_step``): a random view a step (``random.Random``
 passed in, drawing what the JAX loop's global ``random`` draws after the
-same seed), the all_training same-fid view batches, the xyz and field
+same seed), the all_training same-fid view batches (a 4-D run,
+``--load_time_step > 1``, trains ``n_frames = load_time_step`` frames and
+evaluates each test camera at its own fid), the xyz and field
 learning-rate schedules, the warm-up field mode, SH-degree bumps every
 1,000 iterations, ``overwrite_loc`` after 1,500, ``densify_and_prune``
 on the reference's cadence (growing the capacity when splats drop),
@@ -152,12 +154,10 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
     dev = resolve_device(device)
     rng = rng if rng is not None else random.Random(0)
     # the frame count only reaches a field: a static run (run_dtu.sh's
-    # 3DGS lines keep the default --load_time_step 100) ignores it
+    # 3DGS lines keep the default --load_time_step 100) ignores it; a
+    # field run with --load_time_step > 1 is 4-D (run_owlii.sh)
     n_frames = (model_cfg.load_time_step if model_cfg.load_time_step > 1
                 and not model_cfg.is_static else 0)
-    if n_frames:
-        raise NotImplementedError(
-            "4-D training (--load_time_step > 1): ROADMAP Queue 1 item 6")
     hidden_cfg.n_frames = n_frames
     is_static = model_cfg.is_static
     enable_g_opt = not opt_cfg.disable_gaussian_opt

@@ -13,9 +13,14 @@ zero screen-space offset that requires grad -> losses -> backward -> two
 Adam updates (splats, field). The densification statistics use the LAST
 view's offset gradient and radii, the reference's loop-variable reuse.
 
+4-D fields (``n_frames > 0``): the net reads the batch's time step
+``fid`` (a host number) broadcast to [N, 1] and its frame, computed on
+the host (``models.splatfields.time_inputs``); the V views of an
+``--all_training`` batch share that fid.
+
 PyTorch runs eagerly, so there is no jit and no scanned twin; the
-``n_splats`` subsample needs the JAX step's rng and is not ported yet, nor
-are 4-D fields: each raises NotImplementedError with its ROADMAP item.
+``n_splats`` subsample needs the JAX step's rng and is not ported yet: it
+raises NotImplementedError with its ROADMAP item.
 The depth-SSIM regularizer runs over the [1, H, W] depth map, the JAX
 package's documented deviation. The Moran terms (``corr_term``) run once
 a step, after the view average; with ``--corr_interval k`` the loop marks
@@ -30,6 +35,7 @@ import torch
 from torch.func import functional_call
 
 from splatfields_torch.models import splats as splats_lib
+from splatfields_torch.models.splatfields import time_inputs
 from splatfields_torch.ops import knn as knn_ops
 from splatfields_torch.ops.raster.api import rasterize
 from splatfields_torch.ops.ssim import ssim as ssim_fn
@@ -50,15 +56,15 @@ def field_attributes(net, xyz: torch.Tensor, scaling: torch.Tensor,
     """Field forward -> renderable attributes (reference ``train.py:51-85``):
     the net predicts attributes at the detached splat xyz; its scale is
     added to the splats' activated scale. ``params`` (``{state_dict name:
-    tensor}``) replaces the net's own parameters for this call."""
-    if n_frames > 0:
-        raise NotImplementedError(
-            "4-D field attributes: ROADMAP Queue 1 item 6")
-    del fid
-    args, kwargs = (xyz.detach(),), {"planes": planes}
+    tensor}``) replaces the net's own parameters for this call. A 4-D
+    field (``n_frames > 0``) reads the time step ``fid`` (a host number)
+    as t [N, 1] and its frame; the flow passes through."""
+    args = (xyz.detach(),)
+    kwargs = {"planes": planes,
+              **time_inputs(xyz.shape[0], fid, n_frames, xyz.device)}
     ret = (net(*args, **kwargs) if params is None
            else functional_call(net, params, args, kwargs))
-    return {
+    out = {
         "means3d": ret["means3D"],
         "opacity": ret["opacity"][:, 0],
         "scales": ret["scales"] + scaling.detach(),
@@ -66,6 +72,9 @@ def field_attributes(net, xyz: torch.Tensor, scaling: torch.Tensor,
         "rgb": ret["rgb"],
         "valid": valid,
     }
+    if ret["flow"] is not None:
+        out["flow"] = ret["flow"]
+    return out
 
 
 def static_attributes(params: splats_lib.SplatParams, valid: torch.Tensor):
@@ -229,10 +238,11 @@ def make_train_step(net, opt_cfg, pipe_cfg, width, height, num_views,
     ``AdamState``; the net's own parameters are not read. ``batch`` holds
     per-view ``viewmatrix`` [V,4,4], ``projmatrix``, ``campos`` [V,3],
     ``image`` [V,3,H,W] (and ``mask``, ``depth`` for their losses) on the
-    splats' device, ``tanfovx``/``tanfovy`` [V] numbers, ``fid`` and
-    ``bg`` [3]. Inputs are not modified; every output is new."""
-    if n_frames > 0:
-        raise NotImplementedError("4-D training: ROADMAP Queue 1 item 6")
+    splats' device, ``tanfovx``/``tanfovy`` [V] numbers, ``fid`` (a host
+    number, the views' common time step) and ``bg`` [3]. The field runs
+    once a step (its planes generated once) and its attributes render all
+    V views. Inputs are not modified; every
+    output is new."""
     if field_mode and n_splats > 0:
         raise NotImplementedError(
             "n_splats subsampling: ROADMAP Queue 1 item 4")

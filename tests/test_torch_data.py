@@ -350,6 +350,15 @@ def test_unported_flags_raise(flags, item):
 @pytest.mark.parametrize("kind,item", [
     ("Colmap", 5), ("ColmapHold", 5), ("nerfies", 5), ("ResFields", 6)])
 def test_unported_readers_raise(kind, item):
+    if kind == "ResFields":
+        # ported with item 6's Owlii part: the reader itself, which finds
+        # no camera directory (tests/test_torch_owlii.py reads scenes)
+        from splatfields_torch.data.readers.neus import read_resfield_scene
+        assert treg.SCENE_LOADERS[kind] is read_resfield_scene
+        with pytest.raises(FileNotFoundError):
+            treg.SCENE_LOADERS[kind]("somewhere", True, ["cam_train_0"],
+                                     [], [])
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         treg.SCENE_LOADERS[kind]("somewhere")
 

@@ -39,7 +39,10 @@ MODULES = ("splatfields_torch", "splatfields_torch.render_lib",
            "splatfields_torch.train", "splatfields_torch.render",
            "splatfields_torch.ops.knn", "splatfields_torch.ops.marching",
            "splatfields_torch.ops.lpips", "splatfields_torch.extract_geo",
-           "splatfields_torch.data.readers.neus", "chip_smoke")
+           "splatfields_torch.data.readers.neus",
+           "splatfields_torch.models.flow",
+           "splatfields_torch.models.resfields",
+           "splatfields_torch.utils.transforms", "chip_smoke")
 
 
 def test_import_pulls_in_no_jax():
@@ -120,3 +123,51 @@ def test_entry_points_need_a_gpu_unless_told():
     pts = torch.zeros(8, 3).numpy()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         splats.create_from_pcd(pts, pts, 0)
+
+
+def test_4d_path_without_the_host_libraries():
+    """The 4-D path (the flow head, the ResFields reader, the 4-D CLIs'
+    parsers and a 4-D field's forward) with FORBIDDEN and HOST_LIBS
+    blocked, as on the GPU machine."""
+    blocked = FORBIDDEN + HOST_LIBS
+    code = f"""import sys
+for m in {blocked!r}: sys.modules[m] = None
+import torch
+from splatfields_torch import extract_geo, render, train
+from splatfields_torch.data.readers.neus import read_resfield_scene
+from splatfields_torch.data.registry import SCENE_LOADERS
+from splatfields_torch.models.flow import FLOW_MODELS, FlowHead
+from splatfields_torch.models.splatfields import SplatFields, frame_id_of
+import chip_smoke
+assert SCENE_LOADERS["ResFields"] is read_resfield_scene
+train_argv, render_argv = chip_smoke.owlii_command_lines()
+train.build_train_parser().parse_args(train_argv)
+render.build_render_parser().parse_args(render_argv)
+extract_geo.build_parser().parse_args(render_argv)
+for fm in FLOW_MODELS:
+    FlowHead(8, fm, 3, 5, generator=torch.Generator())
+net = chip_smoke.small_4d_net("cpu")
+out = net(torch.zeros(5, 3), torch.full((5, 1), 0.5),
+          frame_id=frame_id_of(0.5, 4))
+assert out["flow"].shape == (5, 3)
+bad = [m for m in sys.modules if m.split(".")[0] in {blocked!r}
+       and sys.modules[m] is not None]
+assert not bad, bad
+"""
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_not_implemented_items_are_in_the_roadmap():
+    """Every "ROADMAP Queue 1 item N (name)" a NotImplementedError of the
+    port cites names a line of ROADMAP.md."""
+    import re
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    cited = set()
+    for f in sorted((ROOT / "splatfields_torch").rglob("*.py")):
+        text = re.sub(r'"\s*\n\s*f?"', "", f.read_text())
+        cited.update(re.findall(r"ROADMAP Queue 1 item \d+ \(([^)]+)\)",
+                                text))
+    assert cited
+    missing = [c for c in sorted(cited) if c not in roadmap]
+    assert not missing, missing

@@ -89,8 +89,13 @@ def test_mixed_row_filters_match_a_row_loop():
 
 
 def test_rejects_what_it_does_not_read():
+    # 16-bit grey is read now (the ResFields depth maps); 1-bit is not
     buf = io.BytesIO()
-    PIL.Image.fromarray(np.zeros((4, 4), np.uint16)).save(buf, "PNG")
+    gray16 = np.arange(16, dtype=np.uint16).reshape(4, 4) * 4099
+    PIL.Image.fromarray(gray16).save(buf, "PNG")
+    np.testing.assert_array_equal(png.decode(buf.getvalue())[..., 0], gray16)
+    buf = io.BytesIO()
+    PIL.Image.fromarray(np.zeros((4, 4), bool)).save(buf, "PNG")
     with pytest.raises(ValueError, match="bit depth"):
         png.decode(buf.getvalue())
     with pytest.raises(ValueError, match="not a PNG"):
