@@ -99,9 +99,9 @@ Phases, each raising on failure:
     step's forward and backward, its last evaluation frame's forward),
     the backward twice bitwise equal.
 16. SplatFields3D with the script's second command line (VarTriPlane,
-    ``lambda_norm`` 0.01, init from phase 15's PLY), 200 iterations, then
-    ``--resume`` to 220; the kernels on the loop's inputs as in phase 15;
-    ``splatfields_torch.render.main`` on the run at 200: results.yaml's
+    ``lambda_norm`` 0.01, init from phase 15's PLY), 100 iterations, then
+    ``--resume`` to 120; the kernels on the loop's inputs as in phase 15;
+    ``splatfields_torch.render.main`` on the run at 100: results.yaml's
     PSNR within the uint8 PNG round trip's bound of the loop's
     evaluation, its frames within one level of the loop's own state
     rendered here (and their PSNR within 1e-3 dB), ``deform.msgpack``
@@ -110,7 +110,7 @@ Phases, each raising on failure:
     SplatFields3D, on the card and on the CPU with the same seeds:
     per-iteration losses within phase 7's 1e-5 relative (``card_vs_cpu``).
 18. ``scripts/run_blender.sh``'s third command line (3DGS + Moran,
-    ``--lambda_corr 0.01``) on phase 14's scene, 100 iterations: the
+    ``--lambda_corr 0.01``) on phase 14's scene, 50 iterations: the
     Moran term once a step, timed by CUDA events (``CorrTimer``), its
     share of the step, the splats its KNN saw; the kernels on the loop's
     own inputs as in phase 15. Then 8 steps with ``--corr_interval 4``:
@@ -151,29 +151,65 @@ Phases, each raising on failure:
 25. ``scripts/run_owlii.sh``'s two command lines, read from the script,
     through ``splatfields_torch.train.main`` and ``render.main`` on a
     synthetic ResFields scene under ``build/owlii_protocol``
-    (``write_owlii_scene``: 100 frames of 10 ``cam_train_*`` and
-    ``cam_test`` at ``OWLII_RES``, ground truth rendered on the card from
-    30,000 seeded splats that move with the frame, masks from alpha):
-    hull init of 100,000 points, 5 views, rank 40, ``ITERS`` cut to
+    (``write_owlii_scene``: ``OWLII_PROTOCOL_FRAMES`` frames, the
+    script's ``TIME_STEP``, of 10 ``cam_train_*`` and ``cam_test`` at
+    ``OWLII_RES``, ground truth rendered on the card from 30,000 seeded
+    splats that move with the frame, masks from alpha): hull init of
+    100,000 points, 5 views, rank 40, ``ITERS`` cut to
     ``OWLII_ITERS`` with densification at its last iteration and
     evaluation at 1 and at the end: ms/it, dup_factor growth, instances
     dropped, test PSNR rose, the reader's and the 256^3 carve's seconds,
     the loop's own iterations timed and profiled (``LoopProfile``: ms/it,
     GPU busy ms and idle share, top device events), the kernels on the
     loop's own inputs as in phase 15; the render CLI's results.yaml over
-    1,100 frames, its ms/frame and its split (scene load, metrics, the
-    rest); then ``extract_geo.main`` on the run (fid 0, a 64^3 mesh).
+    11 x ``OWLII_PROTOCOL_FRAMES`` frames, its ms/frame and its split
+    (scene load, metrics, the rest); then ``extract_geo.main`` on the run
+    (fid 0, a 64^3 mesh).
 26. A 5-iteration 4-D loop (``OWLII_SMALL_ARGV``: ``run_owlii.sh``'s
     flags on a 64x64, 2-frame ResFields scene, 2 views, 2,000 hull
     points) on the CPU, and on the card each iteration from the CPU's
     train state before it (``--resume``): losses within phase 7's 1e-5
     relative (``owlii_card_vs_cpu``; why not free-running there).
 
+27. The field options one at a time on phase 6's step (its splats,
+    batches, loss and learning rates, 800x800, 1 view): TriPlane (3 x 16 x
+    200^2 learned planes), Grid (24 x 128^3, 50.3M entries under Adam),
+    VarTriPlane with the view-dependent colour head, with
+    ``geo_model_disable_pts`` and with ``n_splats`` 50,000: ms/step, the
+    GPU idle share over 3 profiled steps, both blend kernels against their
+    plain versions on a step's own inputs and an evaluation frame's;
+    VarGridEncoder alone (no encoder key builds it into a field): forward
+    and backward at the step's 100,000 points, and against the CPU.
+28. The fused heads (bf16) on the plans of TriPlane (F = 48), Grid (F =
+    24) and the view-dependent head (an ``mlp_rgb`` of 128 outputs, whose
+    backward takes 32 points a chunk): both kernels layer by layer on a
+    step's own inputs (``check_layers``, TOL_LAYER), then 2 launches of
+    each fused kernel a step.
+29. Phase 23's 4-D step at 1 view with VarHexPlane and per-frame conv
+    deltas (after the first step, Adam from zero moments, no delta row
+    moved outside the step's frame) and with HexPlane: ms/step, idle
+    share, the blend kernels on a step's inputs.
+30. ``run_owlii.sh``'s train line with ``--encoder_type
+    VarHexPlaneEncoder --layer_strategy per_frame`` on phase 25's scene
+    (cut to ``OPTION_OWLII_ITERS`` iterations and ``OPTION_OWLII_FRAMES``
+    frames), then its render line with the same flags; ``run_blender.sh``'s
+    SplatFields line with ``--encoder_type TriPlaneEncoder
+    --use_view_dep_rgb --n_splats 50000`` on phase 14's scene (init from
+    phase 15's PLY), a ``--resume`` run and the render CLI (PSNR within
+    the PNG bound of the loop's): ms/it, PSNR, the kernels on each loop's
+    inputs.
+31. Card against CPU: ``card_vs_cpu`` for a small CLI run with TriPlane,
+    the view-dependent head and ``geo_model_disable_pts``; a small static
+    step with ``n_splats`` (the same subset on both) and a small 4-D
+    VarHexPlane step with per-frame deltas (``SMALL_HEX``), as phase 7.
+
 The line before the last is a JSON object of the kernels (the blend
-kernels' ``loop_launches``: their counts in phases 15, 16, 18, 20, 23
-and 25, ``loop_max_abs_err``: their errors on those phases' inputs, and
-``partial_tile_max_abs_err`` / ``partial_tile_max_err``: their errors on
-phase 20's partial tiles); the last line is
+kernels' ``loop_launches``: their counts in phases 15, 16, 18, 20, 23,
+25, 27, 29 and 30, ``loop_max_abs_err``: their errors on those phases'
+inputs, and ``partial_tile_max_abs_err`` / ``partial_tile_max_err``:
+their errors on phase 20's partial tiles; the fused kernels'
+``option_launches`` and ``option_max_layer_gap``: phase 28's); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, or with ``SPLATFIELDS_FUSED_MLP`` set
 (it would override each phase's choice of head path), the script exits
@@ -492,6 +528,7 @@ def write_dtu_scene(root, width, height, n_views, device, n_splats=30_000,
 
 
 OWLII_TRAIN_CAMS = 10
+OWLII_SCENE = "dancer_t"   # the scene directory write_owlii_scene makes
 
 
 def write_owlii_scene(root, res, n_frames, device, n_splats=300, seed=0,
@@ -516,7 +553,7 @@ def write_owlii_scene(root, res, n_frames, device, n_splats=300, seed=0,
     from splatfields_torch.data.readers.neus import read_cameras_from_neus
     from splatfields_torch.ops.raster.api import rasterize
 
-    root = os.path.join(str(root), "dancer_t")
+    root = os.path.join(str(root), OWLII_SCENE)
     names = [f"cam_train_{c}" for c in range(OWLII_TRAIN_CAMS)] + [
         "cam_test"]
     thetas = [2 * np.pi * c / OWLII_TRAIN_CAMS
@@ -1309,13 +1346,15 @@ SMALL_4D = dict(
     flow_d=3, flow_skips=(1,))
 
 
-def small_4d_net(device, seed=0):
-    """``SMALL_4D``'s port net, weights from ``seed``, on ``device``."""
+def small_4d_net(device, seed=0, **kw):
+    """``SMALL_4D``'s port net (or ``kw``'s), weights from ``seed``, on
+    ``device``."""
     import torch
 
     from splatfields_torch.models.splatfields import SplatFields
-    return SplatFields(**SMALL_4D, generator=torch.Generator().manual_seed(
-        seed)).to(device)
+    return SplatFields(**(kw or SMALL_4D),
+                       generator=torch.Generator().manual_seed(seed)).to(
+                           device)
 
 
 def ngp_model(device=None, **small):
@@ -2263,6 +2302,8 @@ PROTOCOL_GT_SPLATS = 30_000
 PROTOCOL_3DGS = ("--white_background --eval --is_static --n_views 10 "
                  "--pts_samples hull --max_num_pts 300000 --load_time_step 0 "
                  "--composition_rank 0").split()
+# phase 16's iterations, and 20 more resumed
+PROTOCOL_FIELD_ITERS = 100
 PROTOCOL_FIELD = ("--white_background --eval --encoder_type "
                   "VarTriPlaneEncoder --lambda_norm 0.01 --n_views 10 "
                   "--pts_samples load --max_num_pts 100000 --load_time_step 0 "
@@ -2381,29 +2422,30 @@ def protocol_phases(dev, smi):
 
     # --- 16. SplatFields3D --------------------------------------------------
     out_field = os.path.join(base, "out", "SplatFields")
+    it = PROTOCOL_FIELD_ITERS
     pc = os.path.join(out_3dgs, "point_cloud", "iteration_300",
                       "point_cloud.ply")
     argv = (["-s", root, "-m", out_field] + PROTOCOL_FIELD
-            + ["--pc_path", pc, "--test_iterations", "1", "200"])
+            + ["--pc_path", pc, "--test_iterations", "1", str(it)])
     torch.cuda.synchronize()
     blend_fwd.launches = blend_bwd.launches = 0
     with LoopBlends() as cap:
-        res = train.main(argv + ["--iterations", "200"])
+        res = train.main(argv + ["--iterations", str(it)])
     torch.cuda.synchronize()
     params, stats, deform = res.params, res.stats, res.deform
     launches["blend_fwd"]["16"] = blend_fwd.launches
     launches["blend_bwd"]["16"] = blend_bwd.launches
-    if (blend_fwd.launches, blend_bwd.launches) != (200 + evals, 200):
+    if (blend_fwd.launches, blend_bwd.launches) != (it + evals, it):
         raise AssertionError(
             f"phase 16: blend launches {blend_fwd.launches}, "
-            f"{blend_bwd.launches}; want {200 + evals}, 200")
+            f"{blend_bwd.launches}; want {it + evals}, {it}")
     on_card("phase 16", {**dict(vars(params)), **dict(vars(stats)),
                          **deform.params})
     ms_it, growth_16 = res.ms_per_it, res.dup_growth
     loop_errs["16"] = check_loop_blends("phase 16", cap)
     del cap
     m = read_metrics(out_field)
-    eval_psnr = dict(m["test/loss_viewpoint - psnr"])[200]
+    eval_psnr = dict(m["test/loss_viewpoint - psnr"])[it]
     # the trained scenes at the default budget (dup_factor 5): instances
     # dropped past dup_cap on each test view
     test_cams = [load_cam(info, -1, i, device=dev) for i, info in enumerate(
@@ -2414,29 +2456,29 @@ def protocol_phases(dev, smi):
         c, *state, PipelineConfig(), white, field_mode=fm)
         for c in test_cams] for name, state, fm in (
             ("3DGS at 300", (*trained_3dgs, None), False),
-            ("SplatFields3D at 200", (params, stats, deform), True))}
+            ("SplatFields3D at the end", (params, stats, deform), True))}
     # the loop's own frames of the run at 200 as render.py quantizes them
     own_pngs = [render._to_png(out["render"])
-                for out in at_default["SplatFields3D at 200"]]
+                for out in at_default["SplatFields3D at the end"]]
     at_default = {k: [int(out["n_dropped"]) for out in v]
                   for k, v in at_default.items()}
     trained = {k: v.detach().cpu().clone()
                for k, v in deform.net.state_dict().items()}
-    resumed = train.main(argv + ["--iterations", "220", "--resume"])
-    if resumed.start_iteration != 201:
+    resumed = train.main(argv + ["--iterations", str(it + 20), "--resume"])
+    if resumed.start_iteration != it + 1:
         raise AssertionError(f"phase 16: --resume started at "
-                             f"{resumed.start_iteration}, not 201")
+                             f"{resumed.start_iteration}, not {it + 1}")
     steps = [s for s, _ in read_metrics(out_field)[
         "train_loss_patches/total_loss"]]
-    if steps[-2:] != [210, 220] or steps.count(200) != 1:
+    if steps[-2:] != [it + 10, it + 20] or steps.count(it) != 1:
         raise AssertionError(f"phase 16: resumed steps {steps[-4:]}")
     t0 = time.time()
     render.main(["-s", root, "-m", out_field, "--skip_train",
-                 "--iteration", "200"])
+                 "--iteration", str(it)])
     torch.cuda.synchronize()
     render_s = time.time() - t0
     n_frames = len(PROTOCOL_TEST_THETAS)
-    ours = os.path.join(out_field, "test", "ours_200")
+    ours = os.path.join(out_field, "test", f"ours_{it}")
     yaml = read_results(os.path.join(ours, "results.yaml"))
     bound = png_round_trip_bound(ours)
     if not abs(yaml["psnr"] - eval_psnr) <= bound:
@@ -2462,12 +2504,12 @@ def protocol_phases(dev, smi):
     hidden = train.cfg_lib.extract_configs(argparse.Namespace(
         **train.cfg_lib.load_cfg_args(out_field)))[2]
     check = DeformModel(hidden, radius=1.0, seed=7, device=dev)
-    check.load_weights(out_field, 200)
+    check.load_weights(out_field, it)
     for k, v in check.net.state_dict().items():
         if not torch.equal(v.cpu(), trained[k]):
             raise AssertionError(f"phase 16: deform.msgpack {k} differs")
-    print(f"phase 16: SplatFields3D 200 iterations, {ms_it:.3f} ms/it; "
-          f"resumed to 220; render CLI {n_frames} test frames in "
+    print(f"phase 16: SplatFields3D {it} iterations, {ms_it:.3f} ms/it; "
+          f"resumed to {it + 20}; render CLI {n_frames} test frames in "
           f"{render_s:.3f} s ({render_s * 1000 / n_frames:.1f} ms/frame, "
           f"scene load, PNG writes and metrics included); results.yaml PSNR "
           f"{yaml['psnr']:.4f}, SSIM {yaml['ssim']:.4f}, evaluate PSNR "
@@ -2501,7 +2543,7 @@ def protocol_phases(dev, smi):
 PROTOCOL_MORAN = ("--white_background --eval --is_static --n_views 10 "
                   "--pts_samples hull --max_num_pts 300000 --lambda_corr 0.01 "
                   "--load_time_step 0 --composition_rank 0").split()
-MORAN_ITERS = 100
+MORAN_ITERS = 50
 # run_dtu.sh's flags (its 3DGS lines keep --load_time_step at its default)
 DTU_3DGS = ("--white_background --lambda_mask 0.1 -r 2 --is_static "
             "--n_views 3").split()
@@ -2792,12 +2834,15 @@ def static_phases(dev, smi):
 OWLII_HIDDEN = dict(encoder_type="VarTriPlaneEncoder", composition_rank=40,
                    n_frames=100, flow_model="offset")
 OWLII_FRAMES = 100
-# phase 25's scene: its 1,100 frames go through the render CLI's host
-# metrics (scipy SSIM) in the time limit at this resolution
+# phase 25's scene: its frames go through the render CLI's host metrics
+# (scipy SSIM) in the time limit at this resolution and this many frames
+# (run_owlii.sh's TIME_STEP, 100 by default: 550 frames rendered, not
+# 1,100)
 OWLII_RES = 160
-OWLII_ITERS = 60
-OWLII_DENSIFY = 30       # densify_from_iter and densification_interval
-OWLII_PROFILE = (35, 10)  # iterations 36-45 timed, 46-55 profiled
+OWLII_PROTOCOL_FRAMES = 50
+OWLII_ITERS = 30
+OWLII_DENSIFY = 15       # densify_from_iter and densification_interval
+OWLII_PROFILE = (15, 5)  # iterations 16-20 timed, 21-25 profiled
 OWLII_MESH_RES = 64
 OWLII_ENV = {}           # further run_owlii.sh variables (the defaults)
 OWLII_GT_SPLATS = 30_000
@@ -2954,9 +2999,10 @@ class LoopProfile:
         train_lib.make_train_step = self.make
 
 
-def owlii_step(dev, smi, views, sc_pts, sc_cols):
-    """Phase 23 at ``views`` views a step: bench.py --variant owlii4d.
-    Returns (launches, check_loop_blends' errors, ms/step)."""
+def owlii_step(dev, smi, views, sc_pts, sc_cols, hidden=None, label=None):
+    """Phase 23 at ``views`` views a step: bench.py --variant owlii4d
+    (phase 29: with ``hidden``'s encoder). Returns (launches,
+    check_loop_blends' errors, ms/step)."""
     import torch
 
     from splatfields_torch import config, train_lib
@@ -2965,8 +3011,9 @@ def owlii_step(dev, smi, views, sc_pts, sc_cols):
     from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
     from splatfields_torch.render_lib import render_camera
 
-    label = f"phase 23, {views} view{'s' if views > 1 else ''}"
-    deform = DeformModel(config.HiddenConfig(**OWLII_HIDDEN), radius=1.0,
+    label = label or f"phase 23, {views} view{'s' if views > 1 else ''}"
+    hidden = hidden or OWLII_HIDDEN
+    deform = DeformModel(config.HiddenConfig(**hidden), radius=1.0,
                          seed=0, device=dev)
     pipe = config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128)
     step = train_lib.make_train_step(
@@ -2985,6 +3032,8 @@ def owlii_step(dev, smi, views, sc_pts, sc_cols):
                            float(f) / (OWLII_FRAMES - 1), rng, dev)
                for i, f in enumerate(frames)]
     rank_keys = [k for k in fp if k.endswith(".weights_t")]
+    # per-frame conv deltas (layer_strategy per_frame): [frames, ...]
+    delta_keys = [k for k in fp if k.endswith(".frame_weights")]
     if not (len(rank_keys) > 0 and all(
             fp[k].shape == (OWLII_FRAMES, 40) for k in rank_keys)):
         raise AssertionError(f"{label}: ResField ranks {rank_keys}")
@@ -3011,6 +3060,22 @@ def owlii_step(dev, smi, views, sc_pts, sc_cols):
             if not all(bool((fp[k] != fp0[k]).any()) for k in fp
                        if k.endswith(".matrix_t")):
                 raise AssertionError(f"{label}: a matrix_t did not move")
+            # the per-frame deltas: none moves outside the frame, and the
+            # frame's moves wherever the gradient reaches
+            outside = reached = 0
+            for k in delta_keys:
+                moved = (fp[k] != fp0[k]).flatten(1).any(dim=1)
+                outside += int(moved.sum()) - int(moved[frame])
+                reached += int(moved[frame])
+            if outside or (delta_keys and not reached):
+                raise AssertionError(
+                    f"{label}: per-frame deltas moved in {outside} rows "
+                    f"outside frame {frame}, in {reached} of "
+                    f"{len(delta_keys)} convs at it")
+            delta_note = (f"; per-frame conv deltas: {len(delta_keys)} "
+                          f"convs x {OWLII_FRAMES} frames, {outside} rows "
+                          f"moved outside frame {frame}, {reached} convs' "
+                          f"row {frame} moved" if delta_keys else "")
     end.record()
     torch.cuda.synchronize()
     launches = (blend_fwd.launches, blend_bwd.launches)
@@ -3030,16 +3095,18 @@ def owlii_step(dev, smi, views, sc_pts, sc_cols):
         torch.cuda.synchronize()
 
     wall_ms, busy_ms, idle, top = device_idle(run3)
+    encoder = hidden["encoder_type"] + (
+        f" {hidden['layer_strategy']}" if "layer_strategy" in hidden else "")
     print(f"{label}: bench.py --variant owlii4d ({N_SPLATS} splats, "
-          f"VarTriPlane, rank-40 ResField heads, {OWLII_FRAMES} frames, "
+          f"{encoder}, rank-40 ResField heads, {OWLII_FRAMES} frames, "
           f"offset flow, {RES}x{RES}, lambda_norm 0.01), a different fid "
           f"each step; {step_ms:.4f} ms/step, rays/s "
           f"{views * RES * RES / step_ms * 1e3:.1f} ({OWLII_STEPS[views]} "
           f"steps after {TRAIN_WARMUP} warm-up); losses "
           f"{[round(x, 6) for x in losses.tolist()]}; blend launches "
           f"{launches} for {n_steps} steps; after the first step only "
-          f"weights_t[frame] moved in {len(rank_keys)} ResField layers; "
-          f"3 profiled steps: wall {wall_ms:.3f} ms, GPU busy "
+          f"weights_t[frame] moved in {len(rank_keys)} ResField layers"
+          f"{delta_note}; 3 profiled steps: wall {wall_ms:.3f} ms, GPU busy "
           f"{busy_ms:.3f} ms, GPU idle share {idle:.4f}; {smi}")
     print(f"{label}: top device events (ms over 3 steps, calls): "
           + "; ".join(f"{k} {ms:.3f} ({c})" for ms, c, k in top))
@@ -3124,17 +3191,18 @@ def owlii_protocol(dev, smi):
                         "owlii_protocol")
     shutil.rmtree(base, ignore_errors=True)
     t0 = time.time()
-    scene = write_owlii_scene(base, OWLII_RES, OWLII_FRAMES, dev,
+    scene = write_owlii_scene(base, OWLII_RES, OWLII_PROTOCOL_FRAMES, dev,
                               n_splats=OWLII_GT_SPLATS)
     torch.cuda.synchronize()
     print(f"phase 25: ResFields scene at {OWLII_RES}x{OWLII_RES} (the "
-          f"resolution that keeps the phase in time), {OWLII_FRAMES} frames "
+          f"resolution that keeps the phase in time), "
+          f"{OWLII_PROTOCOL_FRAMES} frames "
           f"of {OWLII_TRAIN_CAMS} cam_train_* and cam_test, "
           f"{OWLII_GT_SPLATS} moving ground-truth splats, written in "
           f"{time.time() - t0:.2f} s")
     out = os.path.join(base, "out")
     env = dict(OWLII_ENV, DATASET_ROOT=base, SCENE=os.path.basename(scene),
-               OUT=out, ITERS=OWLII_ITERS)
+               OUT=out, ITERS=OWLII_ITERS, TIME_STEP=OWLII_PROTOCOL_FRAMES)
     train_argv, render_argv = owlii_command_lines(env)
     run = os.path.join(out, "8views", os.path.basename(scene),
                        "SplatFields4D")
@@ -3147,9 +3215,10 @@ def owlii_protocol(dev, smi):
             *OWLII_PROFILE) as prof:
         res = train.main(train_argv + extra)
     torch.cuda.synchronize()
-    # two evaluations: 25 test frames (of the test camera's OWLII_FRAMES)
+    # two evaluations: 25 test frames (of the test camera's
+    # OWLII_PROTOCOL_FRAMES)
     # and 5 train frames each
-    evals = 2 * (min(25, OWLII_FRAMES) + 5)
+    evals = 2 * (min(25, OWLII_PROTOCOL_FRAMES) + 5)
     got = (blend_fwd.launches, blend_bwd.launches)
     launches = {"blend_fwd": got[0], "blend_bwd": got[1]}
     if got != (5 * OWLII_ITERS + evals, 5 * OWLII_ITERS):
@@ -3175,7 +3244,8 @@ def owlii_protocol(dev, smi):
           f"dup_factor growth (iteration, dropped, new factor) "
           f"{res.dup_growth}; instances dropped past dup_cap a step (every "
           f"10th): max {max(dropped, default=0)}; reader {reader_s:.3f} s "
-          f"for {OWLII_FRAMES} frames of {OWLII_TRAIN_CAMS + 1} cameras "
+          f"for {OWLII_PROTOCOL_FRAMES} frames of {OWLII_TRAIN_CAMS + 1} "
+          f"cameras "
           f"(the carve included), 256^3 hull carve {carve_s:.3f} s;"
           f" blend launches {got}; {smi}")
     w0, n = OWLII_PROFILE[0] + 1, OWLII_PROFILE[1]
@@ -3200,7 +3270,7 @@ def owlii_protocol(dev, smi):
                    for s in ("train", "test"))
     yaml = read_results(os.path.join(run, "test", f"ours_{it}",
                                      "results.yaml"))
-    if not (n_render == (OWLII_TRAIN_CAMS + 1) * OWLII_FRAMES
+    if not (n_render == (OWLII_TRAIN_CAMS + 1) * OWLII_PROTOCOL_FRAMES
             and np.isfinite(yaml["psnr"]) and yaml["psnr"] > psnr[1]):
         raise AssertionError(f"phase 25: render CLI {n_render} frames, "
                              f"{yaml}, {results.keys()}")
@@ -3221,10 +3291,12 @@ def owlii_protocol(dev, smi):
         raise AssertionError(f"phase 25: extract_geo {report}, mesh "
                              f"{verts}, {faces}")
     print(f"phase 25: extract_geo at fid 0 (frame "
-          f"{frame_id_of(0.0, OWLII_FRAMES)}), {time.time() - t0:.3f} s, "
+          f"{frame_id_of(0.0, OWLII_PROTOCOL_FRAMES)}), "
+          f"{time.time() - t0:.3f} s, "
           f"MoransI {report}, mesh {OWLII_MESH_RES}^3 -> {verts} vertices, "
           f"{faces} faces; {smi}")
-    shutil.rmtree(base, ignore_errors=True)
+    # the scene stays for phase 30
+    shutil.rmtree(out, ignore_errors=True)
     return launches, errs
 
 
@@ -3374,8 +3446,520 @@ def check_small_step(card, cpu):
         raise AssertionError("small step: updated parameters differ")
 
 
-def main() -> int:
+# --- phases 27-31: the train CLI's field options ------------------------------
+# phase 27: phase 6's field step (bench.py's default workload) with one
+# option changed a field, at the widths the CLI builds by default
+OPTION_STEPS = 6             # timed steps after TRAIN_WARMUP
+OPTION_N_SPLATS = 50_000
+OPTION_FIELDS = (
+    ("TriPlaneEncoder", dict(encoder_type="TriPlaneEncoder"), -1),
+    ("GridEncoder", dict(encoder_type="GridEncoder"), -1),
+    ("VarTriPlane use_view_dep_rgb", dict(encoder_type="VarTriPlaneEncoder",
+                                          use_view_dep_rgb=True), -1),
+    ("VarTriPlane geo_model_disable_pts",
+     dict(encoder_type="VarTriPlaneEncoder", geo_model_disable_pts=True),
+     -1),
+    (f"VarTriPlane n_splats {OPTION_N_SPLATS}",
+     dict(encoder_type="VarTriPlaneEncoder"), OPTION_N_SPLATS))
+# phase 28: the fused heads on the plans these fields give (feature width
+# 48 from learned planes, 24 from the grid; mlp_rgb of 128 outputs)
+FUSED_OPTIONS = OPTION_FIELDS[:3]
+# phase 29: phase 23's 4-D step (1 view) with another encoder
+HEX_OPTIONS = (
+    ("VarHexPlaneEncoder per_frame", dict(
+        OWLII_HIDDEN, encoder_type="VarHexPlaneEncoder",
+        layer_strategy="per_frame")),
+    ("HexPlaneEncoder", dict(OWLII_HIDDEN, encoder_type="HexPlaneEncoder")))
+# phase 30: the CLIs with the new flags, cut in depth (iterations, and the
+# Owlii frames) to keep the phase in time
+OPTION_OWLII_FLAGS = ["--encoder_type", "VarHexPlaneEncoder",
+                      "--layer_strategy", "per_frame"]
+OPTION_OWLII_ITERS = 8
+OPTION_OWLII_FRAMES = 10
+OPTION_BLENDER_FLAGS = ["--encoder_type", "TriPlaneEncoder",
+                        "--use_view_dep_rgb", "--n_splats",
+                        str(OPTION_N_SPLATS)]
+OPTION_BLENDER_ITERS = 50
+# phase 31: a small static CLI run with the new flags, card against CPU
+OPTION_SMALL_FLAGS = ["--encoder_type", "TriPlaneEncoder",
+                      "--use_view_dep_rgb", "--geo_model_disable_pts",
+                      "--lambda_norm", "0.01", "--pts_samples", "random"]
+# phase 31's small 4-D net: SMALL_4D with VarHexPlane and per-frame deltas
+SMALL_HEX = dict(SMALL_4D, encoder_type="VarHexPlaneEncoder",
+                 layer_strategy="per_frame")
+
+
+def option_step(dev, smi, label, hidden, n_splats, pts, cols, batches):
+    """One phase-27 field: ``OPTION_STEPS`` timed steps after the warm-up,
+    the GPU idle share over 3 profiled steps, and both blend kernels
+    against their plain versions on a step's own inputs and an evaluation
+    frame's. Returns (launches, check_loop_blends' errors)."""
     import torch
+
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.models import splats
+    from splatfields_torch.models.deform_model import DeformModel
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.render_lib import render_camera
+
+    deform = DeformModel(config.HiddenConfig(
+        composition_rank=0, n_frames=0, **hidden), radius=1.0, seed=0,
+        device=dev)
+    pipe = config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128)
+    step = train_lib.make_train_step(
+        deform.net, config.OptimizationConfig(lambda_mask=0.0,
+                                              lambda_norm=0.01),
+        pipe, RES, RES, 1, True, 0, 0, n_splats=n_splats,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    sp, st = splats.create_from_pcd(pts, cols, 0, capacity=N_SPLATS,
+                                    device=dev)
+    state = [sp, st, splats.adam_init(sp), deform.params, deform.opt_state]
+    fp0 = {k: v.clone() for k, v in state[3].items()}
+    lrs = splats.splat_lr_tree(*SPLAT_LRS)
+    n_steps = TRAIN_WARMUP + OPTION_STEPS
+    losses = []
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for i, b in enumerate(batches[:n_steps]):
+        if i == TRAIN_WARMUP:
+            start.record()
+        *state, out = step(*state, b, lrs, FIELD_LR)
+        losses.append(out.loss)
+    end.record()
+    torch.cuda.synchronize()
+    launches = (blend_fwd.launches, blend_bwd.launches)
+    if launches != (n_steps, n_steps):
+        raise AssertionError(f"{label}: blend launches {launches} for "
+                             f"{n_steps} steps")
+    losses = torch.stack(losses)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{label}: losses {losses.tolist()}")
+    fp = state[3]
+    moved = {k: float((fp[k] - fp0[k]).abs().max()) for k in fp}
+    still = [k for k, m in moved.items() if m == 0
+             and k.startswith(("encoder.", "refine", "rgb_viewdep"))]
+    if still:
+        raise AssertionError(f"{label}: parameters that did not move: "
+                             f"{still}")
+    rendered = N_SPLATS if n_splats <= 0 else n_splats
+    seen = int((state[1].denom > 0).sum())
+    if out.radii.shape[0] != rendered or seen > n_steps * rendered:
+        raise AssertionError(f"{label}: {out.radii.shape[0]} splats "
+                             f"rendered a step, {seen} seen")
+    step_ms = start.elapsed_time(end) / OPTION_STEPS
+
+    def run3():
+        for b in batches[n_steps:n_steps + 3]:
+            state[:5] = step(*state, b, lrs, FIELD_LR)[:5]
+        torch.cuda.synchronize()
+
+    wall_ms, busy_ms, idle, top = device_idle(run3)
+    n_params = sum(v.numel() for v in fp.values())
+    print(f"{label}: phase 6's step ({N_SPLATS} splats, {RES}x{RES}, 1 view) "
+          f"with {hidden}, n_splats {n_splats}: {n_params} field parameters; "
+          f"{step_ms:.4f} ms/step ({OPTION_STEPS} steps after "
+          f"{TRAIN_WARMUP} warm-up), {rendered} splats rendered a step, "
+          f"{seen} seen; losses {[round(x, 6) for x in losses.tolist()]}; "
+          f"blend launches {launches}; 3 profiled steps: wall "
+          f"{wall_ms:.3f} ms, GPU busy {busy_ms:.3f} ms, GPU idle share "
+          f"{idle:.4f}; {smi}")
+    print(f"{label}: top device events (ms over 3 steps, calls): "
+          + "; ".join(f"{k} {ms:.3f} ({c})" for ms, c, k in top[:8]))
+    # both kernels on a step's own inputs and an evaluation frame's
+    with LoopBlends() as cap:
+        state[:5] = step(*state, batches[n_steps + 3], lrs, FIELD_LR)[:5]
+        frame = render_camera(make_views(1, RES)[0], state[0], state[1],
+                              deform, pipe, np.ones(3, np.float32))
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(frame["render"]).all()):
+        raise AssertionError(f"{label}: non-finite evaluation frame")
+    return launches, check_loop_blends(label, cap)
+
+
+def var_grid_alone(dev, smi, xyz):
+    """Phase 27's VarGridEncoder (no encoder key builds it into a field):
+    forward and backward on the step's points, timed; its features on
+    2,000 of them within 1e-4 of their largest value of the CPU's from
+    the same seed."""
+    import torch
+
+    from splatfields_torch.models.encoders import VarGridEncoder
+    enc = VarGridEncoder(generator=torch.Generator().manual_seed(0))
+    cpu_feat = enc(xyz[:2000].cpu()).detach()
+    enc = enc.to(dev)
+    params = list(enc.parameters())
+
+    def fwd_bwd():
+        return torch.autograd.grad(enc(xyz).square().sum(), params)
+
+    grads = fwd_bwd()
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(g).all()) for g in grads) or not any(
+            float(g.abs().max()) > 0 for g in grads):
+        raise AssertionError("phase 27 VarGridEncoder: bad gradients")
+    err = float((enc(xyz[:2000]).detach().cpu() - cpu_feat).abs().max()
+                / cpu_feat.abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"phase 27 VarGridEncoder: card against CPU "
+                             f"{err}")
+    ms = cuda_ms(fwd_bwd, 5)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: enc(xyz), 5)
+        grid = tuple(enc.net().shape[1:])
+    print(f"phase 27 VarGridEncoder alone: noise 8x4^3 -> grid {grid}, "
+          f"{sum(p.numel() for p in params)} parameters; forward "
+          f"{fwd_ms:.4f} ms, forward + backward {ms:.4f} ms on "
+          f"{xyz.shape[0]} points; card against CPU on 2,000 points "
+          f"{err:.3e} of the largest feature; {smi}")
+
+
+def fused_option(dev, smi, label, hidden, pts, cols, batches):
+    """Phase 28 for one field: the fused heads (bf16) in a training step
+    of phase 27's configuration, held layer by layer on the step's own
+    inputs (``check_layers``, TOL_LAYER), then 3 steps counting launches.
+    Returns ({kernel: launches}, the largest layer gap)."""
+    import torch
+
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.models import splats
+    from splatfields_torch.models.deform_model import DeformModel
+    from splatfields_torch.ops import fused_mlp as fm
+
+    deform = DeformModel(config.HiddenConfig(
+        composition_rank=0, n_frames=0, **hidden), radius=1.0, seed=0,
+        device=dev)
+    net = deform.net
+    net.fused_pallas = "on"
+    step = train_lib.make_train_step(
+        net, config.OptimizationConfig(lambda_mask=0.0, lambda_norm=0.01),
+        config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128),
+        RES, RES, 1, True, 0, 0)
+    sp, st = splats.create_from_pcd(pts, cols, 0, capacity=N_SPLATS,
+                                    device=dev)
+    lrs = splats.splat_lr_tree(*SPLAT_LRS)
+    captured = []
+    fused_bwd = fm.fused_heads_bwd
+
+    def spy(plan, emb, feat, w, b, gs, cdt):
+        captured.append((plan, emb.detach(), feat.detach(), w.detach(),
+                         b.detach(), [g.detach() for g in gs]))
+        return fused_bwd(plan, emb, feat, w, b, gs, cdt)
+
+    # the backward counts through its module-level name, the spy's here
+    spy.launches = fused_bwd.launches
+    fm.fused_heads_bwd = spy
+    try:
+        state = list(step(sp, st, splats.adam_init(sp), deform.params,
+                          deform.opt_state, batches[0], lrs, FIELD_LR)[:5])
+    finally:
+        fused_bwd.launches = spy.launches
+        fm.fused_heads_bwd = fused_bwd
+    names = [c[0].heads[0].name for c in captured]
+    if sorted(names) != ["mlp_deform", "mlp_rgb"]:
+        raise AssertionError(f"phase 28 {label}: fused backward ran for "
+                             f"{names}")
+    gap = 0.0
+    for case in captured:
+        plan = case[0]
+        print(f"phase 28 {label}: plan {[h.name for h in plan.heads]}, "
+              f"feature width {plan.feat_dim}, embedding {plan.emb_dim}, "
+              f"outputs {[h.out_dim for h in plan.heads]}, "
+              f"{plan.n_rows} packed rows")
+        gap = max(gap, check_layers(f"phase 28 {label}, {plan.heads[0].name}",
+                                    *case)["gap"])
+    torch.cuda.synchronize()
+    fm.fused_heads.launches = fm.fused_heads_bwd.launches = 0
+    fm.fused_dw.launches = fm.reduce_partials.launches = 0
+    for b in batches[1:4]:
+        *state, out = step(*state, b, lrs, FIELD_LR)
+    torch.cuda.synchronize()
+    launches = {"fused_heads_fwd": fm.fused_heads.launches,
+                "fused_heads_bwd": fm.fused_heads_bwd.launches,
+                "fused_heads_dw": fm.fused_dw.launches,
+                "reduce_partials": fm.reduce_partials.launches}
+    if set(launches.values()) != {6} or not bool(torch.isfinite(out.loss)):
+        raise AssertionError(f"phase 28 {label}: 3 fused steps launched "
+                             f"{launches}, loss {float(out.loss)}")
+    print(f"phase 28 {label}: 3 fused steps (bf16 heads), launches "
+          f"{launches}, loss {float(out.loss):.6f}; {smi}")
+    return launches, gap
+
+
+def option_clis(dev, smi):
+    """Phase 30: run_owlii.sh's train and render lines with
+    ``OPTION_OWLII_FLAGS`` on phase 25's scene, then run_blender.sh's
+    SplatFields line with ``OPTION_BLENDER_FLAGS`` on phase 14's scene
+    (init from phase 15's PLY), a ``--resume`` run and its render line.
+    Returns ({kernel name: {phase: launches}}, {phase: check_loop_blends'
+    errors})."""
+    import glob
+    import shutil
+    import time
+
+    import torch
+
+    from splatfields_torch import render, train
+    from splatfields_torch.metrics import read_results
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    launches = {"blend_fwd": {}, "blend_bwd": {}}
+    loop_errs = {}
+
+    def counted(phase, want):
+        torch.cuda.synchronize()
+        got = (blend_fwd.launches, blend_bwd.launches)
+        launches["blend_fwd"][phase], launches["blend_bwd"][phase] = got
+        if got != want:
+            raise AssertionError(f"phase {phase}: blend launches {got}; "
+                                 f"want {want}")
+
+    # --- the Owlii lines with VarHexPlane and per-frame deltas
+    base = os.path.join(here, "build", "owlii_protocol")
+    out = os.path.join(base, "out_options")
+    it = OPTION_OWLII_ITERS
+    env = dict(OWLII_ENV, DATASET_ROOT=base, SCENE=OWLII_SCENE, OUT=out,
+               ITERS=it, TIME_STEP=OPTION_OWLII_FRAMES)
+    train_argv, render_argv = owlii_command_lines(env)
+    run = os.path.join(out, "8views", OWLII_SCENE, "SplatFields4D")
+    extra = ["--densify_from_iter", str(it + 1), "--test_iterations", "1",
+             str(it)]
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = 0
+    with LoopBlends() as cap:
+        res = train.main(train_argv + OPTION_OWLII_FLAGS + extra)
+    evals = 2 * (min(25, OPTION_OWLII_FRAMES) + 5)
+    counted("30 owlii", (5 * it + evals, 5 * it))
+    net = res.deform.net
+    if not (type(net.encoder).__name__ == "VarHexPlaneEncoder"
+            and net.encoder.subs_0.net.conv_in.frame_weights.shape[0]
+            == OPTION_OWLII_FRAMES):
+        raise AssertionError("phase 30: the Owlii run's net is not a "
+                             "per-frame VarHexPlane")
+    on_card("phase 30 owlii", res.deform.params)
+    psnr = dict(read_metrics(run)["test/loss_viewpoint - psnr"])
+    loop_errs["30 owlii"] = check_loop_blends("phase 30 owlii", cap)
+    ms_it = res.ms_per_it
+    del cap, res, net
+    t0 = time.time()
+    render.main(render_argv + OPTION_OWLII_FLAGS)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    n_render = sum(len(glob.glob(os.path.join(run, s, f"ours_{it}",
+                                              "renders", "*.png")))
+                   for s in ("train", "test"))
+    yaml = read_results(os.path.join(run, "test", f"ours_{it}",
+                                     "results.yaml"))
+    if not (n_render == (OWLII_TRAIN_CAMS + 1) * OPTION_OWLII_FRAMES
+            and all(np.isfinite(v) for v in psnr.values())
+            and np.isfinite(yaml["psnr"])):
+        raise AssertionError(f"phase 30 owlii: {n_render} frames, test PSNR "
+                             f"{psnr}, results.yaml {yaml}")
+    print(f"phase 30: run_owlii.sh's train line + {OPTION_OWLII_FLAGS} "
+          f"(ITERS={it}, TIME_STEP={OPTION_OWLII_FRAMES}, "
+          f"{OWLII_RES}x{OWLII_RES}, 5 views), {ms_it:.3f} ms/it, test PSNR "
+          f"{psnr}; its render line + the same flags, {n_render} frames in "
+          f"{render_s:.3f} s, results.yaml {yaml}; blend launches "
+          f"{launches['blend_fwd']['30 owlii']}, "
+          f"{launches['blend_bwd']['30 owlii']}; {smi}")
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # --- the SplatFields line with TriPlane, view-dependent colour, n_splats
+    proto = os.path.join(here, "build", "blender_protocol")
+    root = os.path.join(proto, "lego")
+    pc = os.path.join(proto, "out", "3DGS", "point_cloud", "iteration_300",
+                      "point_cloud.ply")
+    out = os.path.join(proto, "out", "SplatFields_options")
+    it = OPTION_BLENDER_ITERS
+    argv = (["-s", root, "-m", out] + PROTOCOL_FIELD + OPTION_BLENDER_FLAGS
+            + ["--pc_path", pc, "--test_iterations", "1", str(it)])
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = 0
+    with LoopBlends() as cap:
+        res = train.main(argv + ["--iterations", str(it)])
+    evals = 2 * (len(PROTOCOL_TEST_THETAS) + 5)
+    counted("30 blender", (it + evals, it))
+    net = res.deform.net
+    if not (type(net.encoder).__name__ == "TriPlaneEncoder"
+            and net.use_view_dep_rgb):
+        raise AssertionError("phase 30: the Blender run's net lacks its "
+                             "options")
+    eval_psnr = dict(read_metrics(out)["test/loss_viewpoint - psnr"])
+    loop_errs["30 blender"] = check_loop_blends("phase 30 blender", cap)
+    ms_it = res.ms_per_it
+    del cap, res, net
+    resumed = train.main(argv + ["--iterations", str(it + 10), "--resume"])
+    if resumed.start_iteration != it + 1:
+        raise AssertionError(f"phase 30: --resume started at "
+                             f"{resumed.start_iteration}")
+    del resumed
+    t0 = time.time()
+    render.main(["-s", root, "-m", out, "--skip_train", "--iteration",
+                 str(it)])
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    ours = os.path.join(out, "test", f"ours_{it}")
+    yaml = read_results(os.path.join(ours, "results.yaml"))
+    bound = png_round_trip_bound(ours)
+    if not abs(yaml["psnr"] - eval_psnr[it]) <= bound:
+        raise AssertionError(f"phase 30 blender: render.py PSNR "
+                             f"{yaml['psnr']} vs evaluate {eval_psnr[it]}: "
+                             f"beyond the PNG bound {bound}")
+    print(f"phase 30: run_blender.sh's SplatFields line + "
+          f"{OPTION_BLENDER_FLAGS} ({it} iterations, {RES}x{RES}), "
+          f"{ms_it:.3f} ms/it, test PSNR {eval_psnr}; --resume from {it} to "
+          f"{it + 10}; render CLI {len(PROTOCOL_TEST_THETAS)} test frames "
+          f"in {render_s:.3f} s, results.yaml {yaml} (evaluate "
+          f"{eval_psnr[it]:.4f}, PNG bound {bound:.4f}); blend launches "
+          f"{launches['blend_fwd']['30 blender']}, "
+          f"{launches['blend_bwd']['30 blender']}; {smi}")
+    return launches, loop_errs
+
+
+def subset_step(dev, pts, cols, subset):
+    """Phase 31's small static step with ``n_splats``: phase 7's
+    configuration rendering the splats ``subset`` on the card and on the
+    CPU (the subsample's keys differ between the card's generator and the
+    CPU's, so both are given the same subset)."""
+    import torch
+
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.models import splats
+    from splatfields_torch.models.deform_model import DeformModel
+    res = {}
+    draw = train_lib._subsample_idx
+    train_lib._subsample_idx = lambda gen, valid, n: torch.as_tensor(
+        subset[:n], device=valid.device)
+    try:
+        for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            p_, s_ = splats.create_from_pcd(pts[:2000], cols[:2000], 0,
+                                            device=device)
+            d_ = DeformModel(config.HiddenConfig(
+                encoder_type="VarTriPlaneEncoder", composition_rank=0,
+                n_frames=0), radius=1.0, seed=0, device=device)
+            step = train_lib.make_train_step(
+                d_.net, config.OptimizationConfig(lambda_mask=0.0,
+                                                  lambda_norm=0.01),
+                config.PipelineConfig(tile_size=16, tile_cap=1024,
+                                      k_chunk=128), 64, 64, 1, True, 0, 0,
+                n_splats=len(subset), generator=torch.Generator(device))
+            res[name] = step(
+                p_, s_, nonzero_adam(p_, 1), d_.params,
+                nonzero_adam(d_.params, 2),
+                train_batch(make_views(2, 64)[1], np.random.RandomState(1),
+                            device), splats.splat_lr_tree(*SPLAT_LRS),
+                FIELD_LR)
+    finally:
+        train_lib._subsample_idx = draw
+    return res["cuda"], res["cpu"]
+
+
+def option_phases(dev, smi):
+    """Phases 27-31: the train CLI's field options. Returns ({kernel name:
+    {phase: launches}}, {phase: check_loop_blends' errors}, {fused kernel
+    name: {phase: launches}}, {phase: largest layer gap})."""
+    import torch
+
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.models import splats
+
+    import time
+    launches = {"blend_fwd": {}, "blend_bwd": {}}
+    loop_errs, fused_launches, fused_gaps = {}, {}, {}
+    t0 = [time.time()]
+
+    def took(phase):
+        torch.cuda.synchronize()
+        print(f"phase {phase} took {time.time() - t0[0]:.1f} s")
+        t0[0] = time.time()
+
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-0.9, 0.9, (N_SPLATS, 3)).astype(np.float32)
+    cols = rng.rand(N_SPLATS, 3).astype(np.float32)
+    batches = training_batches(dev)
+
+    # --- 27. static field steps, one option at a time ----------------------
+    for label, hidden, n_splats in OPTION_FIELDS:
+        phase = f"27 {label}"
+        got, loop_errs[phase] = option_step(
+            dev, smi, f"phase {phase}", hidden, n_splats, pts, cols, batches)
+        launches["blend_fwd"][phase], launches["blend_bwd"][phase] = got
+        torch.cuda.empty_cache()
+    var_grid_alone(dev, smi, torch.as_tensor(pts, device=dev))
+    took(27)
+
+    # --- 28. the fused heads on the new plans ---------------------------------
+    for label, hidden, _ in FUSED_OPTIONS:
+        phase = f"28 {label}"
+        got, fused_gaps[phase] = fused_option(dev, smi, label, hidden, pts,
+                                              cols, batches)
+        for k, n in got.items():
+            fused_launches.setdefault(k, {})[phase] = n
+        torch.cuda.empty_cache()
+    took(28)
+
+    # --- 29. 4-D steps at phase 23's workload, 1 view ----------------------------
+    for label, hidden in HEX_OPTIONS:
+        phase = f"29 {label}"
+        got, loop_errs[phase], _ = owlii_step(
+            dev, smi, 1, pts, cols, hidden=hidden, label=f"phase {phase}")
+        launches["blend_fwd"][phase], launches["blend_bwd"][phase] = got
+        torch.cuda.empty_cache()
+    took(29)
+
+    # --- 30. the CLIs with the new flags ----------------------------------------
+    got, errs = option_clis(dev, smi)
+    for k in launches:
+        launches[k].update(got[k])
+    loop_errs.update(errs)
+    took(30)
+
+    # --- 31. card against CPU ------------------------------------------------------
+    proto = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "blender_protocol")
+    card_vs_cpu("phase 31 " + " ".join(OPTION_SMALL_FLAGS[:5]),
+                ["-s", os.path.join(proto, "small", "lego"),
+                 "--white_background", "--eval", "--n_views", "4",
+                 "--num_pts", "2000", "--load_time_step", "0",
+                 "--composition_rank", "0"] + OPTION_SMALL_FLAGS,
+                os.path.join(proto, "small_out", "options"), dev)
+    subset = np.random.RandomState(3).permutation(2000)[:1500]
+    print("phase 31: a small static step with n_splats 1,500 of 2,000 "
+          "(phase 7's configuration, the same subset on both), card "
+          "against CPU:")
+    check_small_step(*subset_step(dev, pts, cols, subset))
+    res = {}
+    cams = make_views(3, 64)[1:]
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        net = small_4d_net(device, **SMALL_HEX)
+        p_, s_ = splats.create_from_pcd(pts[:2000], cols[:2000], 0,
+                                        device=device)
+        fp = {k: v.detach() for k, v in net.named_parameters()}
+        step = train_lib.make_train_step(
+            net, config.OptimizationConfig(lambda_mask=0.0,
+                                           lambda_norm=0.01),
+            config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128),
+            64, 64, 2, True, SMALL_HEX["n_frames"], 0)
+        res[name] = step(p_, s_, nonzero_adam(p_, 1), fp,
+                         nonzero_adam(fp, 2),
+                         owlii_batch(cams, 2 / 3, np.random.RandomState(1),
+                                     device),
+                         splats.splat_lr_tree(*SPLAT_LRS), FIELD_LR)
+    print("phase 31: a small 4-D step (chip_smoke.SMALL_HEX: VarHexPlane "
+          "with per-frame deltas, 2,000 splats, 64x64, 2 views, fid 2/3), "
+          "card against CPU:")
+    check_small_step(res["cuda"], res["cpu"])
+    took(31)
+    return launches, loop_errs, fused_launches, fused_gaps
+
+
+def main() -> int:
+    import time
+
+    import torch
+    t_phase = [time.time()]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3510,27 +4094,50 @@ def main() -> int:
                 [out["cuda"][k].cpu() for k in ("render", "depth", "opacity")],
                 [out["cpu"][k] for k in ("render", "depth", "opacity")])
 
+    def took(phases):
+        torch.cuda.synchronize()
+        print(f"phases {phases}: {time.time() - t_phase[0]:.1f} s")
+        t_phase[0] = time.time()
+
+    took("1-4")
     # --- 5-7. the training slice -------------------------------------------
     bwd_entry = train_phases(sc, dev, smi)
+    took("5-7")
     # --- 8-10. the NGP training slice ----------------------------------------
     segsum_entry = ngp_phases(sc, dev, smi)
+    took("8-10")
     # --- 11-13. the fused heads ----------------------------------------------
     fused_entries = fused_phases(sc, dev, smi)
     del sc, params, stats, deform
     torch.cuda.empty_cache()
+    took("11-13")
     # --- 14-17. the Blender protocol through the CLIs ---------------------------
     loop_launches, loop_errs = protocol_phases(dev, smi)
     torch.cuda.empty_cache()
+    took("14-17")
     # --- 18-22. the Moran line, extract_geo, run_dtu.sh, LPIPS ---------------
     static_launches, static_errs, partial_errs = static_phases(dev, smi)
     torch.cuda.empty_cache()
+    took("18-22")
     # --- 23-26. the Owlii 4-D protocol -------------------------------------
     owlii_launches, owlii_errs = owlii_phases(dev, smi)
+    torch.cuda.empty_cache()
+    took("23-26")
+    # --- 27-31. the train CLI's field options ----------------------------------
+    (option_launches, option_errs, fused_launches,
+     fused_gaps) = option_phases(dev, smi)
+    took("27-31")
     for k in loop_launches:
         loop_launches[k].update(static_launches[k])
         loop_launches[k].update(owlii_launches[k])
+        loop_launches[k].update(option_launches[k])
     loop_errs.update(static_errs)
     loop_errs.update(owlii_errs)
+    loop_errs.update(option_errs)
+    for entry in fused_entries:
+        # phase 28: the new plans' launches and worst layer gap
+        entry["option_launches"] = fused_launches[entry["name"]]
+        entry["option_max_layer_gap"] = fused_gaps
     bwd_entry["loop_launches"] = loop_launches["blend_bwd"]
     bwd_entry["loop_max_abs_err"] = {
         ph: e["step backward"] for ph, e in loop_errs.items()}

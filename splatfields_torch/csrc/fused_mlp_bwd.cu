@@ -24,8 +24,9 @@
 //    (ops/fused_mlp.py::dw_scratch_layout), zero in the padding, with
 //    16-byte stores. Bound by operations (recompute and dX: 2x the
 //    forward's multiply-adds).
-//    - bf16, fused_bwd_mma_kernel: 64 points a chunk, 16 warps. The
-//      recompute (X W) and dX (G Wᵀ) run on the tensor cores
+//    - bf16, fused_bwd_mma_kernel: 64 points a chunk (32 or 16 where a
+//      plan needs the shared memory: ops/fused_mlp.py::bwd_layout), 16
+//      warps. The recompute (X W) and dX (G Wᵀ) run on the tensor cores
 //      (fused_mlp_mma.cuh), one bf16 weight tile in shared memory serving
 //      both, staged by cp.async into a two-ended ring in schedule order
 //      (per head: its layers for the recompute, then in reverse for dX),

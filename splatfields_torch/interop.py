@@ -6,13 +6,18 @@ leaf; only the layouts differ:
 
 - Dense ``kernel`` [in, out] and ResFieldLinear ``weight`` [in, out]
   -> ``weight`` [out, in];
-- conv ``kernel`` HWIO -> ``weight`` OIHW;
+- conv ``kernel`` HWIO -> ``weight`` OIHW; a per-frame conv's
+  ``frame_weights`` [F, kh, kw, I, O] -> [F, O, I, kh, kw];
+- the conv stacks' bias-free ``<name>_kernel`` leaves keep their names:
+  ``Conv1DStack``'s [3, 1, I, O] -> OIW [O, I, 3], ``Conv3DStack``'s
+  DHWIO -> OIDHW;
 - GroupNorm ``scale`` -> ``weight``;
-- the frozen noise buffers NHWC -> NCHW;
+- the frozen noise buffers NLC, NHWC and NDHWC -> NCL, NCHW and NCDHW;
 - the NGP hash ``table`` [L, T, F], the ResField ``weights_t`` [C, R]
   and ``matrix_t`` [R, out * in] (already in the port's ``(out, in)``
-  order, so never transposed) and the DCT flow head's
-  ``trajectory_basis`` keep their layouts.
+  order, so never transposed), the DCT flow head's
+  ``trajectory_basis``, and the learned ``planes`` / ``time_planes``
+  [P, C, H, W] and ``grid`` [C, D, H, W] keep their layouts.
 
 Loading is strict: a key the module lacks, a module key the tree lacks,
 or a shape mismatch raises. Gradients and Adam moments, which have the
@@ -22,7 +27,8 @@ params' shape, convert the same way (``flax_to_state_dict``,
 ``module_to_flax`` is the inverse: a module's parameters and persistent
 buffers as the flax variable tree, the leaf renamed by the module's type
 (``nn.Linear`` and conv ``weight`` -> ``kernel``, ``nn.GroupNorm``
-``weight`` -> ``scale``, ``ResFieldLinear`` keeps ``weight``). With
+``weight`` -> ``scale``, ``ResFieldLinear`` keeps ``weight``) and laid
+out back. With
 ``utils/msgpack.py`` the field weights then read and write as the JAX
 package's ``deform.msgpack`` (``models/deform_model.py``), with neither
 flax nor msgpack installed.
@@ -41,7 +47,11 @@ from splatfields_torch.models.splats import AdamState, SplatParams
 
 
 # leaves whose layout is the same in both packages
-_KEPT = ("bias", "table", "weights_t", "matrix_t", "trajectory_basis")
+_KEPT = ("bias", "table", "weights_t", "matrix_t", "trajectory_basis",
+         "planes", "time_planes", "grid")
+# the noise buffers, channels last in flax, by rank: flax -> torch axes
+_NOISE_TO_TORCH = {3: (0, 2, 1), 4: (0, 3, 1, 2), 5: (0, 4, 1, 2, 3)}
+_NOISE_TO_FLAX = {3: (0, 2, 1), 4: (0, 2, 3, 1), 5: (0, 2, 3, 4, 1)}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -55,9 +65,17 @@ def _flatten(tree: Mapping, prefix=()):
 def _convert(path: tuple, value: np.ndarray, collection: str):
     *mods, leaf = path
     if collection == "buffers":
-        if leaf != "noise" or value.ndim != 4:
+        if leaf != "noise" or value.ndim not in _NOISE_TO_TORCH:
             raise KeyError(f"unknown buffer {'/'.join(path)}")
-        return ".".join(path), value.transpose(0, 3, 1, 2)
+        return ".".join(path), value.transpose(_NOISE_TO_TORCH[value.ndim])
+    if leaf.endswith("_kernel"):   # the conv stacks' bias-free kernels
+        if value.ndim == 4:        # [3, 1, I, O] -> OIW
+            return ".".join(path), value[:, 0].transpose(2, 1, 0)
+        if value.ndim == 5:        # DHWIO -> OIDHW
+            return ".".join(path), value.transpose(4, 3, 0, 1, 2)
+        raise ValueError(f"{'/'.join(path)}: unexpected rank {value.ndim}")
+    if leaf == "frame_weights":    # [F, kh, kw, I, O] -> [F, O, I, kh, kw]
+        return ".".join(path), value.transpose(0, 4, 3, 1, 2)
     if leaf in ("kernel", "weight"):
         if value.ndim == 2:
             value = value.T
@@ -144,6 +162,14 @@ def adam_state_from_numpy(state, device=None) -> AdamState:
 def _flax_leaf(module: nn.Module, leaf: str, value: np.ndarray):
     if leaf in _KEPT:
         return leaf, value
+    if leaf.endswith("_kernel"):
+        if value.ndim == 3:   # OIW -> [3, 1, I, O]
+            return leaf, value.transpose(2, 1, 0)[:, None]
+        if value.ndim == 5:   # OIDHW -> DHWIO
+            return leaf, value.transpose(2, 3, 4, 1, 0)
+        raise ValueError(f"{leaf}: unexpected rank {value.ndim}")
+    if leaf == "frame_weights":   # [F, O, I, kh, kw] -> [F, kh, kw, I, O]
+        return leaf, value.transpose(0, 3, 4, 2, 1)
     if leaf != "weight":
         raise KeyError(f"no flax counterpart for parameter {leaf!r} of "
                        f"{type(module).__name__}")
@@ -178,10 +204,10 @@ def module_to_flax(module: nn.Module) -> dict:
         for leaf, b in mod.named_buffers(recurse=False):
             if leaf in mod._non_persistent_buffers_set:
                 continue
-            if leaf != "noise" or b.ndim != 4:
+            if leaf != "noise" or b.ndim not in _NOISE_TO_FLAX:
                 raise KeyError(f"unknown buffer {mod_name}.{leaf}")
             put("buffers", path + (leaf,),
-                b.detach().cpu().numpy().transpose(0, 2, 3, 1))
+                b.detach().cpu().numpy().transpose(_NOISE_TO_FLAX[b.ndim]))
     if not tree["buffers"]:
         del tree["buffers"]
     return tree

@@ -1,13 +1,19 @@
 """Feature encoders (counterpart of ``splatfields_tpu/models/encoders.py``).
 
-Ported:
-
+- ``TriPlaneEncoder``: learned [3, C, R, R] planes, N(0, 1), sampled at the
+  xy / yz / zx coordinates;
+- ``HexPlaneEncoder``: those planes plus xt / yt / zt time planes
+  initialised to ones, sampled at space-time points (a 4th coordinate
+  ``input_time[:1] * 0.8`` is appended to 3-D points; 3-D points with no
+  time raise, as the JAX assert does);
+- ``GridEncoder``: a learned [C, R, R, R] grid, N(0, 1), sampled
+  trilinearly; ``VarGridEncoder``: the grid generated by ``Tensorial3D``;
 - ``VarTriPlaneEncoder``, the released-config encoder: one ``Tensorial2D``
-  noise -> CNN generator per plane, planes regenerated on every call (for
-  4-D scenes too: with ``strategy='none'`` they do not depend on the
-  frame),
-  sampled bilinearly (torch grid_sample semantics) at the xy / yz / zx
-  coordinates and fused by concatenation (out_dim 3 * 16 = 48);
+  noise -> CNN generator per plane (3 space planes, then time planes for
+  ``n_planes > 3``), planes regenerated on every call unless the caller
+  passes them (``planes(frame_id)`` once a step); ``VarHexPlaneEncoder``:
+  six generated planes for 4-D points. With ``strategy='per_frame'`` the
+  generated planes depend on the frame;
 - ``HashGridEncoder`` and ``NGPMLP``, the NGP variant: a multi-resolution
   hash grid (dense levels indexed directly, the others by the instant-ngp
   xor-prime hash) gathered from the level-flattened f32 table, then a
@@ -16,10 +22,21 @@ Ported:
   then one ``ops/segsum.sorted_segment_sum`` over the whole table (the
   CUDA kernel on the card), never autograd's scatter.
 
-The JAX package's bf16 gather source (``SPLATFIELDS_NGP_BF16_TABLE``) is
-not ported: the port gathers from f32, the JAX package's CPU default. The
-other encoders come with later slices (ROADMAP Queue 1 item 6, the
-Hex/Tri/Grid encoders).
+Sampling is torch's grid_sample (bilinear, zeros padding,
+align_corners=False). The plane features [N, P, C] are fused by
+``_fuse``'s modes with the JAX package's quirks: ``add`` and ``mean`` both
+sum, ``space_cat`` is space planes times time planes. ``out_dim`` is the
+JAX property, which for VarTriPlane's ``space_cat`` says C although the
+fuse returns 3C; ``width`` is what ``forward`` returns, and the field's
+first refine layer reads that. The generated encoders sample at detached
+points (the JAX ``stop_gradient``). A time axis of a VarTriPlane with
+``n_planes > 3`` reads coordinate 3; on 3-D points that index is past the
+last column, which JAX clamps to z, and so does the port.
+
+The JAX package's bf16 gather source (``SPLATFIELDS_NGP_BF16_TABLE``), its
+quad-packed samplers and its channel-packed decoder
+(``SPLATFIELDS_PACKED_CNN``) are TPU A/B options and not ported: the port
+gathers from f32 and runs one decoder per plane, the JAX CPU defaults.
 """
 from __future__ import annotations
 
@@ -28,60 +45,187 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from splatfields_torch.models.decoder import Tensorial2D
+from splatfields_torch.models.decoder import Tensorial2D, Tensorial3D
 from splatfields_torch.models.initializers import torch_linear_
-from splatfields_torch.ops.grid_sample import grid_sample_planes
+from splatfields_torch.ops.grid_sample import grid_sample_3d, grid_sample_planes
 from splatfields_torch.ops.segsum import sorted_segment_sum
 
 _SPACE_AXES = ((0, 1), (1, 2), (2, 0))   # xy, yz, zx
+_TIME_AXES = ((0, 3), (1, 3), (2, 3))    # xt, yt, zt
+FUSE_MODES = ("cat", "add", "mean", "space_cat")
 
 
-def _fuse(feat: torch.Tensor) -> torch.Tensor:
-    """[N, n_planes, C] -> [N, n_planes * C]: the "cat" fuse, the only mode
-    ported."""
-    return feat.reshape(feat.shape[0], -1)
+def _fuse(feat: torch.Tensor, mode: str) -> torch.Tensor:
+    """[N, n_planes, C] -> [N, F]: "cat" concatenates, "add" and "mean"
+    both sum, "space_cat" multiplies the space planes 0:3 by the planes
+    3: (broadcast) and concatenates."""
+    if mode == "cat":
+        return feat.reshape(feat.shape[0], -1)
+    if mode in ("add", "mean"):
+        return feat.sum(dim=1)
+    if mode == "space_cat":
+        return (feat[:, 0:3] * feat[:, 3:]).reshape(feat.shape[0], -1)
+    raise NotImplementedError(mode)
 
 
-class VarTriPlaneEncoder(nn.Module):
-    """Generated tri-planes: 3x Tensorial2D (noise 8x20x20 -> 16x160x160)."""
+def fuse_width(mode: str, n_planes: int, channels: int) -> int:
+    """The width ``_fuse`` returns for ``n_planes`` planes of ``channels``."""
+    if mode == "cat":
+        return n_planes * channels
+    if mode in ("add", "mean"):
+        return channels
+    if mode == "space_cat" and n_planes - 3 in (1, 3):
+        return 3 * channels
+    raise NotImplementedError(f"fuse mode {mode!r} over {n_planes} planes")
+
+
+def _sample(planes: torch.Tensor, pts: torch.Tensor, axes) -> torch.Tensor:
+    """Planes [P, C, H, W] at the per-plane columns ``axes`` of ``pts``
+    (an index past the last column reads the last, as JAX clamps it) ->
+    [N, P, C]."""
+    last = pts.shape[1] - 1
+    coords = torch.stack([pts[:, [min(a, last) for a in ax]] for ax in axes])
+    return grid_sample_planes(planes, coords)
+
+
+def _with_time(pts: torch.Tensor, input_time) -> torch.Tensor:
+    """Space-time points: 3-D points gain ``input_time[:1] * 0.8`` as a
+    4th coordinate; anything but 4-D points then raises."""
+    if pts.shape[-1] == 3 and input_time is not None:
+        t = (input_time.reshape(-1)[:1] * 0.8).expand(pts.shape[0], 1)
+        pts = torch.cat([pts, t], dim=-1)
+    if pts.shape[-1] != 4:
+        raise ValueError("HexPlane encoders take space-time points (4-D, "
+                         "or 3-D with input_time)")
+    return pts
+
+
+def _normal_param(shape, generator: torch.Generator) -> nn.Parameter:
+    return nn.Parameter(torch.randn(*shape, generator=generator))
+
+
+class TriPlaneEncoder(nn.Module):
+    """Learned tri-planes [3, C, R, R], N(0, 1)."""
+
+    def __init__(self, resolution: int = 200, channels: int = 16,
+                 fuse_mode: str = "cat", *, generator: torch.Generator):
+        super().__init__()
+        self.fuse_mode = fuse_mode
+        self.out_dim = 3 * channels if fuse_mode == "cat" else channels
+        self.width = fuse_width(fuse_mode, 3, channels)
+        self.planes = _normal_param((3, channels, resolution, resolution),
+                                    generator)
+
+    def forward(self, pts, input_time=None, frame_id=None):
+        return _fuse(_sample(self.planes, pts, _SPACE_AXES), self.fuse_mode)
+
+
+class HexPlaneEncoder(nn.Module):
+    """Learned space planes [3, C, R, R], N(0, 1), and time planes, ones."""
+
+    def __init__(self, resolution: int = 200, channels: int = 16,
+                 fuse_mode: str = "cat", *, generator: torch.Generator):
+        super().__init__()
+        self.fuse_mode = fuse_mode
+        self.out_dim = self.width = fuse_width(fuse_mode, 6, channels)
+        self.planes = _normal_param((3, channels, resolution, resolution),
+                                    generator)
+        self.time_planes = nn.Parameter(
+            torch.ones(3, channels, resolution, resolution))
+
+    def forward(self, pts, input_time=None, frame_id=None):
+        pts = _with_time(pts, input_time)
+        planes = torch.cat([self.planes, self.time_planes], dim=0)
+        return _fuse(_sample(planes, pts, _SPACE_AXES + _TIME_AXES),
+                     self.fuse_mode)
+
+
+class GridEncoder(nn.Module):
+    """A learned grid [C, R, R, R], N(0, 1), sampled trilinearly."""
+
+    def __init__(self, resolution: int = 128, channels: int = 24, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.out_dim = self.width = channels
+        self.grid = _normal_param((channels, resolution, resolution,
+                                   resolution), generator)
+
+    def forward(self, pts, input_time=None, frame_id=None):
+        return grid_sample_3d(self.grid, pts)
+
+
+class VarGridEncoder(nn.Module):
+    """A grid generated by ``Tensorial3D`` from frozen noise (8r cells a
+    side), sampled trilinearly."""
+
+    def __init__(self, in_ch: int = 8, out_ch: int = 16, noise_res: int = 4,
+                 *, generator: torch.Generator):
+        super().__init__()
+        self.out_dim = self.width = out_ch
+        self.net = Tensorial3D(in_ch, out_ch, noise_res, generator=generator)
+
+    def forward(self, pts, input_time=None, frame_id=None):
+        return grid_sample_3d(self.net()[0], pts)
+
+
+class _GeneratedPlanes(nn.Module):
+    """``n_planes`` Tensorial2D generators ``subs_<i>`` sampled at
+    ``axes``."""
+
+    def __init__(self, n_planes, axes, in_ch, out_ch, noise_res, fuse_mode,
+                 n_frames, strategy, generator):
+        super().__init__()
+        self.n_planes, self.axes, self.fuse_mode = n_planes, axes, fuse_mode
+        self.width = fuse_width(fuse_mode, n_planes, out_ch)
+        for i in range(n_planes):
+            self.add_module(f"subs_{i}", Tensorial2D(
+                in_ch, out_ch, noise_res, n_frames=n_frames,
+                strategy=strategy, generator=generator))
+
+    def planes(self, frame_id: int | None = None) -> torch.Tensor:
+        """All planes, [n_planes, C, H, W]. Independent of the points: run
+        once a step and reuse across point batches."""
+        return torch.cat([getattr(self, f"subs_{i}")(frame_id)
+                          for i in range(self.n_planes)], dim=0)
+
+    def _features(self, pts, frame_id, planes):
+        if planes is None:
+            planes = self.planes(frame_id)
+        # sample positions carry no gradient (the field conditions on
+        # detached splat xyz), as in the JAX encoder
+        return _fuse(_sample(planes, pts.detach(), self.axes), self.fuse_mode)
+
+
+class VarTriPlaneEncoder(_GeneratedPlanes):
+    """Generated planes: n_planes x Tensorial2D (noise 8x20x20 ->
+    16x160x160), the space planes, then time planes past 3."""
 
     def __init__(self, in_ch: int = 8, out_ch: int = 16, noise_res: int = 20,
                  fuse_mode: str = "cat", n_frames: int = 0,
                  strategy: str = "none", n_planes: int = 3, *,
                  generator: torch.Generator):
-        super().__init__()
-        if n_planes != 3:
-            raise NotImplementedError(
-                "VarTriPlaneEncoder with time planes: ROADMAP Queue 1 item "
-                "6 (the Hex/Tri/Grid encoders)")
-        if strategy == "per_frame" and n_frames > 1:
-            raise NotImplementedError(
-                "per-frame conv deltas (layer_strategy 'per_frame'): "
-                "ROADMAP Queue 1 item 6 (per_frame TimeConv)")
-        if fuse_mode != "cat":
-            raise NotImplementedError(
-                f"fuse mode {fuse_mode!r}: only 'cat' is ported")
-        self.out_dim = n_planes * out_ch
-        self.n_planes = n_planes
-        for i in range(n_planes):
-            self.add_module(f"subs_{i}", Tensorial2D(
-                in_ch, out_ch, noise_res, generator=generator))
+        super().__init__(n_planes,
+                         _SPACE_AXES[:n_planes] + _TIME_AXES[:n_planes - 3],
+                         in_ch, out_ch, noise_res, fuse_mode, n_frames,
+                         strategy, generator)
+        self.out_dim = n_planes * out_ch if fuse_mode == "cat" else out_ch
 
-    def planes(self) -> torch.Tensor:
-        """All planes, [n_planes, C, H, W]. Independent of the points: run
-        once and reuse across point batches."""
-        return torch.cat([getattr(self, f"subs_{i}")()
-                          for i in range(self.n_planes)], dim=0)
+    def forward(self, pts, input_time=None, frame_id=None, planes=None):
+        return self._features(pts, frame_id, planes)
 
-    def forward(self, pts: torch.Tensor,
-                planes: torch.Tensor | None = None) -> torch.Tensor:
-        if planes is None:
-            planes = self.planes()
-        # sample positions carry no gradient (the field conditions on
-        # detached splat xyz), as in the JAX encoder
-        pts = pts.detach()
-        coords = torch.stack([pts[:, list(ax)] for ax in _SPACE_AXES])
-        return _fuse(grid_sample_planes(planes, coords))
+
+class VarHexPlaneEncoder(_GeneratedPlanes):
+    """Six generated planes (xy / yz / zx, xt / yt / zt) for 4-D points."""
+
+    def __init__(self, in_ch: int = 8, out_ch: int = 16, noise_res: int = 20,
+                 fuse_mode: str = "cat", n_frames: int = 0,
+                 strategy: str = "none", *, generator: torch.Generator):
+        super().__init__(6, _SPACE_AXES + _TIME_AXES, in_ch, out_ch,
+                         noise_res, fuse_mode, n_frames, strategy, generator)
+        self.out_dim = self.width
+
+    def forward(self, pts, input_time=None, frame_id=None, planes=None):
+        return self._features(_with_time(pts, input_time), frame_id, planes)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +343,7 @@ class NGPMLP(nn.Module):
         super().__init__()
         self.radius, self.contract = radius, contract
         self.n_hidden_layers = n_hidden_layers
-        self.out_dim = out_features
+        self.out_dim = self.width = out_features
         self.encoding = HashGridEncoder(
             n_levels=n_levels, log2_hashmap_size=log2_hashmap_size,
             generator=generator)
@@ -212,7 +356,8 @@ class NGPMLP(nn.Module):
         self.out = nn.Linear(fin, out_features)
         torch_linear_(self.out.weight, self.out.bias, fin, generator)
 
-    def forward(self, pts: torch.Tensor) -> torch.Tensor:
+    def forward(self, pts: torch.Tensor, input_time=None,
+                frame_id=None) -> torch.Tensor:
         if self.contract:
             x01 = contract_mipnerf360(pts, self.radius)
         else:

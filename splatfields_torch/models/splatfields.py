@@ -1,12 +1,20 @@
 """The SplatFields network (counterpart of
 ``splatfields_tpu/models/splatfields.py``).
 
-Given N points: encoder features (VarTriPlane, or the NGP hash grid +
+Given N points: encoder features (planes, a grid or the NGP hash grid +
 MLP) refined by two Linear layers with a ReLU between; ``mlp_deform``
 offsets the points (``xyz_can = xyz + deform_weight * delta``);
 ``mlp_scale`` / ``mlp_opacity`` (sigmoid) / ``mlp_rotation`` (normalize) /
 ``mlp_rgb`` (sigmoid) read (xyz_can, features), sharing one positional
-embedding of xyz_can at the largest multires.
+embedding of xyz_can at the largest multires. Every encoder of the JAX
+package builds (``_ENCODERS``); any other ``encoder_type`` means no
+encoder, the pure-MLP ablation.
+
+``use_view_dep_rgb``: ``mlp_rgb`` returns ``rgb_w`` features with no
+sigmoid (``rgb_feat``), and ``rgb_from_viewdir`` turns them into colours
+with the per-splat view directions: sigmoid(``rgb_viewdep``([feat,
+dir])). ``geo_model_disable_pts``: the scale, opacity and rotation heads
+read the features alone, at multires 0.
 
 4-D fields (``n_frames > 0``): the features gain a ``time_multires``
 positional embedding of the time step t (appended after the refined
@@ -22,10 +30,6 @@ the attribute) runs the heads through ``ops/fused_mlp.py``: one fused call
 for ``mlp_deform`` on pe(xyz) and one for the other four heads on
 pe(xyz_can), hand-written CUDA kernels on the card. ``"auto"`` means off,
 as in the JAX package.
-
-Not ported yet, each raising NotImplementedError: the view-dependent
-colour head and ``geo_model_disable_pts``, and the encoders other than
-VarTriPlane and NGPMLP (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -37,7 +41,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from splatfields_torch.models.encoders import NGPMLP, VarTriPlaneEncoder
+from splatfields_torch.models.encoders import (
+    NGPMLP,
+    GridEncoder,
+    HexPlaneEncoder,
+    TriPlaneEncoder,
+    VarHexPlaneEncoder,
+    VarTriPlaneEncoder,
+)
 from splatfields_torch.models.flow import FlowHead
 from splatfields_torch.models.initializers import torch_linear_
 from splatfields_torch.models.mlp import GeneralMLP, positional_embed
@@ -48,10 +59,17 @@ from splatfields_torch.ops.fused_mlp import (
     plan_from_module,
 )
 
-# encoders of the JAX package; any other encoder_type means no encoder
-_JAX_ENCODERS = ("VarTriPlaneEncoder", "VarHexPlaneEncoder", "TriPlaneEncoder",
-                 "HexPlaneEncoder", "GridEncoder", "NGPMLP")
-_PORTED_ENCODERS = ("VarTriPlaneEncoder", "NGPMLP")
+# the JAX package's encoders; any other encoder_type means no encoder
+_ENCODERS = {
+    "VarTriPlaneEncoder": VarTriPlaneEncoder,
+    "VarHexPlaneEncoder": VarHexPlaneEncoder,
+    "TriPlaneEncoder": TriPlaneEncoder,
+    "HexPlaneEncoder": HexPlaneEncoder,
+    "GridEncoder": GridEncoder,
+    "NGPMLP": NGPMLP,
+}
+# encoders whose planes are generated, once a step (``generate_planes``)
+_GENERATED = ("VarTriPlaneEncoder", "VarHexPlaneEncoder")
 
 
 def frame_id_of(fid: float, n_frames: int) -> int:
@@ -104,53 +122,47 @@ class SplatFields(nn.Module):
         self.fused_pallas = fused_pallas
         self.fused_block = fused_block
         self.fused_compute_dtype = fused_compute_dtype
-        if use_view_dep_rgb:
-            raise NotImplementedError(
-                "view-dependent colour head: ROADMAP pending items")
-        if geo_model_disable_pts:
-            raise NotImplementedError(
-                "geo_model_disable_pts: ROADMAP pending items")
-        if (encoder_type in _JAX_ENCODERS
-                and encoder_type not in _PORTED_ENCODERS):
-            raise NotImplementedError(
-                f"encoder {encoder_type}: ROADMAP Queue 1 item 6 (the "
-                "Hex/Tri/Grid encoders)")
         gen = generator
         self.n_frames = n_frames
+        self.use_view_dep_rgb = use_view_dep_rgb
         self.geo_model_disable_pts = geo_model_disable_pts
         self.deform_weight = deform_weight
         self.time_multires = time_multires
-        self.max_multires = max(rgb_multires, scale_multires,
-                                opacity_multires, rotation_multires,
+        # the geometry heads read the features alone, unembedded
+        geo_mr = ((lambda mr: 0) if geo_model_disable_pts
+                  else (lambda mr: mr))
+        self.max_multires = max(rgb_multires, geo_mr(scale_multires),
+                                geo_mr(opacity_multires),
+                                geo_mr(rotation_multires),
                                 flow_multires if n_frames > 0 else 0)
         args = dict(encoder_args or {})
-        if encoder_type == "VarTriPlaneEncoder":
+        self.encoder, self.feat_dim = None, 0
+        if encoder_type in _GENERATED:
             args.setdefault("n_frames", n_frames)
             args.setdefault("strategy", layer_strategy)
-            self.encoder = VarTriPlaneEncoder(**args, generator=gen)
         elif encoder_type == "NGPMLP":
             args.setdefault("radius", radius or 1.0)
             args.setdefault("contract", contract_ngp)
             args.setdefault("log2_hashmap_size", log2_hashmap_size)
             args.setdefault("n_levels", n_levels)
-            self.encoder = NGPMLP(**args, generator=gen)
-        if encoder_type in _PORTED_ENCODERS:
+        if encoder_type in _ENCODERS:
+            self.encoder = _ENCODERS[encoder_type](**args, generator=gen)
             self.feat_dim = self.encoder.out_dim
-            self.refine0 = nn.Linear(self.feat_dim, self.feat_dim)
+            # refine0 reads what the encoder returns (wider than out_dim
+            # for VarTriPlane's space_cat)
+            width = self.encoder.width
+            self.refine0 = nn.Linear(width, self.feat_dim)
             self.refine1 = nn.Linear(self.feat_dim, self.feat_dim)
-            torch_linear_(self.refine0.weight, self.refine0.bias,
-                          self.feat_dim, gen)
+            torch_linear_(self.refine0.weight, self.refine0.bias, width, gen)
             torch_linear_(self.refine1.weight, self.refine1.bias,
                           self.feat_dim, gen)
-        else:
-            self.encoder = None
-            self.feat_dim = 0
 
         time_ch = 1 + 2 * time_multires if n_frames > 0 else 0
         in_feat = 3 + self.feat_dim + time_ch
+        geo_in = in_feat - (3 if geo_model_disable_pts else 0)
 
-        def head(out, w, d, skips, mr, out_act):
-            return GeneralMLP(in_feat, out, w, d, skips, mr, out_act,
+        def head(out, w, d, skips, mr, out_act, fin=in_feat):
+            return GeneralMLP(fin, out, w, d, skips, mr, out_act,
                               "leaky_relu", composition_rank, n_frames,
                               generator=gen)
 
@@ -158,13 +170,22 @@ class SplatFields(nn.Module):
         self.mlp_deform = (head(3, deform_w, deform_d, deform_skips,
                                 deform_multires, "none")
                            if deform_weight > 0 else None)
-        self.mlp_rgb = head(3, rgb_w, rgb_d, rgb_skips, rgb_multires, "sigmoid")
+        if use_view_dep_rgb:
+            self.mlp_rgb = head(rgb_w, rgb_w, rgb_d, rgb_skips, rgb_multires,
+                                "none")
+            self.rgb_viewdep = nn.Linear(rgb_w + 3, 3)
+            torch_linear_(self.rgb_viewdep.weight, self.rgb_viewdep.bias,
+                          rgb_w + 3, gen)
+        else:
+            self.mlp_rgb = head(3, rgb_w, rgb_d, rgb_skips, rgb_multires,
+                                "sigmoid")
         self.mlp_scale = head(3, scale_w, scale_d, scale_skips,
-                              scale_multires, "none")
+                              geo_mr(scale_multires), "none", geo_in)
         self.mlp_opacity = head(1, opacity_w, opacity_d, opacity_skips,
-                                opacity_multires, "sigmoid")
+                                geo_mr(opacity_multires), "sigmoid", geo_in)
         self.mlp_rotation = head(4, rotation_w, rotation_d, rotation_skips,
-                                 rotation_multires, "normalize")
+                                 geo_mr(rotation_multires), "normalize",
+                                 geo_in)
         self.mlp_flow = self.mlp_flow_head = None
         if n_frames > 0:
             self.mlp_flow = head(flow_w, flow_w, flow_d, flow_skips,
@@ -172,17 +193,20 @@ class SplatFields(nn.Module):
             self.mlp_flow_head = FlowHead(flow_w, flow_model, dct_basis,
                                           n_frames, generator=gen)
 
-    def generate_planes(self) -> torch.Tensor:
-        """The N-independent plane CNNs only (VarTriPlane)."""
-        return self.encoder.planes()
+    def generate_planes(self, frame_id: int | None = None) -> torch.Tensor:
+        """The N-independent plane CNNs only (VarTriPlane, VarHexPlane), at
+        ``frame_id`` for per-frame conv deltas."""
+        return self.encoder.planes(frame_id)
 
-    def extract_features(self, x: torch.Tensor, t=None, planes=None):
-        """Refined encoder features, then (4-D) the time embedding."""
+    def extract_features(self, x: torch.Tensor, t=None, planes=None,
+                         frame_id: int | None = None):
+        """Refined encoder features, then (4-D) the time embedding. The
+        encoder reads t (the HexPlanes' time coordinate) and the frame."""
         feat = None
         if self.encoder is not None:
-            # only the VarTriPlane encoder takes planes
-            feat = self.encoder(x) if planes is None else self.encoder(
-                x, planes=planes)
+            # only the generated encoders take planes
+            kw = {} if planes is None else {"planes": planes}
+            feat = self.encoder(x, t, frame_id, **kw)
             feat = self.refine1(F.relu(self.refine0(feat)))
         if self.n_frames <= 0:
             return feat
@@ -196,7 +220,7 @@ class SplatFields(nn.Module):
         ``frame_id`` (``frame_id_of``)."""
         if self.n_frames > 0 and (t is None or frame_id is None):
             raise ValueError("a 4-D field needs t and frame_id")
-        pts_feat = self.extract_features(xyz_in, t, planes)
+        pts_feat = self.extract_features(xyz_in, t, planes, frame_id)
         if self._fused_pallas_active():
             return self._call_fused(xyz_in, pts_feat)
         return self._call_unfused(xyz_in, pts_feat, t, frame_id)
@@ -211,10 +235,13 @@ class SplatFields(nn.Module):
                 xyz_in, pts_feat, frame_id=frame_id)
         # one shared sin/cos sweep; each head slices its prefix
         can_emb = positional_embed(xyz_can, self.max_multires)
-        out = {name: getattr(self, f"mlp_{head}")(
-                   xyz_can, pts_feat, can_emb, frame_id=frame_id)
+        geo = ((pts_feat, None, None) if self.geo_model_disable_pts
+               else (xyz_can, pts_feat, can_emb))
+        out = {name: getattr(self, f"mlp_{head}")(*geo, frame_id=frame_id)
                for name, head in (("scales", "scale"), ("opacity", "opacity"),
-                                  ("rotations", "rotation"), ("rgb", "rgb"))}
+                                  ("rotations", "rotation"))}
+        out[self._rgb_key()] = self.mlp_rgb(xyz_can, pts_feat, can_emb,
+                                            frame_id=frame_id)
         out["flow"], out["means3D"] = None, xyz_can
         if self.mlp_flow is not None:
             hidden = self.mlp_flow(xyz_can, pts_feat, can_emb,
@@ -251,7 +278,22 @@ class SplatFields(nn.Module):
             "scales": scales,
             "opacity": torch.sigmoid(opacity),
             "rotations": _normalize(rotations),
-            "rgb": torch.sigmoid(rgb),
+            self._rgb_key(): rgb if self.use_view_dep_rgb
+            else torch.sigmoid(rgb),
             "flow": None,
             "means3D": xyz_can,
         }
+
+    def _rgb_key(self) -> str:
+        return "rgb_feat" if self.use_view_dep_rgb else "rgb"
+
+    def rgb_from_viewdir(self, rgb_feat: torch.Tensor, viewdirs: torch.Tensor,
+                         params: dict | None = None) -> torch.Tensor:
+        """The view-dependent colour head: sigmoid(rgb_viewdep([feat,
+        dir])) with per-splat view directions. ``params`` (``{state_dict
+        name: tensor}``) replaces the layer's own weights."""
+        x = torch.cat([rgb_feat, viewdirs], dim=-1)
+        if params is None:
+            return torch.sigmoid(self.rgb_viewdep(x))
+        return torch.sigmoid(F.linear(x, params["rgb_viewdep.weight"],
+                                      params["rgb_viewdep.bias"]))

@@ -459,7 +459,10 @@ def bwd_layout(plan: Plan, compute_dtype=torch.float32) -> KernelLayout:
     """csrc/fused_mlp_bwd.cu's shared memory, at the largest chunk that
     fits. f32: per point every layer input of the widest head, the
     cotangent [128], the dX buffer, d_h_in, d_emb and d_feat, in floats;
-    32, 16, 8 or 4 points. bf16 (POINTS_MMA points): the weight ring;
+    32, 16, 8 or 4 points. bf16 (POINTS_MMA points, or 32 or 16 where the
+    plan needs the room: a view-dependent ``mlp_rgb`` of 128 outputs
+    doubles both the ring's largest tiles and the last output's rows):
+    the weight ring;
     the recompute's h_in and two activation buffers as bf16 rows, in a
     union with the backward's f32 dX and bf16 rounded cotangent [LD_G];
     the leaky masks of every layer output but the last, a bit a value;
@@ -479,11 +482,14 @@ def bwd_layout(plan: Plan, compute_dtype=torch.float32) -> KernelLayout:
     words = max(sum(-(-L.fout // 32) for L in h.layers[:-1])
                 for h in plan.heads)
     last = max(h.layers[-1].fout for h in plan.heads)
-    ring, points = ring_elems(plan, backward=True), POINTS_MMA
-    union = max(points * (hs + 2 * ws), points * (2 * ws + LD_G))
-    smem = (2 * (ring + union) + 4 * THREADS_MMA
-            + 4 * points * (words + last + 2 * (plan.emb_dim
-                                                 + plan.feat_dim)))
+    ring = ring_elems(plan, backward=True)
+    for points in (POINTS_MMA, POINTS_MMA // 2, POINTS_MMA // 4):
+        union = max(points * (hs + 2 * ws), points * (2 * ws + LD_G))
+        smem = (2 * (ring + union) + 4 * THREADS_MMA
+                + 4 * points * (words + last + 2 * (plan.emb_dim
+                                                     + plan.feat_dim)))
+        if smem <= SMEM_LIMIT:
+            break
     return _fits(KernelLayout(points, hs, ws, 0, ring, smem))
 
 

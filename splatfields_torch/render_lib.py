@@ -26,19 +26,22 @@ def render_camera(cam, params, stats, deform, pipe_cfg, bg, field_mode=True,
     """Render one camera -> dict of tensors on the splats' device:
     render [3,H,W], depth [1,H,W], opacity [1,H,W], radii [N], n_dropped."""
     dev = params.xyz.device
-    if field_mode and deform is not None:
+    net = deform.net if field_mode and deform is not None else None
+    if net is not None:
         attrs = train_lib.field_attributes(
-            deform.net, params.xyz, splats_lib.get_scaling(params),
-            stats.valid, cam.fid, n_frames)
+            net, params.xyz, splats_lib.get_scaling(params), stats.valid,
+            cam.fid, n_frames)
     else:
         attrs = train_lib.static_attributes(params, stats.valid)
+    campos = _f32(cam.camera_center, dev)
     out = rasterize(
         attrs["means3d"], attrs["scales"], attrs["rotations"],
         attrs["opacity"], _f32(cam.world_view_transform, dev),
-        _f32(cam.full_proj_transform, dev), _f32(cam.camera_center, dev),
+        _f32(cam.full_proj_transform, dev), campos,
         _f32(bg, dev), float(np.float32(cam.tanfovx)),
         float(np.float32(cam.tanfovy)), cam.image_width, cam.image_height,
-        colors_precomp=attrs.get("rgb"), shs=attrs.get("shs"),
+        colors_precomp=train_lib.view_colors(attrs, campos, net),
+        shs=attrs.get("shs"),
         sh_degree=sh_degree, valid_mask=attrs["valid"],
         tile_size=pipe_cfg.tile_size, tile_cap=pipe_cfg.tile_cap,
         k_chunk=pipe_cfg.k_chunk,

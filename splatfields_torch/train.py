@@ -208,6 +208,7 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
                         max(len(v) for v in by_fid.values()))
 
     writer = MetricsWriter(model_cfg.model_path)
+    # the densify noise and the n_splats subsample's keys
     densify_gen = torch.Generator(device=dev).manual_seed(0)
     step_cache = {}
 
@@ -217,7 +218,8 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
             step_cache[key] = train_lib.make_train_step(
                 deform.net if deform else None, opt_eff, pipe_cfg, w, h,
                 num_views, field_mode, n_frames, sh_deg,
-                n_splats=opt_cfg.n_splats, enable_gaussian_opt=enable_g_opt)
+                n_splats=opt_cfg.n_splats, enable_gaussian_opt=enable_g_opt,
+                generator=densify_gen)
         return step_cache[key]
 
     test_set, save_set = set(test_iterations), set(save_iterations)

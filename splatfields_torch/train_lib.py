@@ -18,9 +18,17 @@ view's offset gradient and radii, the reference's loop-variable reuse.
 the host (``models.splatfields.time_inputs``); the V views of an
 ``--all_training`` batch share that fid.
 
-PyTorch runs eagerly, so there is no jit and no scanned twin; the
-``n_splats`` subsample needs the JAX step's rng and is not ported yet: it
-raises NotImplementedError with its ROADMAP item.
+PyTorch runs eagerly, so there is no jit and no scanned twin. The field
+runs once a step, so generated planes (VarTriPlane, VarHexPlane) are
+generated once a step, at the batch's frame.
+
+``n_splats > 0`` (field mode): each step renders a random subset of
+``n_splats`` valid splats (``_subsample_idx``, keys from the
+``torch.Generator`` passed to ``make_train_step``, as the densify noise
+takes its own), and the densification statistics go back to the subset's
+rows. A view-dependent colour head (``use_view_dep_rgb``) turns the
+field's ``rgb_feat`` into colours per view, with the splats' view
+directions (``render_view``).
 The depth-SSIM regularizer runs over the [1, H, W] depth map, the JAX
 package's documented deviation. The Moran terms (``corr_term``) run once
 a step, after the view average; with ``--corr_interval k`` the loop marks
@@ -58,7 +66,8 @@ def field_attributes(net, xyz: torch.Tensor, scaling: torch.Tensor,
     added to the splats' activated scale. ``params`` (``{state_dict name:
     tensor}``) replaces the net's own parameters for this call. A 4-D
     field (``n_frames > 0``) reads the time step ``fid`` (a host number)
-    as t [N, 1] and its frame; the flow passes through."""
+    as t [N, 1] and its frame; the flow passes through. A view-dependent
+    net's colour features pass through as ``rgb_feat``."""
     args = (xyz.detach(),)
     kwargs = {"planes": planes,
               **time_inputs(xyz.shape[0], fid, n_frames, xyz.device)}
@@ -69,9 +78,11 @@ def field_attributes(net, xyz: torch.Tensor, scaling: torch.Tensor,
         "opacity": ret["opacity"][:, 0],
         "scales": ret["scales"] + scaling.detach(),
         "rotations": ret["rotations"],
-        "rgb": ret["rgb"],
         "valid": valid,
     }
+    for key in ("rgb", "rgb_feat"):
+        if key in ret:
+            out[key] = ret[key]
     if ret["flow"] is not None:
         out["flow"] = ret["flow"]
     return out
@@ -89,16 +100,31 @@ def static_attributes(params: splats_lib.SplatParams, valid: torch.Tensor):
     }
 
 
+def view_colors(attrs, campos: torch.Tensor, net=None, params=None):
+    """The colours to render: ``attrs["rgb"]``, or a view-dependent
+    head's (``net.rgb_from_viewdir`` with ``params``) on ``rgb_feat`` and
+    the unit directions from ``campos`` to the means; None for SH
+    colours."""
+    if "rgb_feat" not in attrs:
+        return attrs.get("rgb")
+    dirs = attrs["means3d"] - campos[None]
+    dirs = dirs / (torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+                   + 1e-12)
+    return net.rgb_from_viewdir(attrs["rgb_feat"], dirs, params)
+
+
 def render_view(attrs, cam, bg, width, height, sh_degree, pipe,
-                screenspace_offset=None):
+                screenspace_offset=None, net=None, params=None):
     """One differentiable rasterization of an attribute dict; ``cam`` holds
     one view's ``viewmatrix``, ``projmatrix``, ``campos`` (tensors on the
-    splats' device) and ``tanfovx``, ``tanfovy`` (numbers)."""
+    splats' device) and ``tanfovx``, ``tanfovy`` (numbers). ``net`` and
+    ``params`` serve a view-dependent colour head (``view_colors``)."""
     return rasterize(
         attrs["means3d"], attrs["scales"], attrs["rotations"],
         attrs["opacity"], cam["viewmatrix"], cam["projmatrix"],
         cam["campos"], bg, float(cam["tanfovx"]), float(cam["tanfovy"]),
-        width, height, colors_precomp=attrs.get("rgb"),
+        width, height,
+        colors_precomp=view_colors(attrs, cam["campos"], net, params),
         shs=attrs.get("shs"), sh_degree=sh_degree,
         valid_mask=attrs["valid"], screenspace_offset=screenspace_offset,
         tile_size=pipe.tile_size, tile_cap=pipe.tile_cap,
@@ -223,9 +249,20 @@ def _leaves(tree) -> dict:
             for k, v in splats_lib.tree_items(tree).items()}
 
 
+def _subsample_idx(generator: torch.Generator, valid: torch.Tensor,
+                   n_splats: int) -> torch.Tensor:
+    """``n_splats`` random valid indices (reference ``train.py:56-60``):
+    uniform keys pushed up by 10 on invalid rows, argsorted, the first n
+    kept."""
+    keys = torch.rand(valid.shape, generator=generator, device=valid.device)
+    keys = keys + (~valid).to(torch.float32) * 10.0
+    return torch.argsort(keys, stable=True)[:n_splats]
+
+
 def make_train_step(net, opt_cfg, pipe_cfg, width, height, num_views,
                     field_mode: bool, n_frames: int, sh_degree: int,
-                    n_splats: int = -1, enable_gaussian_opt: bool = True):
+                    n_splats: int = -1, enable_gaussian_opt: bool = True,
+                    generator: torch.Generator | None = None):
     """The train step for one (mode, V, sh_degree) signature:
 
         step(splat_params, splat_stats, splat_opt, field_params, field_opt,
@@ -242,24 +279,30 @@ def make_train_step(net, opt_cfg, pipe_cfg, width, height, num_views,
     number, the views' common time step) and ``bg`` [3]. The field runs
     once a step (its planes generated once) and its attributes render all
     V views. Inputs are not modified; every
-    output is new."""
-    if field_mode and n_splats > 0:
-        raise NotImplementedError(
-            "n_splats subsampling: ROADMAP Queue 1 item 4")
+    output is new. ``n_splats > 0`` in field mode renders a random subset
+    of that many valid splats a step, drawn from ``generator`` (on the
+    splats' device)."""
+    subsample = field_mode and n_splats > 0
+    if subsample and generator is None:
+        raise ValueError("n_splats > 0 needs a generator for the subsample")
 
     def step(splat_params, splat_stats, splat_opt, field_params, field_opt,
              batch, splat_lrs, field_lr):
         valid = splat_stats.valid
+        idx = _subsample_idx(generator, valid, n_splats) if subsample else None
         sp = _leaves(splat_params)
         fp = _leaves(field_params)
         sp_tree = splats_lib.tree_like(splat_params, sp)
         if field_mode:
-            attrs = field_attributes(net, sp_tree.xyz,
-                                     splats_lib.get_scaling(sp_tree), valid,
-                                     batch["fid"], n_frames, params=fp)
+            xyz, scaling = sp_tree.xyz, splats_lib.get_scaling(sp_tree)
+            val = valid
+            if idx is not None:
+                xyz, scaling, val = xyz[idx], scaling[idx], valid[idx]
+            attrs = field_attributes(net, xyz, scaling, val, batch["fid"],
+                                     n_frames, params=fp)
         else:
             attrs = static_attributes(sp_tree, valid)
-        n_render = splat_params.capacity
+        n_render = idx.shape[0] if subsample else splat_params.capacity
         offsets = [torch.zeros(n_render, 2, device=valid.device,
                                requires_grad=True) for _ in range(num_views)]
         outs = []
@@ -268,7 +311,8 @@ def make_train_step(net, opt_cfg, pipe_cfg, width, height, num_views,
                                             "campos", "tanfovx", "tanfovy")}
             outs.append(render_view(attrs, cam, batch["bg"], width, height,
                                     sh_degree, pipe_cfg,
-                                    screenspace_offset=offsets[v]))
+                                    screenspace_offset=offsets[v], net=net,
+                                    params=fp))
         loss, aux = compute_losses(outs, batch, attrs, opt_cfg, attrs["valid"])
         aux["bin_dropped"] = sum(o.n_dropped for o in outs)
 
@@ -291,9 +335,9 @@ def make_train_step(net, opt_cfg, pipe_cfg, width, height, num_views,
                 field_params, g_fp, field_opt, field_lr)
 
         radii = outs[-1].radii
-        new_stats = splats_lib.update_max_radii(splat_stats, radii)
+        new_stats = splats_lib.update_max_radii(splat_stats, radii, idx=idx)
         new_stats = splats_lib.add_densification_stats(new_stats, screen_grad,
-                                                       radii)
+                                                       radii, idx=idx)
         out = StepOut(loss=loss.detach(), l1=aux["l1"].detach(),
                       loss_dict={k: v.detach() for k, v in aux.items()},
                       radii=radii, screen_grad=screen_grad,

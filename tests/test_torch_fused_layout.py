@@ -4,8 +4,9 @@ the CPU, without JAX:
 
 - a library's name follows every header of ``csrc/``, so an edited
   ``fused_mlp_mma.cuh`` is rebuilt, and an unchanged tree is not;
-- for the published VarTriPlane and NGP plans and chip_smoke.py's three
-  fused cases: the bf16 kernels' chunks are whole mma row tiles, fit in
+- for the published VarTriPlane, NGP, TriPlane (F = 48 from learned
+  planes), Grid (F = 24) and view-dependent (an ``mlp_rgb`` of 128
+  outputs) plans and chip_smoke.py's three fused cases: the bf16 kernels' chunks are whole mma row tiles, fit in
   shared memory and divide the dW slices' row alignment; every layer's
   padded K is round16(fin); the weight ring holds any two consecutive
   tiles of its schedule; the wrapper's bf16 weights are ``w`` rounded,
@@ -26,12 +27,19 @@ from splatfields_torch.ops import fused_mlp as fm
 BF16 = torch.bfloat16
 
 
+# published head widths; the encoders' sizes do not reach the plans
+SMALL_ENCODERS = {"NGPMLP": dict(log2_hashmap_size=12),
+                  "TriPlaneEncoder": dict(encoder_args={"resolution": 8}),
+                  "GridEncoder": dict(encoder_args={"resolution": 8})}
+
+
 @functools.cache
-def _published(encoder, mode):
-    kw = dict(log2_hashmap_size=12) if encoder == "NGPMLP" else {}
+def _published(encoder, mode, view_dep=False):
     net = build_splatfields(
         HiddenConfig(encoder_type=encoder, composition_rank=0, n_frames=0,
-                     **kw), 1.0, generator=torch.Generator().manual_seed(0))
+                     use_view_dep_rgb=view_dep,
+                     **SMALL_ENCODERS.get(encoder, {})), 1.0,
+        generator=torch.Generator().manual_seed(0))
     plan = fm.plan_from_module(net, mode)
     return plan, fm.pack_params(net, plan)[0].detach()
 
@@ -48,6 +56,13 @@ PLANS = {
                                                  "downstream"),
     "ngp-deform": lambda: _published("NGPMLP", "deform"),
     "ngp-downstream": lambda: _published("NGPMLP", "downstream"),
+    "triplane-deform": lambda: _published("TriPlaneEncoder", "deform"),
+    "triplane-downstream": lambda: _published("TriPlaneEncoder",
+                                              "downstream"),
+    "grid-deform": lambda: _published("GridEncoder", "deform"),
+    "grid-downstream": lambda: _published("GridEncoder", "downstream"),
+    "view-dep-downstream": lambda: _published("VarTriPlaneEncoder",
+                                              "downstream", True),
     "ragged": lambda: _case("ragged"),
     "no_features": lambda: _case("no_features"),
     "skip_last_but_one": lambda: _case("skip_last_but_one"),
@@ -87,9 +102,11 @@ def test_bf16_chunks_are_mma_tiles_and_fit(name):
     # every chunk of the backward lies within one dW slice of N
     for dtype in (torch.float32, BF16):
         assert fm.ROW_ALIGN % fm.bwd_layout(plan, dtype).points == 0
-    # the published widths keep 64 points a chunk (one CTA an SM)
+    # the published widths keep 64 points a chunk (one CTA an SM); the
+    # view-dependent head's backward takes 32 (its 128-wide last layer)
     if not name.startswith(("ragged", "no_", "skip")):
-        assert (fwd.points, bwd.points) == (64, 64)
+        want = 32 if name == "view-dep-downstream" else 64
+        assert (fwd.points, bwd.points) == (64, want)
     hin = max(h.emb_cols + plan.feat_dim for h in plan.heads)
     fin = max(L.fin for h in plan.heads for L in h.layers)
     for lay in (fwd, bwd):
@@ -156,3 +173,21 @@ def test_bf16_weight_copy(name):
             assert not block[L.fin:].any(), (h.name, L)
             assert not block[:, L.fout:].any(), (h.name, L)
             assert block[:L.fin, :L.fout].any()
+
+
+@pytest.mark.parametrize("name,feat,rgb_out", [
+    ("triplane-downstream", 48, 3), ("grid-downstream", 24, 3),
+    ("view-dep-downstream", 48, 128)])
+def test_field_option_plans(name, feat, rgb_out):
+    """The field options' plans: the feature width reaches every head's
+    first layer, whose packed block rounds it to 8 rows and its mma tile
+    to 16 (F = 24: 24 + 39 = 63 -> 64 rows either way; the view-dependent
+    head's last layer fills all 128 columns)."""
+    plan, _ = PLANS[name]()
+    assert plan.feat_dim == feat and plan.heads[0].out_dim == rgb_out
+    assert plan.heads[0].layers[-1].fout == rgb_out
+    for h in plan.heads:
+        first, second = h.layers[:2]
+        assert first.fin == h.emb_cols + feat
+        assert second.row_off - first.row_off == _up(first.fin, 8)
+        assert fm.mma_tile(first)[0] == _up(first.fin, 16)

@@ -42,6 +42,10 @@ MODULES = ("splatfields_torch", "splatfields_torch.render_lib",
            "splatfields_torch.data.readers.neus",
            "splatfields_torch.models.flow",
            "splatfields_torch.models.resfields",
+           "splatfields_torch.models.decoder",
+           "splatfields_torch.models.splatfields",
+           "splatfields_torch.models.initializers",
+           "splatfields_torch.ops.grid_sample",
            "splatfields_torch.utils.transforms", "chip_smoke")
 
 
@@ -150,6 +154,44 @@ net = chip_smoke.small_4d_net("cpu")
 out = net(torch.zeros(5, 3), torch.full((5, 1), 0.5),
           frame_id=frame_id_of(0.5, 4))
 assert out["flow"].shape == (5, 3)
+bad = [m for m in sys.modules if m.split(".")[0] in {blocked!r}
+       and sys.modules[m] is not None]
+assert not bad, bad
+"""
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_field_options_without_the_host_libraries():
+    """Every encoder key, the per-frame conv deltas, the view-dependent
+    head, geo_model_disable_pts and the n_splats step with FORBIDDEN and
+    HOST_LIBS blocked, as on the GPU machine."""
+    blocked = FORBIDDEN + HOST_LIBS
+    code = f"""import sys
+for m in {blocked!r}: sys.modules[m] = None
+import torch
+from splatfields_torch import train_lib
+from splatfields_torch.models.encoders import VarGridEncoder
+from splatfields_torch.models.splatfields import _ENCODERS, SplatFields
+import chip_smoke
+small = {{"TriPlaneEncoder": {{"resolution": 8}},
+         "GridEncoder": {{"resolution": 8}},
+         "HexPlaneEncoder": {{"resolution": 8}},
+         "NGPMLP": {{"log2_hashmap_size": 10}}}}
+x, t = torch.zeros(5, 3), torch.full((5, 1), 0.5)
+for name in _ENCODERS:
+    net = SplatFields(n_frames=3, encoder_type=name,
+                      encoder_args=small.get(name, {{"noise_res": 2}}),
+                      layer_strategy="per_frame", use_view_dep_rgb=True,
+                      geo_model_disable_pts=True, composition_rank=0,
+                      generator=torch.Generator())
+    out = net(x, t, frame_id=1)
+    assert out["rgb_feat"].shape == (5, 128), name
+    rgb = net.rgb_from_viewdir(out["rgb_feat"], torch.ones(5, 3))
+    assert rgb.shape == (5, 3), name
+assert VarGridEncoder(noise_res=1, generator=torch.Generator())(x).shape == (5, 16)
+idx = train_lib._subsample_idx(torch.Generator(), torch.ones(9, dtype=bool), 4)
+assert idx.shape == (4,)
 bad = [m for m in sys.modules if m.split(".")[0] in {blocked!r}
        and sys.modules[m] is not None]
 assert not bad, bad

@@ -358,10 +358,15 @@ def test_compute_losses_match_jax(case):
 
 
 def test_unported_loss_terms_raise():
-    with pytest.raises(NotImplementedError, match="n_splats"):
+    # the n_splats subsample is ported (tests/test_torch_field_options.py
+    # holds it) and draws its keys from the generator the loop passes in
+    with pytest.raises(ValueError, match="n_splats"):
         train_lib.make_train_step(None, config.OptimizationConfig(),
                                   config.PipelineConfig(), 8, 8, 1, True, 0,
                                   0, n_splats=10)
+    assert callable(train_lib.make_train_step(
+        None, config.OptimizationConfig(), config.PipelineConfig(), 8, 8, 1,
+        True, 0, 0, n_splats=10, generator=torch.Generator()))
     # 4-D steps are ported (tests/test_torch_4d.py holds them)
     assert callable(train_lib.make_train_step(
         None, config.OptimizationConfig(), config.PipelineConfig(), 8, 8, 1,
