@@ -203,11 +203,39 @@ Phases, each raising on failure:
     step with ``n_splats`` (the same subset on both) and a small 4-D
     VarHexPlane step with per-frame deltas (``SMALL_HEX``), as phase 7.
 
+32. ``scripts/run_dtu.sh``'s four command lines, read from the script,
+    on a synthetic COLMAP scan (``write_colmap_scene``: a binary
+    ``sparse/0`` with 49 PINHOLE cameras and ``COLMAP_POINTS`` points
+    with tracks, RGBA frames of ``COLMAP_SIZE`` whose alpha is the mask),
+    which ``sniff_scene_type`` reads as "Colmap": the 3DGS line (init
+    from points3D.bin) and the SplatFields3D line (init from the 3DGS
+    run's PLY through ``--pc_path``) at ``-r 2``, with ``ITERS`` and
+    ``PC_ITER`` cut as phase 20's, the mask loss on the alpha masks, the
+    kernels on each loop's inputs and partial tiles as in phase 20; both
+    render lines with ``--lpips_weights`` (3 train and 25 pixelNeRF test
+    views); ``extract_geo`` on the SplatFields3D run.
+33. ``scripts/run_owlii.sh``'s SplatFields4D train line on a synthetic
+    nerfies capture (``write_nerfies_scene``: 13 rig cameras over
+    ``NERFIES_TIMES`` times at ``NERFIES_SIZE``, the moving ground truth
+    of phase 25, ``NERFIES_POINTS`` DUSt3R points), ``-s`` at the vrig
+    scene (the flags only the ResFields reader reads have no effect),
+    ``ITERS`` cut to ``NERFIES_ITERS``: VarTriPlane, rank 40, offset flow,
+    5 views; the kernels on the loop's inputs; the render CLI with
+    ``--render_pred --skip_train``: the 650 frames of the spline path and
+    the test set with metrics; ``extract_geo`` at fid 0.
+34. ``card_vs_cpu`` for a small Colmap run (160x120, run_dtu.sh's 3DGS
+    flags) and ``resumed_card_vs_cpu`` (phase 26's method) for a small
+    rank-40 nerfies run (64x36, 2 times, 2 views).
+35. Phase 15's command line on phase 14's scene, ``PROFILE_ITERS``
+    iterations with ``--profile --watchdog_min 30``: the trace of
+    iterations 21-30 exists and names both blend kernels, ten launches
+    each; the watchdog's thread stops with the run.
+
 The line before the last is a JSON object of the kernels (the blend
 kernels' ``loop_launches``: their counts in phases 15, 16, 18, 20, 23,
-25, 27, 29 and 30, ``loop_max_abs_err``: their errors on those phases'
-inputs, and ``partial_tile_max_abs_err`` / ``partial_tile_max_err``:
-their errors on phase 20's partial tiles; the fused kernels'
+25, 27, 29, 30, 32, 33 and 35, ``loop_max_abs_err``: their errors on those
+phases' inputs, and ``partial_tile_max_abs_err`` / ``partial_tile_max_err``:
+their errors on phases 20, 32 and 33's partial tiles; the fused kernels'
 ``option_launches`` and ``option_max_layer_gap``: phase 28's); the last
 line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -381,6 +409,38 @@ def orbit_pose(theta, phi, radius):
     return c2w
 
 
+def gt_splats(n_splats, seed, device, spread=0.5):
+    """The writers' seeded ground-truth splats: means in [-spread,
+    spread]^3, scales shrunk with the count, random rotations, opacities
+    and colours."""
+    import torch
+    rng = np.random.RandomState(seed)
+    scale = (300 / n_splats) ** (1 / 3)
+    return {k: torch.as_tensor(v.astype(np.float32), device=device)
+            for k, v in (
+                ("means", rng.uniform(-spread, spread, (n_splats, 3))),
+                ("scales", (0.03 + 0.04 * rng.rand(n_splats, 3)) * scale),
+                ("rots", rng.randn(n_splats, 4)),
+                ("ops", rng.uniform(0.5, 0.95, n_splats)),
+                ("cols", rng.rand(n_splats, 3)))}
+
+
+def render_gt(t, cam, width, height, shift=None):
+    """One ground-truth frame of ``gt_splats`` (their means moved by
+    ``shift``) through a port camera, on a white background -> the
+    rasterizer's output."""
+    import torch
+
+    from splatfields_torch.ops.raster.api import rasterize
+    c = cam.device_consts
+    means = t["means"] if shift is None else t["means"] + shift
+    return rasterize(means, t["scales"], t["rots"], t["ops"],
+                     c["viewmatrix"], c["projmatrix"], c["campos"],
+                     torch.ones(3, device=means.device), cam.tanfovx,
+                     cam.tanfovy, width, height, colors_precomp=t["cols"],
+                     tile_cap=256, k_chunk=64)
+
+
 def write_blender_scene(root, res, n_train, test_thetas, device, n_splats=300,
                         seed=0, level=1):
     """A synthetic Blender_cv dataset under ``root`` (``lego``): the
@@ -398,7 +458,6 @@ def write_blender_scene(root, res, n_train, test_thetas, device, n_splats=300,
     from splatfields_torch.data.cameras import load_cam
     from splatfields_torch.data.readers.blender import (
         read_cameras_from_transforms_cv)
-    from splatfields_torch.ops.raster.api import rasterize
 
     root = os.path.join(str(root), "lego")
     splits = {"train": list(np.linspace(0, 2 * np.pi, n_train,
@@ -416,27 +475,14 @@ def write_blender_scene(root, res, n_train, test_thetas, device, n_splats=300,
             with open(os.path.join(root, name, f"r_{i}.png"), "wb") as f:
                 f.write(blank)
 
-    rng = np.random.RandomState(seed)
-    scale = (300 / n_splats) ** (1 / 3)
-    t = {k: torch.as_tensor(v.astype(np.float32), device=device) for k, v in (
-        ("means", rng.uniform(-0.5, 0.5, (n_splats, 3))),
-        ("scales", (0.03 + 0.04 * rng.rand(n_splats, 3)) * scale),
-        ("rots", rng.randn(n_splats, 4)),
-        ("ops", rng.uniform(0.5, 0.95, n_splats)),
-        ("cols", rng.rand(n_splats, 3)))}
-    white = torch.ones(3, device=device)
+    t = gt_splats(n_splats, seed, device)
     for name in splits:
         infos, _ = read_cameras_from_transforms_cv(
             root, f"transforms_{name}.json", True)
         for i, info in enumerate(infos):
             cam = load_cam(info, -1, i, 1.0, max_resolution=res,
                            device=device)
-            c = cam.device_consts
-            out = rasterize(
-                t["means"], t["scales"], t["rots"], t["ops"],
-                c["viewmatrix"], c["projmatrix"], c["campos"], white,
-                cam.tanfovx, cam.tanfovy, res, res,
-                colors_precomp=t["cols"], tile_cap=256, k_chunk=64)
+            out = render_gt(t, cam, res, res)
             rgba = torch.cat([out.color, out.alpha]).clamp(0, 1)
             png.write(os.path.join(root, name, f"r_{i}.png"),
                       (rgba.permute(1, 2, 0).cpu().numpy() * 255).astype(
@@ -476,12 +522,9 @@ def write_dtu_scene(root, width, height, n_views, device, n_splats=30_000,
     the scan's path."""
     import os
 
-    import torch
-
     from splatfields_torch.data import png
     from splatfields_torch.data.cameras import load_cam
     from splatfields_torch.data.readers.neus import read_dtu_cameras
-    from splatfields_torch.ops.raster.api import rasterize
 
     root = os.path.join(str(root), "scan_t")
     for sub in ("image", "mask"):
@@ -501,22 +544,10 @@ def write_dtu_scene(root, width, height, n_views, device, n_splats=30_000,
                 f.write(data)
     np.savez(os.path.join(root, "cameras_sphere.npz"), **npz)
 
-    rng = np.random.RandomState(seed)
-    scale = (300 / n_splats) ** (1 / 3)
-    t = {k: torch.as_tensor(v.astype(np.float32), device=device) for k, v in (
-        ("means", rng.uniform(-0.6, 0.6, (n_splats, 3))),
-        ("scales", (0.03 + 0.04 * rng.rand(n_splats, 3)) * scale),
-        ("rots", rng.randn(n_splats, 4)),
-        ("ops", rng.uniform(0.5, 0.95, n_splats)),
-        ("cols", rng.rand(n_splats, 3)))}
-    white = torch.ones(3, device=device)
+    t = gt_splats(n_splats, seed, device, spread=0.6)
     for i, info in enumerate(read_dtu_cameras(root)):
         cam = load_cam(info, 1, i, device=device)
-        c = cam.device_consts
-        out = rasterize(t["means"], t["scales"], t["rots"], t["ops"],
-                        c["viewmatrix"], c["projmatrix"], c["campos"], white,
-                        cam.tanfovx, cam.tanfovy, width, height,
-                        colors_precomp=t["cols"], tile_cap=256, k_chunk=64)
+        out = render_gt(t, cam, width, height)
         rgb = (out.color.clamp(0, 1).permute(1, 2, 0).cpu().numpy() * 255)
         mask = (out.alpha[0] > 0.2).cpu().numpy()
         png.write(os.path.join(root, "image", f"{i:03d}.png"),
@@ -551,7 +582,6 @@ def write_owlii_scene(root, res, n_frames, device, n_splats=300, seed=0,
     from splatfields_torch.data import png
     from splatfields_torch.data.cameras import load_cam
     from splatfields_torch.data.readers.neus import read_cameras_from_neus
-    from splatfields_torch.ops.raster.api import rasterize
 
     root = os.path.join(str(root), OWLII_SCENE)
     names = [f"cam_train_{c}" for c in range(OWLII_TRAIN_CAMS)] + [
@@ -559,15 +589,7 @@ def write_owlii_scene(root, res, n_frames, device, n_splats=300, seed=0,
     thetas = [2 * np.pi * c / OWLII_TRAIN_CAMS
               for c in range(OWLII_TRAIN_CAMS)] + [np.pi / OWLII_TRAIN_CAMS]
     blank = png.encode(np.zeros((res, res, 3), np.uint8), level=level)
-    rng = np.random.RandomState(seed)
-    scale = (300 / n_splats) ** (1 / 3)
-    t = {k: torch.as_tensor(v.astype(np.float32), device=device) for k, v in (
-        ("means", rng.uniform(-0.5, 0.5, (n_splats, 3))),
-        ("scales", (0.03 + 0.04 * rng.rand(n_splats, 3)) * scale),
-        ("rots", rng.randn(n_splats, 4)),
-        ("ops", rng.uniform(0.5, 0.95, n_splats)),
-        ("cols", rng.rand(n_splats, 3)))}
-    white = torch.ones(3, device=device)
+    t = gt_splats(n_splats, seed, device)
     for name, th in zip(names, thetas):
         cam_dir = os.path.join(root, name)
         for sub in ("image", "mask"):
@@ -586,14 +608,9 @@ def write_owlii_scene(root, res, n_frames, device, n_splats=300, seed=0,
         for f, info in enumerate(infos):
             cam = load_cam(info, -1, f, 1.0, max_resolution=res,
                            device=device)
-            c = cam.device_consts
             shift = torch.tensor([0.2 * f / max(n_frames - 1, 1), 0.0, 0.0],
                                  device=device)
-            out = rasterize(
-                t["means"] + shift, t["scales"], t["rots"], t["ops"],
-                c["viewmatrix"], c["projmatrix"], c["campos"], white,
-                cam.tanfovx, cam.tanfovy, res, res,
-                colors_precomp=t["cols"], tile_cap=256, k_chunk=64)
+            out = render_gt(t, cam, res, res, shift)
             mask = (out.alpha[0] > 0.5).cpu().numpy()
             rgb = out.color.clamp(0, 1).permute(1, 2, 0).cpu().numpy()
             png.write(os.path.join(cam_dir, "image", f"{f:03d}.png"),
@@ -607,26 +624,273 @@ def write_owlii_scene(root, res, n_frames, device, n_splats=300, seed=0,
     return root
 
 
-def owlii_command_lines(env=None):
-    """``scripts/run_owlii.sh``'s train and render command lines as
-    argument lists, its variables expanded (``env`` overrides the
+def script_command_lines(script, env=None):
+    """``scripts/<script>``'s command lines, in order, as (entry point,
+    argument list) pairs, its variables expanded (``env`` overrides the
     script's defaults, as its environment would)."""
     import re
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", "run_owlii.sh")
+                        "scripts", script)
     with open(path) as f:
         text = f.read().replace("\\\n", " ")
     env = dict(env or {})
     values = {m[1]: str(env.get(m[1], m[2])) for m in re.finditer(
         r"^(\w+)=\$\{\w+:-([^}]*)\}", text, re.M)}
-    lines = {}
+    lines = []
     for line in text.splitlines():
         words = line.split()
         if words and words[0].startswith("$PY."):
-            lines[words[0][4:]] = [re.sub(
+            lines.append((words[0][4:], [re.sub(
                 r"\$\{(\w+)\}|\$(\w+)",
-                lambda m: values[m[1] or m[2]], w) for w in words[1:]]
+                lambda m: values[m[1] or m[2]], w) for w in words[1:]]))
+    return lines
+
+
+def owlii_command_lines(env=None):
+    """``scripts/run_owlii.sh``'s train and render command lines as
+    argument lists, its variables expanded (``env`` overrides the
+    script's defaults, as its environment would)."""
+    lines = dict(script_command_lines("run_owlii.sh", env))
     return lines["train"], lines["render"]
+
+
+def look_at_w2c(center, target=(0.0, 0.0, 0.0)):
+    """OpenCV world-to-camera (R [3, 3], t [3]), float64, of a camera at
+    ``center`` looking at ``target``: x right, y down (the world's +y up),
+    z forward."""
+    center = np.asarray(center, np.float64)
+    fwd = np.asarray(target, np.float64) - center
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, np.array([0.0, 1.0, 0.0]))
+    right /= np.linalg.norm(right)
+    r_c2w = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+    return r_c2w.T, -r_c2w.T @ center
+
+
+COLMAP_SCAN = "scan_colmap"   # the scan directory write_colmap_scene makes
+
+
+# a DTU scan's 49 views: the pixelNeRF split's 9 train, 15 excluded and
+# 25 test ids
+COLMAP_VIEWS = 49
+COLMAP_TARGET = (0.0, 0.5, 0.0)   # above the object: it reaches the bottom
+
+
+def colmap_pose(i):
+    """The ``i``-th of the ``COLMAP_VIEWS`` cameras: a 7-wide grid of
+    directions over the front of the object, as a DTU capture's arm
+    covers it, at radius 3 -> the camera centre. The cameras look at
+    ``COLMAP_TARGET``, so the object fills the lower part of each frame,
+    its bottom row of tiles (partial at 800x600) included."""
+    radius = 3.0
+    cols = int(math.ceil(math.sqrt(COLMAP_VIEWS)))
+    rows = int(math.ceil(COLMAP_VIEWS / cols))
+    th = -0.8 + 1.6 * (i % cols) / max(cols - 1, 1)
+    ph = 0.05 + 0.6 * (i // cols) / max(rows - 1, 1)
+    return radius * np.array([math.cos(ph) * math.sin(th), math.sin(ph),
+                              math.cos(ph) * math.cos(th)])
+
+
+def _colmap_binaries(sparse, width, height, focal, poses, xyz, rgb, tracks):
+    """COLMAP's binary model (``cameras.bin``, ``images.bin``,
+    ``points3D.bin``), packed here: image ``i`` (id i + 1, camera id
+    n - i, one PINHOLE camera per image) at ``poses[i]`` = (R, t), its
+    POINTS2D the projections of the points whose track holds it."""
+    import struct
+
+    from splatfields_torch.data.colmap_io import rotmat2qvec
+    n = len(poses)
+    kmat = np.array([[focal, 0, width / 2], [0, focal, height / 2],
+                     [0, 0, 1]])
+    seen = [[] for _ in range(n)]       # per image: (point id, x, y)
+    track_idx = []
+    for pid, imgs in enumerate(tracks):
+        elems = []
+        for i in imgs:
+            R, t = poses[i]
+            uvw = kmat @ (R @ xyz[pid] + t)
+            elems.append((i + 1, len(seen[i])))
+            seen[i].append((pid + 1, uvw[0] / uvw[2], uvw[1] / uvw[2]))
+        track_idx.append(elems)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n))
+        for i in range(n):
+            f.write(struct.pack("<iiQQdddd", n - i, 1, width, height, focal,
+                                focal, width / 2, height / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n))
+        for i, (R, t) in enumerate(poses):
+            f.write(struct.pack("<i4d3di", i + 1, *rotmat2qvec(R), *t,
+                                n - i))
+            f.write(f"{i:03d}.png".encode() + b"\x00")
+            f.write(struct.pack("<Q", len(seen[i])))
+            for pid, x, y in seen[i]:
+                f.write(struct.pack("<ddq", x, y, pid))
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        err = np.random.RandomState(1).rand(len(xyz))
+        for pid in range(len(xyz)):
+            f.write(struct.pack("<Q3d3BdQ", pid + 1, *xyz[pid], *rgb[pid],
+                                err[pid], len(track_idx[pid])))
+            for elem in track_idx[pid]:
+                f.write(struct.pack("<ii", *elem))
+
+
+def write_colmap_scene(root, width, height, device, n_splats=30_000,
+                       n_points=5_000, seed=0):
+    """A synthetic COLMAP scan under ``root`` (``COLMAP_SCAN``): a binary
+    ``sparse/0`` (``_colmap_binaries``: ``COLMAP_VIEWS`` PINHOLE cameras at
+    ``colmap_pose``, focal 1.15 x ``width``, and ``n_points`` points, the
+    ground-truth means with noise and their colours, each seen by 2-4
+    images) and ``images/000.png ..``, RGBA PNGs whose alpha (1 - final
+    T) is the object's mask, the ground truth rendered by the port's
+    ``rasterize`` on ``device`` through the port reader's own cameras
+    from ``gt_splats``. Returns the scan's path."""
+    import torch
+
+    from splatfields_torch.data import png
+    from splatfields_torch.data.cameras import load_cam
+    from splatfields_torch.data.readers.colmap import _load_colmap_model
+
+    root = os.path.join(str(root), COLMAP_SCAN)
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    t = gt_splats(n_splats, seed, device, spread=0.6)
+    rng = np.random.RandomState(seed + 1)
+    pick = rng.choice(n_splats, min(n_points, n_splats), replace=False)
+    xyz = (t["means"][pick].cpu().numpy().astype(np.float64)
+           + 0.005 * rng.randn(len(pick), 3))
+    rgb = (t["cols"][pick].cpu().numpy() * 255).astype(np.uint8)
+    tracks = [rng.choice(COLMAP_VIEWS, rng.randint(2, 5), replace=False)
+              for _ in range(len(pick))]
+    poses = [look_at_w2c(colmap_pose(i), COLMAP_TARGET)
+             for i in range(COLMAP_VIEWS)]
+    _colmap_binaries(sparse, width, height, 1.15 * width, poses, xyz, rgb,
+                     tracks)
+    blank = png.encode(np.zeros((height, width, 4), np.uint8), level=1)
+    for i in range(COLMAP_VIEWS):
+        with open(os.path.join(root, "images", f"{i:03d}.png"), "wb") as f:
+            f.write(blank)
+    for i, info in enumerate(_load_colmap_model(root, "images", True)):
+        cam = load_cam(info, 1, i, device=device)
+        out = render_gt(t, cam, width, height)
+        rgba = torch.cat([out.color, out.alpha]).clamp(0, 1).permute(
+            1, 2, 0).cpu().numpy()
+        png.write(info.image_path, (rgba * 255).astype(np.uint8),
+                  level=1)
+    return root
+
+
+NERFIES_BRANCH = "vrig"      # the parent directory write_nerfies_scene makes
+NERFIES_SCENE = "rig_t"      # its scene directory
+NERFIES_CAMS = 13            # rig ids 0-12: every id of the spline path
+NERFIES_VAL_CAM = 12
+NERFIES_TARGET = (0.0, 0.35, 0.0)
+# scene.json: the capture's raw frame is the reader's, shifted and scaled
+NERFIES_SCALE, NERFIES_CENTER = 0.8, (0.1, -0.2, 0.3)
+
+
+def nerfies_id(cam, time):
+    return f"c{cam:02d}_{time:05d}"
+
+
+def write_nerfies_scene(root, width, height, n_times, device, n_splats=300,
+                        n_points=2_000, seed=0, scales=(1,)):
+    """A synthetic nerfies multi-view capture under
+    ``root/NERFIES_BRANCH/NERFIES_SCENE`` (the reader takes the dataset
+    branch from the parent's name: ``vrig``, every id at 1x; link the
+    scene under ``interp*`` or another name, with ``scales`` (1, 2), for
+    the others): ``scene.json`` (``NERFIES_SCALE``,
+    ``NERFIES_CENTER``), ``metadata.json`` (time and camera ids),
+    ``dataset.json`` (ids in time order; rig cameras 0-11 train, camera 12
+    val, at every time), ``camera/<id>.json`` (a rig of ``NERFIES_CAMS``
+    cameras on an arc of radius 3, focal 1.1 x ``width``, positions in
+    the capture's raw frame, a ``tangential`` key), ``rgb/<s>x/<id>.png``
+    for each ``s`` of ``scales`` (RGB, the frame at 1/s size) and
+    ``duster_points3d.ply`` (``n_points`` points about the ground truth at
+    time 0, in the raw frame). The rig looks at ``NERFIES_TARGET``, so the
+    object reaches the frame's bottom row of tiles (partial at 270). The
+    ground truth is ``write_owlii_scene``'s: ``gt_splats`` moving 0.2
+    along x over the ``n_times`` times, rendered by the port's
+    ``rasterize`` on ``device`` through the port reader's own cameras.
+    Returns the scene's path."""
+    import json
+
+    import torch
+
+    from splatfields_torch.data import png
+    from splatfields_torch.data.cameras import load_cam
+    from splatfields_torch.data.ply import store_pointcloud
+    from splatfields_torch.data.readers.nerfies import read_nerfies_cameras_mv
+
+    root = os.path.join(str(root), NERFIES_BRANCH, NERFIES_SCENE)
+    for sub in ["camera"] + [f"rgb/{s}x" for s in scales]:
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    center, scene_scale = np.array(NERFIES_CENTER), NERFIES_SCALE
+    ids = [nerfies_id(c, f) for f in range(n_times)
+           for c in range(NERFIES_CAMS)]
+    meta = {nerfies_id(c, f): {"time_id": f, "camera_id": c, "warp_id": f,
+                               "appearance_id": f}
+            for f in range(n_times) for c in range(NERFIES_CAMS)}
+    with open(os.path.join(root, "scene.json"), "w") as f:
+        json.dump({"scale": scene_scale, "center": center.tolist(),
+                   "near": 0.5, "far": 8.0}, f)
+    with open(os.path.join(root, "metadata.json"), "w") as f:
+        json.dump(meta, f)
+    with open(os.path.join(root, "dataset.json"), "w") as f:
+        json.dump({"count": len(ids), "num_exemplars": len(ids), "ids": ids,
+                   "train_ids": [i for i in ids
+                                 if meta[i]["camera_id"] != NERFIES_VAL_CAM],
+                   "val_ids": [i for i in ids
+                               if meta[i]["camera_id"] == NERFIES_VAL_CAM]},
+                  f)
+    focal = 1.1 * width
+    for c in range(NERFIES_CAMS):
+        th = -1.0 + 2.0 * c / (NERFIES_CAMS - 1)
+        pos = np.array([3.0 * math.sin(th), 0.3 + 0.1 * (c % 3),
+                        3.0 * math.cos(th)])
+        rot, _ = look_at_w2c(pos, NERFIES_TARGET)
+        cam = {"orientation": rot.tolist(),
+               "position": (pos / scene_scale + center).tolist(),
+               "focal_length": focal, "principal_point": [width / 2,
+                                                          height / 2],
+               "image_size": [width, height], "skew": 0.0,
+               "pixel_aspect_ratio": 1.0,
+               "radial_distortion": [0.0, 0.0, 0.0],
+               "tangential": [0.0, 0.0]}
+        for f in range(n_times):
+            with open(os.path.join(root, "camera",
+                                   nerfies_id(c, f) + ".json"), "w") as fh:
+                json.dump(cam, fh)
+    blank = png.encode(np.zeros((height, width, 3), np.uint8), level=1)
+    for i in ids:
+        for s in scales:
+            with open(os.path.join(root, f"rgb/{s}x", i + ".png"),
+                      "wb") as fh:
+                fh.write(blank)
+
+    t = gt_splats(n_splats, seed, device)
+    rng = np.random.RandomState(seed + 1)
+    pick = rng.choice(n_splats, n_points, replace=n_points > n_splats)
+    pts = (t["means"][pick].cpu().numpy().astype(np.float64)
+           + 0.01 * rng.randn(n_points, 3))
+    store_pointcloud(os.path.join(root, "duster_points3d.ply"),
+                     pts / scene_scale + center,
+                     rng.rand(n_points, 3).astype(np.float32))
+    # the reader's own cameras: the vrig branch reads every id at 1x
+    for info in read_nerfies_cameras_mv(root)[0]:
+        cam = load_cam(info, 1, 0, device=device)
+        f = meta[info.image_name]["time_id"]
+        shift = torch.tensor([0.2 * f / max(n_times - 1, 1), 0.0, 0.0],
+                             device=device)
+        out = render_gt(t, cam, width, height, shift)
+        rgb = (out.color.clamp(0, 1).permute(1, 2, 0).cpu().numpy()
+               * 255).astype(np.uint8)
+        for s in scales:
+            png.write(os.path.join(root, f"rgb/{s}x", info.image_name
+                                   + ".png"), rgb[::s, ::s], level=1)
+    return root
 
 
 def cuda_ms(fn, iters):
@@ -2889,10 +3153,13 @@ def device_idle(fn):
 
 
 class Timed:
-    """Inside ``with``: the wall seconds of every call of the ResFields
-    loader (``reader``, carve included), ``visual_hull_samples``
+    """Inside ``with``: the wall seconds of every call of the ``loader``
+    dataset loader (``reader``, carve included), ``visual_hull_samples``
     (``carve``), the render CLI's ``Scene`` (``scene``) and its
     ``metrics.eval_all`` (``metrics``: PNG reads and scipy SSIM)."""
+
+    def __init__(self, loader="ResFields"):
+        self.loader = loader
 
     def __enter__(self):
         import time
@@ -2901,7 +3168,7 @@ class Timed:
         from splatfields_torch.data import registry
         from splatfields_torch.data.readers import neus
         self.times = {k: [] for k in ("reader", "carve", "scene", "metrics")}
-        self.saved = (registry.SCENE_LOADERS["ResFields"],
+        self.saved = (registry.SCENE_LOADERS[self.loader],
                       neus.visual_hull_samples, render.Scene,
                       metrics.eval_all)
 
@@ -2913,7 +3180,7 @@ class Timed:
                 return out
             return wrapper
 
-        registry.SCENE_LOADERS["ResFields"] = timed(self.saved[0], "reader")
+        registry.SCENE_LOADERS[self.loader] = timed(self.saved[0], "reader")
         neus.visual_hull_samples = timed(self.saved[1], "carve")
         render.Scene = timed(self.saved[2], "scene")
         metrics.eval_all = timed(self.saved[3], "metrics")
@@ -2926,7 +3193,7 @@ class Timed:
         from splatfields_torch import metrics, render
         from splatfields_torch.data import registry
         from splatfields_torch.data.readers import neus
-        (registry.SCENE_LOADERS["ResFields"], neus.visual_hull_samples,
+        (registry.SCENE_LOADERS[self.loader], neus.visual_hull_samples,
          render.Scene, metrics.eval_all) = self.saved
 
 
@@ -3313,25 +3580,33 @@ def owlii_small_scene(root):
 
 
 def owlii_card_vs_cpu(dev, iters=5):
-    """Phase 26: a 5-iteration 4-D loop on the CPU, and on the card each
-    iteration k from the CPU's train state after k - 1 (``--resume``):
-    the losses of every iteration within phase 7's 1e-5 relative -> the
-    worst. The CPU runs the loop twice, and the two runs' spread is
-    printed: Adam from zero moments moves every ResField entry by its
-    learning rate whatever the size of its gradient, so f32 noise in
-    near-zero gradients compounds over free-running iterations (rank 40:
-    ~1e-5 in 5, the CPU against itself), and the card is compared on
-    shared states."""
+    """Phase 26: ``resumed_card_vs_cpu`` of ``OWLII_SMALL_ARGV`` on
+    ``owlii_small_scene``."""
+    import shutil
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "owlii_small")
+    shutil.rmtree(base, ignore_errors=True)
+    return resumed_card_vs_cpu(
+        "phase 26 run_owlii.sh (64x64, 2 frames, rank 40, 2 views)",
+        ["-s", owlii_small_scene(base)] + OWLII_SMALL_ARGV, base, dev, iters)
+
+
+def resumed_card_vs_cpu(label, argv, base, dev, iters=5):
+    """A 5-iteration loop of the command line ``argv`` (a 4-D run) on the
+    CPU, and on the card each iteration k from the CPU's train state after
+    k - 1 (``--resume``), run directories under ``base``: the losses of
+    every iteration within phase 7's 1e-5 relative -> the worst. The CPU
+    runs the loop twice, and the two runs' spread is printed: Adam from
+    zero moments moves every ResField entry by its learning rate whatever
+    the size of its gradient, so f32 noise in near-zero gradients
+    compounds over free-running iterations (rank 40: ~1e-5 in 5, the CPU
+    against itself), and the card is compared on shared states."""
     import random
     import shutil
 
     import torch
 
     from splatfields_torch import train
-    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "owlii_small")
-    shutil.rmtree(base, ignore_errors=True)
-    argv = ["-s", owlii_small_scene(base)] + OWLII_SMALL_ARGV
 
     def loop(name, device, last, resume=False):
         args = train.build_train_parser().parse_args(
@@ -3366,19 +3641,19 @@ def owlii_card_vs_cpu(dev, iters=5):
             torch.save(state, os.path.join(dst, "state.pt"))
         got = loop(name, dev, k, resume=k > 1)
         if len(got) != 1:
-            raise AssertionError(f"phase 26: iteration {k} ran {len(got)} "
+            raise AssertionError(f"{label}: iteration {k} ran {len(got)} "
                                  "iterations on the card")
         card.append(got[0])
     card = np.array(card)
     rel = np.abs(card - cpu) / np.abs(cpu)
     spread = np.abs(again - cpu) / np.abs(cpu)
-    print(f"phase 26 run_owlii.sh (64x64, 2 frames, rank 40, 2 views): CPU "
+    print(f"{label}: CPU "
           f"losses {cpu.tolist()}; the card's, each iteration from the "
           f"CPU's state before it, {card.tolist()}, worst rel "
           f"{rel.max():.3e}; the CPU run again, free-running, rel "
           f"{spread.tolist()}")
     if not rel.max() <= 1e-5:
-        raise AssertionError("phase 26: losses differ")
+        raise AssertionError(f"{label}: losses differ")
     shutil.rmtree(base, ignore_errors=True)
     return float(rel.max())
 
@@ -3955,6 +4230,329 @@ def option_phases(dev, smi):
     return launches, loop_errs, fused_launches, fused_gaps
 
 
+# --- phases 32-35: the Colmap and nerfies datasets, --profile, --watchdog_min
+# phase 32: run_dtu.sh on a COLMAP scan; ITERS and PC_ITER cut as phase 20's;
+# frames of 800x600, not a DTU capture's 1600x1200: at -r 2 of those the
+# render CLI's host metrics took 1.7 s a frame on an H100 machine's host,
+# 58 s a render line
+COLMAP_SIZE = (800, 600)
+COLMAP_GT_SPLATS, COLMAP_POINTS = 30_000, 20_000
+# phase 33: run_owlii.sh's train line on a nerfies capture (ITERS cut; the
+# reader's default 300,000-point cap keeps the DUSt3R cloud whole)
+NERFIES_SIZE, NERFIES_TIMES = (480, 270), 10
+NERFIES_GT_SPLATS, NERFIES_POINTS = 30_000, 100_000
+NERFIES_ITERS = 12
+NERFIES_PRED = 650      # 14 keyframes of the rig, 50 poses a segment
+GEO_MESH_RES = 64
+# phase 34: a small Colmap and a small nerfies run, card against CPU
+NERFIES_SMALL_ARGV = ("--white_background --eval --load_time_step 2 "
+                      "--flow_model offset --all_training --num_views 2 "
+                      "--encoder_type VarTriPlaneEncoder "
+                      "--composition_rank 40").split()
+# phase 35: phase 15's line with --profile --watchdog_min 30
+PROFILE_ITERS = 31
+
+
+def dataset_phases(dev, smi):
+    """Phases 32-35: the Colmap and nerfies datasets through the CLIs,
+    card against CPU, ``--profile`` and ``--watchdog_min``. Returns
+    ({kernel name: {phase: launches}}, {phase: check_loop_blends' errors},
+    {phase: check_partial_tiles' errors})."""
+    import shutil
+
+    import torch
+
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, "build", "dataset_protocol")
+    shutil.rmtree(base, ignore_errors=True)
+    launches = {"blend_fwd": {}, "blend_bwd": {}}
+    loop_errs, partial_errs = {}, {}
+
+    def counted(phase, want_fwd, want_bwd):
+        torch.cuda.synchronize()
+        got = (blend_fwd.launches, blend_bwd.launches)
+        launches["blend_fwd"][phase], launches["blend_bwd"][phase] = got
+        if got != (want_fwd, want_bwd):
+            raise AssertionError(f"phase {phase}: blend launches {got}; want "
+                                 f"{(want_fwd, want_bwd)}")
+
+    colmap_protocol(dev, smi, base, counted, loop_errs, partial_errs)
+    nerfies_protocol(dev, smi, base, counted, loop_errs, partial_errs)
+
+    # --- 34. card against CPU: a small Colmap and a small nerfies run -------
+    # phase 21's size: at 64x48 (-r 2: 32x24) most splats are below a
+    # pixel, their scale gradients at the level of summation noise, and
+    # Adam's first steps (m / sqrt(v) ~ +-1) drift the losses past 1e-5
+    small = write_colmap_scene(os.path.join(base, "colmap_small"), 160, 120,
+                               torch.device("cpu"), n_splats=3000,
+                               n_points=2000)
+    card_vs_cpu("phase 34 Colmap 3DGS (run_dtu.sh's flags, 160x120, -r 2)",
+                ["-s", small] + DTU_3DGS,
+                os.path.join(base, "small_out", "colmap"), dev)
+    small_base = os.path.join(base, "nerfies_small")
+    nerfies = write_nerfies_scene(small_base, 64, 36, 2, torch.device("cpu"),
+                                  n_splats=2000, n_points=2000)
+    resumed_card_vs_cpu(
+        "phase 34 nerfies (run_owlii.sh's flags, 64x36, 2 times, rank 40, "
+        "2 views)", ["-s", nerfies] + NERFIES_SMALL_ARGV, small_base, dev)
+
+    profile_phase(dev, smi, counted)
+    shutil.rmtree(base, ignore_errors=True)
+    return launches, loop_errs, partial_errs
+
+
+def colmap_protocol(dev, smi, base, counted, loop_errs, partial_errs):
+    """Phase 32: ``run_dtu.sh``'s four lines on ``write_colmap_scene``,
+    then ``extract_geo`` on the SplatFields3D run."""
+    import time
+
+    import torch
+
+    from splatfields_torch import extract_geo, render, train
+    from splatfields_torch.data.colmap_io import read_points3d_binary
+    from splatfields_torch.data.ply import fetch_pointcloud
+    from splatfields_torch.data.registry import sniff_scene_type
+    from splatfields_torch.metrics import read_results
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.utils.system import search_for_max_iteration
+
+    t0 = time.time()
+    scan = write_colmap_scene(base, *COLMAP_SIZE, dev,
+                              n_splats=COLMAP_GT_SPLATS,
+                              n_points=COLMAP_POINTS)
+    torch.cuda.synchronize()
+    kind = sniff_scene_type(scan)
+    print(f"phase 32: COLMAP scan ({kind}), {COLMAP_VIEWS} views of "
+          f"{COLMAP_SIZE[0]}x{COLMAP_SIZE[1]} RGBA, {COLMAP_POINTS} points "
+          f"with tracks, {COLMAP_GT_SPLATS} ground-truth splats, written in "
+          f"{time.time() - t0:.2f} s")
+    if kind != "Colmap":
+        raise AssertionError(f"phase 32: the scan sniffs as {kind}")
+    out = os.path.join(base, "dtu")
+    env = dict(DATASET_ROOT=base, SCENE=COLMAP_SCAN, OUT=out,
+               PC_ITER=DTU_ITERS)
+    lines = (script_command_lines("run_dtu.sh", dict(env, ITERS=DTU_ITERS))[:2]
+             + script_command_lines("run_dtu.sh",
+                                    dict(env, ITERS=DTU_FIELD_ITERS))[2:])
+    weights = write_lpips_weights(os.path.join(base, "lpips_vgg.npz"))
+    xyz3d = read_points3d_binary(os.path.join(scan, "sparse", "0",
+                                              "points3D.bin"))[0]
+    w, h = COLMAP_SIZE[0] // 2, COLMAP_SIZE[1] // 2
+    for (_, argv), (_, render_argv) in (lines[0:2], lines[2:4]):
+        name = os.path.basename(argv[argv.index("-m") + 1])
+        iters = int(argv[argv.index("--iterations") + 1])
+        phase = f"32 {name}"
+        blend_fwd.launches = blend_bwd.launches = 0
+        with Timed("Colmap") as timed, LoopBlends() as cap:
+            res = train.main(argv)
+        counted(phase, iters, iters)
+        on_card(f"phase {phase}",
+                {**dict(vars(res.params)), **dict(vars(res.stats))})
+        run = argv[argv.index("-m") + 1]
+        init, _, _ = fetch_pointcloud(os.path.join(run, "input.ply"))
+        if "--pc_path" in argv:
+            pc = fetch_pointcloud(argv[argv.index("--pc_path") + 1])[0]
+            want = pc[np.all(np.abs(pc) < 1, axis=1)]
+        else:
+            want = xyz3d.astype(np.float32)
+        if not np.array_equal(init, want):
+            raise AssertionError(f"phase {phase}: the splats do not start "
+                                 "from the points the line names")
+        m = read_metrics(run)
+        mask_loss = [v for _, v in m.get("train_loss_patches/mask", [])]
+        if not (mask_loss and np.isfinite(mask_loss).all()):
+            raise AssertionError(f"phase {phase}: no mask loss {m.keys()}")
+        print(f"phase {phase}: {iters} iterations at {w}x{h} (-r 2 of "
+              f"{COLMAP_SIZE[0]}x{COLMAP_SIZE[1]}), {res.ms_per_it:.3f} "
+              f"ms/it, step {res.step_ms:.3f} ms mean, init {len(init)} "
+              f"points, {int(res.stats.valid.sum())} splats at the end, "
+              f"dup_factor growth {res.dup_growth}, mask loss (every 10th "
+              f"iteration) {mask_loss[0]:.5f} -> {mask_loss[-1]:.5f}; reader "
+              f"{timed.seconds('reader'):.3f} s for {COLMAP_VIEWS} views; "
+              f"{smi}")
+        del res
+        loop_errs[phase] = check_loop_blends(f"phase {phase}", cap)
+        partial_errs[phase] = check_partial_tiles(f"phase {phase}", cap, w, h)
+        del cap
+        blend_fwd.launches = 0
+        t0 = time.time()
+        with Timed("Colmap") as timed:
+            results = render.main(render_argv + ["--lpips_weights", weights])
+        torch.cuda.synchronize()
+        render_s = time.time() - t0
+        n_frames = 3 + 25   # the train views and the pixelNeRF test views
+        launches_render = blend_fwd.launches
+        if launches_render != n_frames:
+            raise AssertionError(f"phase {phase}: render launched "
+                                 f"{launches_render} blends")
+        for split in ("train", "test"):
+            got = read_results(os.path.join(run, split, f"ours_{iters}",
+                                            "results.yaml"))
+            if not (results[split]["psnr"] == got["psnr"]
+                    and np.isfinite([got["psnr"], got["lpips"]]).all()):
+                raise AssertionError(f"phase {phase}: render.py {split} "
+                                     f"{got}")
+        print(f"phase {phase}: render CLI with --lpips_weights, "
+              f"{n_frames} frames in {render_s:.3f} s (scene load "
+              f"{timed.seconds('scene'):.3f} s, metrics "
+              f"{timed.seconds('metrics'):.3f} s); test {results['test']}; "
+              f"{smi}")
+
+    run = os.path.join(out, COLMAP_SCAN, "3views", "SplatFields3D")
+    t0 = time.time()
+    report = extract_geo.main(["-m", run, "--mesh_resolution",
+                               str(GEO_MESH_RES)])
+    torch.cuda.synchronize()
+    it = search_for_max_iteration(os.path.join(run, "point_cloud"))
+    verts, faces = mesh_counts(os.path.join(run, f"mesh_iteration_{it}.ply"))
+    if not (len(report) == 4 and verts > 0 and faces > 0):
+        raise AssertionError(f"phase 32: extract_geo {report}, mesh "
+                             f"{verts}, {faces}")
+    print(f"phase 32: extract_geo on SplatFields3D, {time.time() - t0:.3f} "
+          f"s, MoransI {report}, mesh {GEO_MESH_RES}^3 -> {verts} vertices, "
+          f"{faces} faces; {smi}")
+
+
+def nerfies_protocol(dev, smi, base, counted, loop_errs, partial_errs):
+    """Phase 33: ``run_owlii.sh``'s SplatFields4D train line on
+    ``write_nerfies_scene``, the render CLI with ``--render_pred`` (the
+    spline's frames) and the test set, ``extract_geo`` at fid 0."""
+    import glob
+    import time
+
+    import torch
+
+    from splatfields_torch import extract_geo, render, train
+    from splatfields_torch.data.registry import sniff_scene_type
+    from splatfields_torch.metrics import read_results
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.utils.system import search_for_max_iteration
+
+    t0 = time.time()
+    scene = write_nerfies_scene(base, *NERFIES_SIZE, NERFIES_TIMES, dev,
+                                n_splats=NERFIES_GT_SPLATS,
+                                n_points=NERFIES_POINTS)
+    torch.cuda.synchronize()
+    kind = sniff_scene_type(scene)
+    print(f"phase 33: nerfies capture ({kind}, branch {NERFIES_BRANCH}), "
+          f"{NERFIES_CAMS} rig cameras x {NERFIES_TIMES} times at "
+          f"{NERFIES_SIZE[0]}x{NERFIES_SIZE[1]}, {NERFIES_POINTS} DUSt3R "
+          f"points, {NERFIES_GT_SPLATS} moving ground-truth splats, written "
+          f"in {time.time() - t0:.2f} s")
+    if kind != "nerfies":
+        raise AssertionError(f"phase 33: the capture sniffs as {kind}")
+    out = os.path.join(base, "nerfies")
+    train_argv, render_argv = owlii_command_lines(dict(
+        DATASET_ROOT=os.path.dirname(scene), SCENE=NERFIES_SCENE, OUT=out,
+        ITERS=NERFIES_ITERS, TIME_STEP=NERFIES_TIMES))
+    run = os.path.join(out, "8views", NERFIES_SCENE, "SplatFields4D")
+    extra = ["--test_iterations", "1", str(NERFIES_ITERS)]
+    n_test = NERFIES_TIMES   # rig camera 12 at every time
+    blend_fwd.launches = blend_bwd.launches = 0
+    with Timed("nerfies") as timed, LoopBlends() as cap:
+        res = train.main(train_argv + extra)
+    counted("33", 5 * NERFIES_ITERS + 2 * (min(25, n_test) + 5),
+            5 * NERFIES_ITERS)
+    on_card("phase 33", {**dict(vars(res.params)), **dict(vars(res.stats)),
+                         **res.deform.params})
+    if not (res.deform.n_frames == NERFIES_TIMES
+            and int(res.stats.valid.sum()) == NERFIES_POINTS):
+        raise AssertionError(f"phase 33: {res.deform.n_frames} frames, "
+                             f"{int(res.stats.valid.sum())} splats")
+    psnr = dict(read_metrics(run)["test/loss_viewpoint - psnr"])
+    if not psnr[NERFIES_ITERS] > psnr[1]:
+        raise AssertionError(f"phase 33: test PSNR {psnr}")
+    print(f"phase 33: run_owlii.sh's train line (ITERS={NERFIES_ITERS}, "
+          f"TIME_STEP={NERFIES_TIMES}, {' '.join(extra)}), "
+          f"{res.ms_per_it:.3f} ms/it, step {res.step_ms:.3f} ms mean "
+          f"({NERFIES_SIZE[0]}x{NERFIES_SIZE[1]}, 5 views, rank 40); test "
+          f"PSNR {psnr[1]:.3f} at 1 -> {psnr[NERFIES_ITERS]:.3f}; dup_factor "
+          f"growth {res.dup_growth}; reader {timed.seconds('reader'):.3f} s "
+          f"for {NERFIES_CAMS * NERFIES_TIMES} frames; {smi}")
+    del res
+    loop_errs["33"] = check_loop_blends("phase 33", cap)
+    partial_errs["33"] = check_partial_tiles("phase 33", cap, *NERFIES_SIZE)
+    del cap
+    torch.cuda.empty_cache()
+    blend_fwd.launches = 0
+    t0 = time.time()
+    with Timed("nerfies") as timed:
+        render.main(render_argv + ["--render_pred", "--skip_train"])
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    it = search_for_max_iteration(os.path.join(run, "point_cloud"))
+    n_pred = len(glob.glob(os.path.join(run, "pred", f"ours_{it}", "renders",
+                                        "*.png")))
+    yaml = read_results(os.path.join(run, "test", f"ours_{it}",
+                                     "results.yaml"))
+    if not (n_pred == NERFIES_PRED and blend_fwd.launches == n_pred + n_test
+            and np.isfinite(yaml["psnr"])):
+        raise AssertionError(f"phase 33: render CLI {n_pred} pred frames, "
+                             f"{blend_fwd.launches} blends, {yaml}")
+    print(f"phase 33: render CLI --render_pred --skip_train: {n_pred} "
+          f"spline frames and {n_test} test frames in {render_s:.3f} s "
+          f"({(n_pred + n_test) / render_s:.2f} frames/s; scene load "
+          f"{timed.seconds('scene'):.3f} s, metrics "
+          f"{timed.seconds('metrics'):.3f} s); test results.yaml {yaml}; "
+          f"{smi}")
+    t0 = time.time()
+    report = extract_geo.main(["-m", run, "--mesh_resolution",
+                               str(GEO_MESH_RES)])
+    torch.cuda.synchronize()
+    verts, faces = mesh_counts(os.path.join(run, f"mesh_iteration_{it}.ply"))
+    if not (len(report) == 4 and verts > 0 and faces > 0):
+        raise AssertionError(f"phase 33: extract_geo {report}, mesh "
+                             f"{verts}, {faces}")
+    print(f"phase 33: extract_geo at fid 0, {time.time() - t0:.3f} s, "
+          f"MoransI {report}, mesh {GEO_MESH_RES}^3 -> {verts} vertices, "
+          f"{faces} faces; {smi}")
+
+
+def profile_phase(dev, smi, counted):
+    """Phase 35: phase 15's command line on phase 14's scene for
+    ``PROFILE_ITERS`` iterations with ``--profile --watchdog_min 30``: the
+    trace of iterations 21-30 names both blend kernels, ten launches each;
+    the watchdog's thread ends with the run."""
+    import threading
+    import time
+
+    from splatfields_torch import train
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "blender_protocol", "lego")
+    out = os.path.join(here, "build", "dataset_protocol", "profiled")
+    blend_fwd.launches = blend_bwd.launches = 0
+    t0 = time.time()
+    res = train.main(["-s", root, "-m", out] + PROTOCOL_3DGS
+                     + ["--iterations", str(PROFILE_ITERS), "--profile",
+                        "--watchdog_min", "30", "--test_iterations", "-1"])
+    run_s = time.time() - t0
+    counted("35", PROFILE_ITERS, PROFILE_ITERS)
+    alive = [t for t in threading.enumerate() if t.name == "StallWatchdog"]
+    if alive:
+        raise AssertionError(f"phase 35: the watchdog outlived the run "
+                             f"{alive}")
+    path = os.path.join(out, "trace", "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                      and k in e.get("name", ""))
+               for k in ("blend_fwd_kernel", "blend_bwd_kernel")}
+    n_kernel = sum(1 for e in events if e.get("cat") == "kernel")
+    if kernels != {"blend_fwd_kernel": 10, "blend_bwd_kernel": 10}:
+        raise AssertionError(f"phase 35: the trace's blend kernels "
+                             f"{kernels}")
+    print(f"phase 35: run_blender.sh's 3DGS line, {PROFILE_ITERS} "
+          f"iterations with --profile --watchdog_min 30 in {run_s:.3f} s "
+          f"({res.ms_per_it:.3f} ms/it, the trace's iterations included); "
+          f"trace {os.path.getsize(path)} bytes, {len(events)} events, "
+          f"{n_kernel} kernels, of them {kernels}; watchdog thread stopped; "
+          f"{smi}")
+
+
 def main() -> int:
     import time
 
@@ -4126,14 +4724,21 @@ def main() -> int:
     # --- 27-31. the train CLI's field options ----------------------------------
     (option_launches, option_errs, fused_launches,
      fused_gaps) = option_phases(dev, smi)
+    torch.cuda.empty_cache()
     took("27-31")
+    # --- 32-35. the Colmap and nerfies datasets, --profile, --watchdog_min --
+    dataset_launches, dataset_errs, dataset_partial = dataset_phases(dev, smi)
+    took("32-35")
     for k in loop_launches:
         loop_launches[k].update(static_launches[k])
         loop_launches[k].update(owlii_launches[k])
         loop_launches[k].update(option_launches[k])
+        loop_launches[k].update(dataset_launches[k])
     loop_errs.update(static_errs)
     loop_errs.update(owlii_errs)
     loop_errs.update(option_errs)
+    loop_errs.update(dataset_errs)
+    partial_errs.update(dataset_partial)
     for entry in fused_entries:
         # phase 28: the new plans' launches and worst layer gap
         entry["option_launches"] = fused_launches[entry["name"]]

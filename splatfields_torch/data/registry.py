@@ -1,7 +1,5 @@
 """Dataset-type registry and marker-file sniffing (counterpart of
-``splatfields_tpu/data/registry.py``). The Blender, DTU and ResFields
-(Owlii) loaders are ported; the other readers raise NotImplementedError
-naming their ROADMAP item."""
+``splatfields_tpu/data/registry.py``): every loader of the JAX package."""
 from __future__ import annotations
 
 import os
@@ -10,27 +8,23 @@ from splatfields_torch.data.readers.blender import (
     read_nerf_synthetic,
     read_nerf_synthetic_cv,
 )
+from splatfields_torch.data.readers.colmap import (
+    read_colmap_scene,
+    read_colmap_scene_sparse,
+)
+from splatfields_torch.data.readers.nerfies import read_nerfies_scene_mv
 from splatfields_torch.data.readers.neus import (
     read_neus_dtu_scene,
     read_resfield_scene,
 )
 
-
-def _not_ported(name: str, item: int):
-    def loader(*args, **kwargs):
-        raise NotImplementedError(
-            f"the {name} reader is not ported yet: ROADMAP Queue 1 item "
-            f"{item}")
-    return loader
-
-
 SCENE_LOADERS = {
-    "Colmap": _not_ported("Colmap", 5),
-    "ColmapHold": _not_ported("ColmapHold", 5),
+    "Colmap": read_colmap_scene_sparse,
+    "ColmapHold": read_colmap_scene,
     "Blender_cv": read_nerf_synthetic_cv,
     "Blender": read_nerf_synthetic,
     "DTU": read_neus_dtu_scene,
-    "nerfies": _not_ported("nerfies", 5),
+    "nerfies": read_nerfies_scene_mv,
     "ResFields": read_resfield_scene,
 }
 

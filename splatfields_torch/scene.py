@@ -42,7 +42,12 @@ class Scene:
 
         scene_type = sniff_scene_type(cfg.source_path)
         loader = SCENE_LOADERS[scene_type]
-        if scene_type == "Blender_cv":
+        if scene_type == "Colmap":
+            scene_info = loader(
+                cfg.source_path, images=cfg.images, eval_mode=cfg.eval,
+                white_background=cfg.white_background, pc_path=cfg.pc_path,
+                n_views=cfg.n_views, num_pts=cfg.max_num_pts)
+        elif scene_type == "Blender_cv":
             scene_info = loader(
                 cfg.source_path, cfg.white_background, cfg.eval,
                 load_time_step=cfg.load_time_step, n_views=cfg.n_views,
@@ -50,7 +55,12 @@ class Scene:
                 pts_samples=cfg.pts_samples, pc_path=cfg.pc_path)
         elif scene_type == "DTU":
             scene_info = loader(cfg.source_path, num_pts=cfg.num_pts)
-        elif scene_type == "ResFields":
+        elif scene_type == "nerfies":
+            scene_info = loader(
+                cfg.source_path, eval_mode=cfg.eval,
+                load_time_step=cfg.load_time_step,
+                max_pts=cfg.max_num_pts if cfg.max_num_pts > 0 else 300_000)
+        else:  # ResFields
             scene_info = loader(
                 cfg.source_path, cfg.white_background,
                 train_cam_names=cfg.train_cam_names,
@@ -58,8 +68,6 @@ class Scene:
                 pred_cam_names=cfg.pred_cam_names,
                 load_time_step=cfg.load_time_step, num_pts=cfg.num_pts,
                 pts_samples=cfg.pts_samples)
-        else:  # the other loaders raise, naming their ROADMAP item
-            scene_info = loader(cfg.source_path)
         self.scene_info = scene_info
         self.scene_type = scene_type
 

@@ -10,7 +10,10 @@ evaluates each test camera at its own fid), the xyz and field
 learning-rate schedules, the warm-up field mode, SH-degree bumps every
 1,000 iterations, ``overwrite_loc`` after 1,500, ``densify_and_prune``
 on the reference's cadence (growing the capacity when splats drop),
-periodic evaluation, PLY / field-weight / train-state saves, ``--resume``.
+periodic evaluation, PLY / field-weight / train-state saves, ``--resume``,
+``--watchdog_min`` (``utils/system.StallWatchdog``: exit 114 when the loop
+stalls) and ``--profile`` (a ``torch.profiler`` trace of iterations 20-30
+into ``<model_path>/trace``, ``profile_callback``).
 
 Every per-iteration decision is one pure function of the iteration and
 the configs, ``iteration_events``; the loop reads it. The step is cached
@@ -20,9 +23,9 @@ its jitted steps; eager PyTorch has no re-jit, but a grown capacity or
 instance count once a step (one device sync), as the JAX loop does.
 
 Flags without a counterpart here: the device mesh and multi-process
-flags raise NotImplementedError (ROADMAP Queue 1 item 9), so do
-``--profile`` and ``--watchdog_min`` (item 5); ``--scan_k`` is accepted
-and has no effect (it batches iterations into one TPU dispatch).
+flags raise NotImplementedError (ROADMAP Queue 1 item 9); ``--scan_k`` is
+accepted and has no effect (it batches iterations into one TPU
+dispatch).
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from splatfields_torch.render_lib import render_camera
 from splatfields_torch.scene import Scene
 from splatfields_torch.utils.metrics_writer import MetricsWriter
 from splatfields_torch.utils.schedules import expon_lr_func
+from splatfields_torch.utils.system import StallWatchdog
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +146,8 @@ def _set_rng_state(rng: random.Random, saved: list):
 def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
              save_iterations, args=None, quiet=False,
              progress_callback=None, resume=False,
-             rng: random.Random | None = None, device=None) -> TrainResult:
+             rng: random.Random | None = None, device=None,
+             watchdog_min: float = 0.0) -> TrainResult:
     """Train one scene.
 
     ``rng`` orders the views and shuffles the cameras (a fresh
@@ -150,7 +155,9 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
     noise (a ``torch.Generator`` on the device) come from seed 0, as the
     JAX loop's from its fixed key; ``device=None`` means the GPU.
     ``progress_callback(iteration, loss, params, stats)`` runs after
-    every iteration."""
+    every iteration. With ``watchdog_min`` > 0 a ``StallWatchdog`` exits
+    the process (code 114) when no iteration ends for that many minutes;
+    it stops with the loop, also when the loop raises."""
     dev = resolve_device(device)
     rng = rng if rng is not None else random.Random(0)
     # the frame count only reaches a field: a static run (run_dtu.sh's
@@ -267,102 +274,116 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
             batch["corr_gate"] = iteration % opt_cfg.corr_interval == 0
         return batch
 
-    for iteration in range(start_iteration, opt_cfg.iterations + 1):
-        ev = iteration_events(iteration, is_static, opt_cfg, test_set,
-                              save_set)
-        if ev.sh_bump:
-            active_sh = min(active_sh + 1, model_cfg.sh_degree)
-        batch = next_batch(iteration)
-        lrs = splats_lib.splat_lr_tree(
-            xyz_sched(iteration) / 5.0, opt_cfg.feature_lr,
-            opt_cfg.opacity_lr, opt_cfg.scaling_lr, opt_cfg.rotation_lr)
-        field_lr = deform.learning_rate(iteration) if deform else 0.0
-        step = get_step(ev.field_mode, active_sh if not ev.field_mode else 0)
-        field_params = deform.params if (deform and ev.field_mode) else {}
-        field_opt = deform.opt_state if deform else splats_lib.adam_init({})
+    # a hung device call cannot be interrupted: the watchdog exits 114
+    # and a supervisor restarts with --resume
+    watchdog = (StallWatchdog(watchdog_min).start()
+                if watchdog_min and watchdog_min > 0 else None)
+    try:
+        for iteration in range(start_iteration, opt_cfg.iterations + 1):
+            if watchdog is not None:
+                watchdog.beat()
+            ev = iteration_events(iteration, is_static, opt_cfg, test_set,
+                                  save_set)
+            if ev.sh_bump:
+                active_sh = min(active_sh + 1, model_cfg.sh_degree)
+            batch = next_batch(iteration)
+            lrs = splats_lib.splat_lr_tree(
+                xyz_sched(iteration) / 5.0, opt_cfg.feature_lr,
+                opt_cfg.opacity_lr, opt_cfg.scaling_lr, opt_cfg.rotation_lr)
+            field_lr = deform.learning_rate(iteration) if deform else 0.0
+            step = get_step(ev.field_mode,
+                            active_sh if not ev.field_mode else 0)
+            field_params = deform.params if (deform and ev.field_mode) else {}
+            field_opt = (deform.opt_state if deform
+                         else splats_lib.adam_init({}))
 
-        t0 = time.time()
-        params, stats, splat_opt, new_fp, new_fo, out = step(
-            params, stats, splat_opt, field_params, field_opt, batch, lrs,
-            field_lr)
-        if deform and ev.field_mode:
-            deform.params = new_fp
-            deform.opt_state = new_fo
-        out_loss = float(out.loss)
-        dropped = int(out.loss_dict.get("bin_dropped", 0))
-        times.append(time.time() - t0)
+            t0 = time.time()
+            params, stats, splat_opt, new_fp, new_fo, out = step(
+                params, stats, splat_opt, field_params, field_opt, batch, lrs,
+                field_lr)
+            if deform and ev.field_mode:
+                deform.params = new_fp
+                deform.opt_state = new_fo
+            out_loss = float(out.loss)
+            dropped = int(out.loss_dict.get("bin_dropped", 0))
+            times.append(time.time() - t0)
 
-        if ev.overwrite_loc and out.means3d.shape[0] == params.xyz.shape[0]:
-            # the field's means become the splats' xyz (reference
-            # train.py:153-155); skipped for an n_splats subset, as in the
-            # JAX loop
-            params = dataclasses.replace(params, xyz=out.means3d)
+            if (ev.overwrite_loc
+                    and out.means3d.shape[0] == params.xyz.shape[0]):
+                # the field's means become the splats' xyz (reference
+                # train.py:153-155); skipped for an n_splats subset, as in the
+                # JAX loop
+                params = dataclasses.replace(params, xyz=out.means3d)
 
-        ema_loss = 0.4 * out_loss + 0.6 * ema_loss
-        if iteration % 10 == 0:
-            log = {"train_loss_patches/total_loss": out_loss,
-                   "train_loss_patches/l1_loss": float(out.l1),
-                   "iter_time": times[-1] * 1000.0,
-                   "total_points": int(stats.valid.sum())}
-            for k, v in out.loss_dict.items():
-                if k != "l1":
-                    log[f"train_loss_patches/{k}"] = v
-            writer.scalars(iteration, log)
-        if dropped > 0:
-            # grow the duplicated-instance budget so no instance is lost
-            new_factor = max(pipe_cfg.dup_factor + 1,
-                             int(pipe_cfg.dup_factor * 1.5))
-            print(f"iter {iteration}: {dropped} rasterizer instances beyond "
-                  f"dup budget — growing dup_factor "
-                  f"{pipe_cfg.dup_factor} -> {new_factor}", flush=True)
-            pipe_cfg = dataclasses.replace(pipe_cfg, dup_factor=new_factor)
-            dup_growth.append((iteration, dropped, new_factor))
-            step_cache.clear()
-        if iteration % 100 == 0 and not quiet:
-            print(f"iter {iteration}: loss {ema_loss:.5f} "
-                  f"({np.mean(times[-50:]) * 1000:.1f} ms/it)", flush=True)
-
-        if ev.densify:
-            noise = torch.randn(params.capacity, 2, 3, generator=densify_gen,
-                                device=dev)
-            n_before = int(stats.valid.sum())
-            params, stats, splat_opt, lost = splats_lib.densify_and_prune(
-                params, stats, splat_opt, noise,
-                opt_cfg.densify_grad_threshold, 0.005, scene.cameras_extent,
-                ev.size_threshold, percent_dense=opt_cfg.percent_dense)
-            lost = int(lost)
-            if lost > 0:
-                params, stats, splat_opt = splats_lib.grow_capacity(
-                    params, stats, splat_opt,
-                    int(params.capacity * 1.5) + lost)
+            ema_loss = 0.4 * out_loss + 0.6 * ema_loss
+            if iteration % 10 == 0:
+                log = {"train_loss_patches/total_loss": out_loss,
+                       "train_loss_patches/l1_loss": float(out.l1),
+                       "iter_time": times[-1] * 1000.0,
+                       "total_points": int(stats.valid.sum())}
+                for k, v in out.loss_dict.items():
+                    if k != "l1":
+                        log[f"train_loss_patches/{k}"] = v
+                writer.scalars(iteration, log)
+            if dropped > 0:
+                # grow the duplicated-instance budget so no instance is lost
+                new_factor = max(pipe_cfg.dup_factor + 1,
+                                 int(pipe_cfg.dup_factor * 1.5))
+                print(f"iter {iteration}: {dropped} rasterizer instances "
+                      f"beyond dup budget — growing dup_factor "
+                      f"{pipe_cfg.dup_factor} -> {new_factor}", flush=True)
+                pipe_cfg = dataclasses.replace(pipe_cfg, dup_factor=new_factor)
+                dup_growth.append((iteration, dropped, new_factor))
                 step_cache.clear()
-            densified.append((iteration, n_before, int(stats.valid.sum()),
-                              lost))
-            if not quiet:
-                print(f"[ITER {iteration}] densify: {n_before} -> "
-                      f"{densified[-1][2]} splats, {lost} dropped, "
-                      f"capacity {params.capacity}", flush=True)
+            if iteration % 100 == 0 and not quiet:
+                print(f"iter {iteration}: loss {ema_loss:.5f} "
+                      f"({np.mean(times[-50:]) * 1000:.1f} ms/it)", flush=True)
 
-        if ev.test:
-            cur = evaluate(scene, params, stats, deform, pipe_cfg, bg_np,
-                           active_sh, ev.field_mode, n_frames, iteration,
-                           quiet=quiet, writer=writer)
-            if cur > best_psnr:
-                best_psnr, best_iter = cur, iteration
-        if ev.save and model_cfg.model_path:
-            if not quiet:
-                print(f"[ITER {iteration}] saving")
-            scene.save(iteration, params, stats)
-            if deform:
-                deform.save_weights(model_cfg.model_path, iteration)
-            checkpointing.save_train_state(
-                model_cfg.model_path, iteration, params, stats, splat_opt,
-                deform.net.state_dict() if deform else {},
-                deform.opt_state if deform else splats_lib.adam_init({}),
-                densify_gen, extra={"dup_factor": pipe_cfg.dup_factor,
-                                    "view_rng": _rng_state(rng)})
-        if progress_callback:
-            progress_callback(iteration, out_loss, params, stats)
+            if ev.densify:
+                noise = torch.randn(params.capacity, 2, 3,
+                                    generator=densify_gen, device=dev)
+                n_before = int(stats.valid.sum())
+                params, stats, splat_opt, lost = splats_lib.densify_and_prune(
+                    params, stats, splat_opt, noise,
+                    opt_cfg.densify_grad_threshold, 0.005,
+                    scene.cameras_extent, ev.size_threshold,
+                    percent_dense=opt_cfg.percent_dense)
+                lost = int(lost)
+                if lost > 0:
+                    params, stats, splat_opt = splats_lib.grow_capacity(
+                        params, stats, splat_opt,
+                        int(params.capacity * 1.5) + lost)
+                    step_cache.clear()
+                densified.append((iteration, n_before, int(stats.valid.sum()),
+                                  lost))
+                if not quiet:
+                    print(f"[ITER {iteration}] densify: {n_before} -> "
+                          f"{densified[-1][2]} splats, {lost} dropped, "
+                          f"capacity {params.capacity}", flush=True)
+
+            if ev.test:
+                cur = evaluate(scene, params, stats, deform, pipe_cfg, bg_np,
+                               active_sh, ev.field_mode, n_frames, iteration,
+                               quiet=quiet, writer=writer)
+                if cur > best_psnr:
+                    best_psnr, best_iter = cur, iteration
+            if ev.save and model_cfg.model_path:
+                if not quiet:
+                    print(f"[ITER {iteration}] saving")
+                scene.save(iteration, params, stats)
+                if deform:
+                    deform.save_weights(model_cfg.model_path, iteration)
+                checkpointing.save_train_state(
+                    model_cfg.model_path, iteration, params, stats, splat_opt,
+                    deform.net.state_dict() if deform else {},
+                    deform.opt_state if deform else splats_lib.adam_init({}),
+                    densify_gen, extra={"dup_factor": pipe_cfg.dup_factor,
+                                        "view_rng": _rng_state(rng)})
+            if progress_callback:
+                progress_callback(iteration, out_loss, params, stats)
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
 
     total = time.time() - t_start
     writer.close()
@@ -443,7 +464,8 @@ def build_train_parser():
     parser.add_argument("--resume", action="store_true",
                         help="continue from the latest train_state ckpt")
     parser.add_argument("--profile", action="store_true",
-                        help="not ported (ROADMAP Queue 1 item 5)")
+                        help="capture a torch.profiler trace of iterations "
+                             "20-30 into <model_path>/trace")
     parser.add_argument("--mesh_model", type=int, default=0,
                         help="device mesh: not ported (ROADMAP Queue 1 "
                              "item 9); 0 only")
@@ -456,8 +478,9 @@ def build_train_parser():
                              "iterations into one TPU dispatch, and eager "
                              "PyTorch needs no twin (ROADMAP Queue 1 item 5)")
     parser.add_argument("--watchdog_min", type=float, default=0.0,
-                        help="relay-stall watchdog: not ported (item 5); "
-                             "0 only")
+                        help="exit 114 if the training loop makes no "
+                             "progress for this many minutes (supervisors "
+                             "restart with --resume); 0 = off")
     parser.add_argument("--coordinator_address", type=str, default="",
                         help="multi-host: not ported (item 9)")
     parser.add_argument("--num_processes", type=int, default=1,
@@ -476,10 +499,33 @@ def check_ported_flags(args):
             "device meshes and multi-process training (--mesh_model, "
             "--mesh_data, --ring, --num_processes, --coordinator_address): "
             "ROADMAP Queue 1 item 9")
-    if args.profile:
-        raise NotImplementedError("--profile: ROADMAP Queue 1 item 5")
-    if args.watchdog_min and args.watchdog_min > 0:
-        raise NotImplementedError("--watchdog_min: ROADMAP Queue 1 item 5")
+
+
+def profile_callback(trace_dir: str):
+    """``--profile``'s progress callback: a ``torch.profiler`` trace (CPU
+    activity, and CUDA when a card is present) from the end of iteration
+    20 to the end of iteration 30, written to ``trace_dir`` as a Chrome
+    trace JSON."""
+    prof = None
+
+    def callback(it, loss, params, stats):
+        nonlocal prof
+        if it == 20:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+        elif it == 30 and prof is not None:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof.stop()
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            prof = None
+            print(f"profiler trace written to {trace_dir}")
+
+    return callback
 
 
 def main(argv=None, device=None):
@@ -494,9 +540,15 @@ def main(argv=None, device=None):
         torch.autograd.set_detect_anomaly(True)
     model_cfg, pipe_cfg, hidden_cfg, opt_cfg = cfg_lib.extract_configs(args)
     print("Optimizing " + model_cfg.model_path)
+    callback = None
+    if args.profile and model_cfg.model_path:
+        callback = profile_callback(os.path.join(model_cfg.model_path,
+                                                 "trace"))
     out = training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg,
                    args.test_iterations, args.save_iterations, args=args,
-                   quiet=args.quiet, resume=args.resume, device=device)
+                   quiet=args.quiet, resume=args.resume,
+                   progress_callback=callback, device=device,
+                   watchdog_min=args.watchdog_min)
     print("\nTraining complete.")
     return out
 

@@ -340,8 +340,14 @@ def test_protocol_command_lines_parse():
     (["--profile"], 5), (["--watchdog_min", "5"], 5)])
 def test_unported_flags_raise(flags, item):
     args = ttrain.build_train_parser().parse_args(["-s", "x"] + flags)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    if item == 5:
+        # ported with item 5's last flags: they pass, and reach training
+        # (tests/test_torch_colmap.py runs them)
         ttrain.check_ported_flags(args)
+        assert args.profile or args.watchdog_min == 5.0
+    else:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            ttrain.check_ported_flags(args)
     args = ttrain.build_train_parser().parse_args(["-s", "x", "--scan_k",
                                                    "4"])
     ttrain.check_ported_flags(args)
@@ -350,17 +356,21 @@ def test_unported_flags_raise(flags, item):
 @pytest.mark.parametrize("kind,item", [
     ("Colmap", 5), ("ColmapHold", 5), ("nerfies", 5), ("ResFields", 6)])
 def test_unported_readers_raise(kind, item):
-    if kind == "ResFields":
-        # ported with item 6's Owlii part: the reader itself, which finds
-        # no camera directory (tests/test_torch_owlii.py reads scenes)
-        from splatfields_torch.data.readers.neus import read_resfield_scene
-        assert treg.SCENE_LOADERS[kind] is read_resfield_scene
-        with pytest.raises(FileNotFoundError):
-            treg.SCENE_LOADERS[kind]("somewhere", True, ["cam_train_0"],
-                                     [], [])
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        treg.SCENE_LOADERS[kind]("somewhere")
+    """Every reader is ported now: the registry holds the port's reader,
+    which finds no dataset at a missing path (tests/test_torch_owlii.py,
+    tests/test_torch_colmap.py and tests/test_torch_nerfies.py read
+    scenes)."""
+    from splatfields_torch.data.readers import colmap, nerfies
+    from splatfields_torch.data.readers.neus import read_resfield_scene
+    want, args = {
+        "Colmap": (colmap.read_colmap_scene_sparse, ("somewhere",)),
+        "ColmapHold": (colmap.read_colmap_scene, ("somewhere",)),
+        "nerfies": (nerfies.read_nerfies_scene_mv, ("somewhere",)),
+        "ResFields": (read_resfield_scene,
+                      ("somewhere", True, ["cam_train_0"], [], []))}[kind]
+    assert treg.SCENE_LOADERS[kind] is want
+    with pytest.raises(FileNotFoundError):
+        treg.SCENE_LOADERS[kind](*args)
 
 
 def test_sniffing_matches(scene_dir, tmp_path):

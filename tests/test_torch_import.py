@@ -46,7 +46,11 @@ MODULES = ("splatfields_torch", "splatfields_torch.render_lib",
            "splatfields_torch.models.splatfields",
            "splatfields_torch.models.initializers",
            "splatfields_torch.ops.grid_sample",
-           "splatfields_torch.utils.transforms", "chip_smoke")
+           "splatfields_torch.utils.transforms",
+           "splatfields_torch.data.colmap_io",
+           "splatfields_torch.data.readers.colmap",
+           "splatfields_torch.data.readers.nerfies",
+           "splatfields_torch.utils.camera_paths", "chip_smoke")
 
 
 def test_import_pulls_in_no_jax():
@@ -194,6 +198,41 @@ idx = train_lib._subsample_idx(torch.Generator(), torch.ones(9, dtype=bool), 4)
 assert idx.shape == (4,)
 bad = [m for m in sys.modules if m.split(".")[0] in {blocked!r}
        and sys.modules[m] is not None]
+assert not bad, bad
+"""
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_datasets_without_the_host_libraries(tmp_path):
+    """The Colmap and nerfies readers, their spline path, masked SSIM, the
+    watchdog and the profile callback with FORBIDDEN, HOST_LIBS and
+    ``scipy.misc`` blocked, as on the GPU machine: a small COLMAP scan and
+    a small nerfies capture written and read."""
+    blocked = FORBIDDEN + HOST_LIBS + ("scipy.misc",)
+    code = f"""import sys
+for m in {blocked!r}: sys.modules[m] = None
+import torch
+torch.set_num_threads(1)  # the suite's workers share the CPU's cores
+from splatfields_torch import train
+from splatfields_torch.data.registry import SCENE_LOADERS
+from splatfields_torch.ops.ssim import masked_ssim
+from splatfields_torch.utils.system import StallWatchdog
+import chip_smoke
+scan = chip_smoke.write_colmap_scene({str(tmp_path)!r}, 32, 24, "cpu",
+                                     n_splats=300, n_points=100)
+info = SCENE_LOADERS["Colmap"](scan, n_views=3)
+assert len(info.train_cameras) == 3 and len(info.test_cameras) == 25
+assert len(SCENE_LOADERS["ColmapHold"](scan, eval_mode=True).test_cameras) == 7
+cap = chip_smoke.write_nerfies_scene({str(tmp_path)!r}, 32, 18, 1, "cpu",
+                                     n_splats=300, n_points=100)
+assert len(SCENE_LOADERS["nerfies"](cap).pred_cameras) == 650
+img = torch.rand(9, 9, 3)
+assert float(masked_ssim(img, img, torch.ones(9, 9, 1))) > 2.99
+StallWatchdog(1.0, exit_fn=lambda: None).start().stop()
+train.profile_callback({str(tmp_path / "trace")!r})
+bad = [m for m in sys.modules if (m.split(".")[0] in {blocked!r}
+       or m == "scipy.misc") and sys.modules[m] is not None]
 assert not bad, bad
 """
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
