@@ -691,11 +691,13 @@ def colmap_pose(i):
                               math.cos(ph) * math.cos(th)])
 
 
-def _colmap_binaries(sparse, width, height, focal, poses, xyz, rgb, tracks):
+def _colmap_binaries(sparse, width, height, focal, poses, xyz, rgb, tracks,
+                     ext=".png"):
     """COLMAP's binary model (``cameras.bin``, ``images.bin``,
     ``points3D.bin``), packed here: image ``i`` (id i + 1, camera id
-    n - i, one PINHOLE camera per image) at ``poses[i]`` = (R, t), its
-    POINTS2D the projections of the points whose track holds it."""
+    n - i, one PINHOLE camera per image, named ``<i:03d><ext>``) at
+    ``poses[i]`` = (R, t), its POINTS2D the projections of the points
+    whose track holds it."""
     import struct
 
     from splatfields_torch.data.colmap_io import rotmat2qvec
@@ -722,7 +724,7 @@ def _colmap_binaries(sparse, width, height, focal, poses, xyz, rgb, tracks):
         for i, (R, t) in enumerate(poses):
             f.write(struct.pack("<i4d3di", i + 1, *rotmat2qvec(R), *t,
                                 n - i))
-            f.write(f"{i:03d}.png".encode() + b"\x00")
+            f.write(f"{i:03d}{ext}".encode() + b"\x00")
             f.write(struct.pack("<Q", len(seen[i])))
             for pid, x, y in seen[i]:
                 f.write(struct.pack("<ddq", x, y, pid))
@@ -737,7 +739,7 @@ def _colmap_binaries(sparse, width, height, focal, poses, xyz, rgb, tracks):
 
 
 def write_colmap_scene(root, width, height, device, n_splats=30_000,
-                       n_points=5_000, seed=0):
+                       n_points=5_000, seed=0, jpeg=False):
     """A synthetic COLMAP scan under ``root`` (``COLMAP_SCAN``): a binary
     ``sparse/0`` (``_colmap_binaries``: ``COLMAP_VIEWS`` PINHOLE cameras at
     ``colmap_pose``, focal 1.15 x ``width``, and ``n_points`` points, the
@@ -745,7 +747,9 @@ def write_colmap_scene(root, width, height, device, n_splats=30_000,
     images) and ``images/000.png ..``, RGBA PNGs whose alpha (1 - final
     T) is the object's mask, the ground truth rendered by the port's
     ``rasterize`` on ``device`` through the port reader's own cameras
-    from ``gt_splats``. Returns the scan's path."""
+    from ``gt_splats``. With ``jpeg``: ``images/000.jpg ..``, the colour
+    over black by ``encode_jpeg`` at quality 90 (no mask: the reader's
+    alpha is 255). Returns the scan's path."""
     import torch
 
     from splatfields_torch.data import png
@@ -766,20 +770,199 @@ def write_colmap_scene(root, width, height, device, n_splats=30_000,
               for _ in range(len(pick))]
     poses = [look_at_w2c(colmap_pose(i), COLMAP_TARGET)
              for i in range(COLMAP_VIEWS)]
+    ext = ".jpg" if jpeg else ".png"
     _colmap_binaries(sparse, width, height, 1.15 * width, poses, xyz, rgb,
-                     tracks)
+                     tracks, ext)
     blank = png.encode(np.zeros((height, width, 4), np.uint8), level=1)
     for i in range(COLMAP_VIEWS):
-        with open(os.path.join(root, "images", f"{i:03d}.png"), "wb") as f:
-            f.write(blank)
+        with open(os.path.join(root, "images", f"{i:03d}{ext}"), "wb") as f:
+            f.write(blank)   # a PNG under either name, read by its bytes
     for i, info in enumerate(_load_colmap_model(root, "images", True)):
         cam = load_cam(info, 1, i, device=device)
         out = render_gt(t, cam, width, height)
         rgba = torch.cat([out.color, out.alpha]).clamp(0, 1).permute(
             1, 2, 0).cpu().numpy()
-        png.write(info.image_path, (rgba * 255).astype(np.uint8),
-                  level=1)
+        rgba = (rgba * 255).astype(np.uint8)
+        if jpeg:
+            with open(info.image_path, "wb") as f:
+                f.write(encode_jpeg(rgba[..., :3]))
+        else:
+            png.write(info.image_path, rgba, level=1)
     return root
+
+
+# ITU-T T.81 Annex K: the example quantization tables (natural order) and
+# Huffman tables (code counts by length 1-16, then the symbols)
+JPEG_QUANT = (np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+              24, 26, 56, 99, 99, 99, 99, 99, 47, 66] + [99] * 38))
+JPEG_HUFFMAN = {   # (class, id): (counts, symbols)
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1] + [0] * 7, list(range(12))),
+    (0, 1): ([0, 3] + [1] * 9 + [0] * 5, list(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125], list(
+        bytes.fromhex(
+            "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+            "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+            "4a535455565758595a636465666768696a737475767778797a83848586878889"
+            "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+            "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+            "f9fa"))),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119], list(
+        bytes.fromhex(
+            "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+            "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+            "494a535455565758595a636465666768696a737475767778797a828384858687"
+            "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+            "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+            "f9fa"))),
+}
+JPEG_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+    36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+    60, 61, 54, 47, 55, 62, 63])
+
+
+def _huffman_codes(counts, symbols):
+    """{symbol: (code, length)} of a canonical Huffman table."""
+    codes, code, k = {}, 0, 0
+    for length, n in enumerate(counts, 1):
+        for _ in range(n):
+            codes[symbols[k]] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes
+
+
+def _code_arrays(table):
+    codes = _huffman_codes(*JPEG_HUFFMAN[table])
+    code, length = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    for sym, (c, n) in codes.items():
+        code[sym], length[sym] = c, n
+    return code, length
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 90) -> bytes:
+    """A baseline JPEG of uint8 RGB [H, W, 3] (JFIF, YCbCr 4:2:0, the
+    Annex K tables scaled to ``quality`` as libjpeg scales them), in
+    NumPy: the GPU machine has no image library. Forward DCT in float64,
+    one interleaved scan, no restart markers."""
+    h, w = rgb.shape[:2]
+    x = rgb.astype(np.float64)
+    ycc = np.stack([
+        0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2],
+        -0.168736 * x[..., 0] - 0.331264 * x[..., 1] + 0.5 * x[..., 2] + 128,
+        0.5 * x[..., 0] - 0.418688 * x[..., 1] - 0.081312 * x[..., 2] + 128])
+    mx, my = -(-w // 16), -(-h // 16)
+    ycc = np.pad(ycc, ((0, 0), (0, 16 * my - h), (0, 16 * mx - w)),
+                 mode="edge")
+    scale = 5000 / quality if quality < 50 else 200 - 2 * quality
+    quant = [np.clip((q * scale + 50) // 100, 1, 255) for q in JPEG_QUANT]
+    u = np.arange(8)
+    dct = np.sqrt(2 / 8) * np.cos((2 * u[None] + 1) * u[:, None] * np.pi / 16)
+    dct[0] /= np.sqrt(2)
+
+    def blocks(plane, q):   # [rows, cols, 64] quantized, zigzag order
+        r, c = plane.shape[0] // 8, plane.shape[1] // 8
+        b = (plane - 128).reshape(r, 8, c, 8).transpose(0, 2, 1, 3)
+        f = dct @ b @ dct.T
+        return np.round(f.reshape(r, c, 64)[..., JPEG_ZIGZAG]
+                        / q[JPEG_ZIGZAG]).astype(np.int64)
+
+    yb = blocks(ycc[0], quant[0])                         # [2my, 2mx, 64]
+    chroma = [blocks(p.reshape(8 * my, 2, 8 * mx, 2).mean((1, 3)), quant[1])
+              for p in ycc[1:]]
+    # coding order: per MCU the four Y blocks in raster order, Cb, Cr
+    yb = yb.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(
+        my * mx, 4, 64)
+    coded = np.concatenate([yb] + [c.reshape(my * mx, 1, 64)
+                                   for c in chroma], 1).reshape(-1, 64)
+    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
+    dc = coded[:, 0].copy()
+    for k in range(3):   # differences within each component
+        sel = comp == k
+        dc[sel] = np.diff(coded[sel, 0], prepend=0)
+
+    def size(v):
+        return np.where(v == 0, 0, np.floor(np.log2(np.maximum(
+            np.abs(v), 1))).astype(np.int64) + 1)
+
+    def amp(v, s):   # the value's s low bits (negatives one less)
+        return np.where(v < 0, v + (1 << s) - 1, v)
+
+    table = np.minimum(comp, 1)
+    dc_c = [_code_arrays((0, t)) for t in (0, 1)]
+    ac_c = [_code_arrays((1, t)) for t in (0, 1)]
+    n_blk = len(coded)
+    s = size(dc)
+    code = np.where(table == 0, dc_c[0][0][s], dc_c[1][0][s])
+    clen = np.where(table == 0, dc_c[0][1][s], dc_c[1][1][s])
+    keys = [np.arange(n_blk) * 260]
+    vals = [(code << s) | amp(dc, s)]
+    lens = [clen + s]
+    b, k = np.nonzero(coded[:, 1:])
+    k = k + 1
+    prev = np.where(np.r_[True, b[1:] != b[:-1]], 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    v = coded[b, k]
+    s = size(v)
+    sym = (run % 16) * 16 + s
+    t = table[b]
+    keys.append(b * 260 + k * 4 + run // 16)
+    vals.append((np.where(t == 0, ac_c[0][0][sym], ac_c[1][0][sym]) << s)
+                | amp(v, s))
+    lens.append(np.where(t == 0, ac_c[0][1][sym], ac_c[1][1][sym]) + s)
+    zrl = np.repeat(np.arange(len(b)), run // 16)    # 16 zeros, each
+    j = np.arange(len(zrl)) - np.repeat(np.cumsum(run // 16) - run // 16,
+                                        run // 16)
+    keys.append(b[zrl] * 260 + k[zrl] * 4 + j)
+    vals.append(np.where(t[zrl] == 0, ac_c[0][0][0xF0], ac_c[1][0][0xF0]))
+    lens.append(np.where(t[zrl] == 0, ac_c[0][1][0xF0], ac_c[1][1][0xF0]))
+    last = np.zeros(n_blk, np.int64)
+    np.maximum.at(last, b, k)
+    eob = np.flatnonzero(last < 63)
+    keys.append(eob * 260 + 256)
+    vals.append(np.where(table[eob] == 0, ac_c[0][0][0], ac_c[1][0][0]))
+    lens.append(np.where(table[eob] == 0, ac_c[0][1][0], ac_c[1][1][0]))
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    vals, lens = np.concatenate(vals)[order], np.concatenate(lens)[order]
+    owner = np.repeat(np.arange(len(lens)), lens)
+    pos = np.arange(len(owner)) - np.repeat(np.cumsum(lens) - lens, lens)
+    bits = (vals[owner] >> (lens[owner] - 1 - pos)) & 1
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.int64)])
+    data = np.packbits(bits.astype(np.uint8))
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0)
+
+    def segment(marker, body):
+        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") \
+            + body
+
+    head = b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00"
+                                 b"\x01\x00\x00")
+    for i, q in enumerate(quant):
+        head += segment(0xDB, bytes([i]) + bytes(
+            q[JPEG_ZIGZAG].astype(np.uint8)))
+    head += segment(0xC0, bytes([8]) + h.to_bytes(2, "big")
+                    + w.to_bytes(2, "big") + bytes([3, 1, 0x22, 0, 2, 0x11, 1,
+                                                    3, 0x11, 1]))
+    for (cls, tid), (counts, syms) in JPEG_HUFFMAN.items():
+        head += segment(0xC4, bytes([cls * 16 + tid] + counts + syms))
+    head += segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return head + data.tobytes() + b"\xff\xd9"
+
+
+def fixed_palette_mae(frame: np.ndarray) -> float:
+    """Mean absolute error, in levels a channel, of uint8 RGB ``frame``
+    reduced to a fixed 256-colour palette (8 levels of red and green, 4 of
+    blue, each at its interval's centre): the bound a video.gif frame's
+    adaptive palette must meet against its PNG (``check_video``)."""
+    step = np.array([32, 32, 64])
+    approx = frame // step * step + step // 2
+    return float(np.abs(approx - frame.astype(np.int64)).mean())
 
 
 NERFIES_BRANCH = "vrig"      # the parent directory write_nerfies_scene makes
@@ -4553,6 +4736,357 @@ def profile_phase(dev, smi, counted):
           f"{smi}")
 
 
+# phase 36: the host libraries (built with g++ in phase 1, beside nvcc) and
+# the native carver at 256^3 over phase 14's 100 masks
+NATIVE_LIBS = ("hullcarve", "jpeg", "gif")
+CARVE_RES = 256
+CARVE_TIE_BAND = 1e-3        # tests/test_native.py's band of rounding ties
+# phase 37: a COLMAP capture of JPEG frames (phase 32's size and counts)
+JPEG_QUALITY = 90
+# phase 39: every ResField zoo member, card against CPU: a 64-wide layer,
+# capacity 10 (lora_3's grid is capacity^3), rank 8, 4,096 points
+ZOO_IN, ZOO_OUT, ZOO_CAP, ZOO_RANK, ZOO_N, ZOO_FRAME = 64, 64, 10, 8, 4096, 7
+ZOO_FUSES = ("add", "mul", "none")
+ZOO_VM_MODES = ("lookup", "interpolation", "interpolation_siren")
+# every (compression, mode, fuse_mode, options) the JAX layer accepts;
+# tests/test_torch_resfield_zoo.py holds each against JAX
+ZOO_CASES = (
+    [("vm", m, f, {}) for m in ZOO_VM_MODES for f in ZOO_FUSES]
+    + [("vm", "lookup", f, {"chunk_size": None, "chunk_strategy": st})
+       for st in ("shared", "delta", "both") for f in ZOO_FUSES]
+    + [("vm_cum", m, f, {}) for m in ZOO_VM_MODES for f in ZOO_FUSES]
+    + [(c, "lookup", f, {}) for c in ("vm_cum_mat", "vm_noweight",
+                                      "vm_attention", "mm_tensor", "none",
+                                      "cp", "tucker") for f in ZOO_FUSES]
+    # loe ignores the fuse mode and refuses lookup; the rest ignore both
+    + [("loe", m, "add", {}) for m in ("interpolation", "interpolation_siren")]
+    + [(c, "lookup", "add", {}) for c in ("none_cum", "resnet", "lora_3",
+                                         "lora_ngp")])
+TOL_ZOO = 1e-5   # card vs CPU, of the largest value of each tree
+
+
+def zoo_layer(case, capacity, in_f, out_f, rank, seed=0):
+    """A ``ResFieldLinear`` of ``case`` on the CPU, every parameter drawn
+    N(0, 0.3) from ``seed`` (a SIREN's U(-1, 1) / fan_in). A chunked case's
+    ``chunk_size`` None means half the capacity."""
+    import torch
+
+    from splatfields_torch.models.resfields import ResFieldLinear
+    c, mode, fuse, kw = case
+    if "chunk_size" in kw:
+        kw = dict(kw, chunk_size=kw["chunk_size"] or capacity // 2)
+    gen = torch.Generator().manual_seed(seed)
+    layer = ResFieldLinear(in_f, out_f, rank, capacity, mode, c, fuse, **kw,
+                           generator=gen)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if name.startswith("weights_t_siren"):
+                fan_in = p.shape[-1] if p.ndim == 2 else 128
+                p.uniform_(-1.0 / fan_in, 1.0 / fan_in, generator=gen)
+            else:
+                p.normal_(0.0, 0.3, generator=gen)
+    return layer
+
+
+def zoo_inputs(case, n, in_f, frame, seed=0):
+    """(x, keyword inputs) of ``case``'s way of reading time on the CPU:
+    ``frame_id`` for a lookup, ``input_time`` [n, 1] for the interpolation
+    modes, ``coordinates`` [n, 3] for the lora members."""
+    import torch
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(n, in_f, generator=gen)
+    c, mode = case[:2]
+    if c.startswith("lora"):
+        return x, {"coordinates": torch.rand(n, 3, generator=gen) * 2 - 1}
+    if mode == "lookup":
+        return x, {"frame_id": frame}
+    return x, {"input_time": torch.rand(n, 1, generator=gen) * 2.5 - 1.25}
+
+
+class VideoLog:
+    """From ``__enter__`` on, every ``gif.write`` of the render CLI is
+    recorded (the file's bytes, the frames it was handed, which are the
+    PNGs' pixels, and its seconds) with the seconds of the ``render.main``
+    call that made it, for ``check_videos`` (phase 38) to read after the
+    phases have cleared their directories."""
+
+    def __enter__(self):
+        import time
+
+        from splatfields_torch import render
+        from splatfields_torch.data import gif
+        self.videos, self.lines = [], []
+        self.saved = (gif.write, render.main)
+        here = os.path.dirname(os.path.abspath(__file__))
+
+        def write(path, frames, *a, **k):
+            t0 = time.time()
+            self.saved[0](path, frames, *a, **k)
+            seconds = time.time() - t0
+            with open(path, "rb") as f:
+                data = f.read()
+            self.videos.append(dict(path=os.path.relpath(path, here),
+                                    data=data, frames=frames,
+                                    seconds=seconds, line=len(self.lines)))
+
+        def main(*a, **k):
+            t0 = time.time()
+            try:
+                return self.saved[1](*a, **k)
+            finally:
+                self.lines.append(time.time() - t0)
+
+        gif.write, render.main = write, main
+        return self
+
+    def __exit__(self, *exc):
+        from splatfields_torch import render
+        from splatfields_torch.data import gif
+        gif.write, render.main = self.saved
+        return False
+
+
+def check_videos(log, smi):
+    """Phase 38: every ``video.gif`` the render CLI wrote: PIL's frame
+    count, 50 ms a frame, ``loop`` 0, each frame within
+    ``fixed_palette_mae`` of its PNG, and its seconds at most 10% of its
+    render line's. Returns the worst share."""
+    from splatfields_torch.data import gif
+    if not log.videos:
+        raise AssertionError("phase 38: the render CLI wrote no video.gif")
+    worst_share = 0.0
+    for v in log.videos:
+        frames, delays, loop = gif.decode(v["data"], v["path"])
+        src = np.stack(v["frames"])
+        if not (frames.shape == src.shape and (delays == 50).all()
+                and loop == 0):
+            raise AssertionError(f"phase 38: {v['path']}: {frames.shape} "
+                                 f"against {src.shape}, delays "
+                                 f"{set(delays.tolist())}, loop {loop}")
+        errs = np.abs(frames.astype(np.int64) - src).mean(axis=(1, 2, 3))
+        bounds = np.array([fixed_palette_mae(f) for f in src])
+        if (errs > bounds).any():
+            i = int(np.argmax(errs - bounds))
+            raise AssertionError(f"phase 38: {v['path']} frame {i}: error "
+                                 f"{errs[i]} over the fixed palette's "
+                                 f"{bounds[i]}")
+        line_s = log.lines[v["line"]]
+        share = v["seconds"] / line_s
+        worst_share = max(worst_share, share)
+        print(f"phase 38: {v['path']}: {len(src)} frames of "
+              f"{src.shape[2]}x{src.shape[1]}, {len(v['data'])} bytes, "
+              f"written in {v['seconds']:.3f} s of the render line's "
+              f"{line_s:.3f} s (share {share:.4f}); mean abs error a frame "
+              f"{errs.mean():.4f} (worst {errs.max():.4f}, its fixed-palette "
+              f"bound {bounds[int(np.argmax(errs))]:.4f}); {smi}")
+        if share > 0.10:
+            raise AssertionError(f"phase 38: {v['path']}: the video took "
+                                 f"{share:.3f} of its render line")
+    return worst_share
+
+
+def host_tail_phases(dev, smi, video_log):
+    """Phases 36-39: the native carver against the NumPy route, a COLMAP
+    capture of JPEG frames through the CLIs, every ``video.gif`` of the
+    run, every ResField zoo member card against CPU. Returns
+    ({kernel name: {phase: launches}}, the segment sums' max abs errors on
+    ``lora_ngp``'s inputs)."""
+    import glob
+    import shutil
+    import time
+
+    import torch
+
+    from splatfields_torch import native, render, train
+    from splatfields_torch.data import images
+    from splatfields_torch.data.point_init import _grid_points, \
+        mask_filter_points
+    from splatfields_torch.data.readers import blender
+    from splatfields_torch.data.registry import sniff_scene_type
+    from splatfields_torch.metrics import read_results
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    launches = {"blend_fwd": {}, "blend_bwd": {}, "segsum": {}}
+
+    # --- 36. the native library and the carver ------------------------------
+    for name in NATIVE_LIBS:
+        native.library(name, {})   # built from the checkout in phase 1
+        print(f"phase 36: native {name}: {native.lib_path(name).name}, "
+              f"g++ {native.BUILD_SECONDS.get(name, 0.0):.2f} s in phase 1 "
+              "(0: found built before this run)")
+    root = os.path.join(here, "build", "blender_protocol", "lego")
+    t0 = time.time()
+    infos, _ = blender.read_cameras_from_transforms_cv(
+        root, "transforms_train.json", True)
+    read_s = time.time() - t0
+    grid = _grid_points((-1.0, 1.0), CARVE_RES)
+    t0 = time.time()
+    keep = mask_filter_points(grid, infos)
+    native_s = time.time() - t0
+    t0 = time.time()
+    keep_np = mask_filter_points(grid, infos, use_native=False)
+    numpy_s = time.time() - t0
+    diff = float((keep != keep_np).mean())
+    print(f"phase 36: {CARVE_RES}^3 carve over {len(infos)} masks of "
+          f"{infos[0].width}x{infos[0].height} (read in {read_s:.3f} s): "
+          f"native {native_s:.3f} s, NumPy {numpy_s:.3f} s "
+          f"({numpy_s / native_s:.1f}x), {int(keep.sum())} points kept, "
+          f"keep masks differ on {diff:.3e} of the grid "
+          f"(band {CARVE_TIE_BAND}); {os.cpu_count()} host cores; {smi}")
+    if not (diff < CARVE_TIE_BAND and keep.any()):
+        raise AssertionError(f"phase 36: the carvers differ on {diff}")
+    del grid, keep, keep_np, infos
+
+    # --- 37. a COLMAP capture of JPEG frames through the CLIs --------------
+    base = os.path.join(here, "build", "jpeg_protocol")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.time()
+    scan = write_colmap_scene(base, *COLMAP_SIZE, dev,
+                              n_splats=COLMAP_GT_SPLATS,
+                              n_points=COLMAP_POINTS, jpeg=True)
+    write_s = time.time() - t0
+    frames = sorted(glob.glob(os.path.join(scan, "images", "*.jpg")))
+    t0 = time.time()
+    for path in frames:
+        img = images.read(path)
+    decode_s = time.time() - t0
+    mpix = len(frames) * COLMAP_SIZE[0] * COLMAP_SIZE[1] / 1e6
+    kind = sniff_scene_type(scan)
+    print(f"phase 37: COLMAP scan ({kind}) of {len(frames)} baseline JPEG "
+          f"frames (quality {JPEG_QUALITY}, 4:2:0) of {COLMAP_SIZE[0]}x"
+          f"{COLMAP_SIZE[1]}, {COLMAP_POINTS} points, written in "
+          f"{write_s:.2f} s; decode {decode_s * 1e3 / mpix:.3f} ms a "
+          f"megapixel ({decode_s:.3f} s for {mpix:.2f} MP); {smi}")
+    if not (kind == "Colmap" and len(frames) == COLMAP_VIEWS
+            and img.shape == (COLMAP_SIZE[1], COLMAP_SIZE[0], 3)):
+        raise AssertionError(f"phase 37: {kind}, {len(frames)} frames, "
+                             f"{img.shape}")
+    out = os.path.join(base, "dtu")
+    env = dict(DATASET_ROOT=base, SCENE=COLMAP_SCAN, OUT=out,
+               PC_ITER=DTU_ITERS)
+    lines = (script_command_lines("run_dtu.sh", dict(env, ITERS=DTU_ITERS))
+             [:2] + script_command_lines("run_dtu.sh", dict(
+                 env, ITERS=DTU_FIELD_ITERS))[2:])
+    for (_, argv) in (lines[0], lines[2]):
+        name = os.path.basename(argv[argv.index("-m") + 1])
+        iters = int(argv[argv.index("--iterations") + 1])
+        blend_fwd.launches = blend_bwd.launches = 0
+        with Timed("Colmap") as timed:
+            res = train.main(argv)
+        torch.cuda.synchronize()
+        got = (blend_fwd.launches, blend_bwd.launches)
+        launches["blend_fwd"][f"37 {name}"] = got[0]
+        launches["blend_bwd"][f"37 {name}"] = got[1]
+        if got != (iters, iters) or not np.isfinite(res.ms_per_it):
+            raise AssertionError(f"phase 37 {name}: blend launches {got}, "
+                                 f"{res.ms_per_it} ms/it")
+        print(f"phase 37 {name}: {iters} iterations on the JPEG capture at "
+              f"{COLMAP_SIZE[0] // 2}x{COLMAP_SIZE[1] // 2} (-r 2), "
+              f"{res.ms_per_it:.3f} ms/it, step {res.step_ms:.3f} ms mean, "
+              f"{int(res.stats.valid.sum())} splats at the end; reader "
+              f"{timed.seconds('reader'):.3f} s for {COLMAP_VIEWS} JPEG "
+              f"views; {smi}")
+        del res
+    _, render_argv = lines[3]
+    run = render_argv[render_argv.index("-m") + 1]
+    blend_fwd.launches = 0
+    t0 = time.time()
+    with Timed("Colmap") as timed:
+        results = render.main(render_argv)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    launches["blend_fwd"]["37 render"] = blend_fwd.launches
+    n_frames = 3 + 25
+    yaml = read_results(os.path.join(run, "test", f"ours_{DTU_FIELD_ITERS}",
+                                     "results.yaml"))
+    if not (blend_fwd.launches == n_frames and np.isfinite(yaml["psnr"])
+            and results["test"]["psnr"] == yaml["psnr"]):
+        raise AssertionError(f"phase 37: render {blend_fwd.launches} blends,"
+                             f" {yaml}")
+    print(f"phase 37: render CLI on SplatFields3D, {n_frames} frames in "
+          f"{render_s:.3f} s (scene load {timed.seconds('scene'):.3f} s, "
+          f"metrics {timed.seconds('metrics'):.3f} s); test {yaml}; {smi}")
+    shutil.rmtree(base, ignore_errors=True)
+
+    # --- 38. every video.gif of the run -------------------------------------
+    t0 = time.time()
+    worst = check_videos(video_log, smi)
+    print(f"phase 38: {len(video_log.videos)} videos checked in "
+          f"{time.time() - t0:.3f} s, worst share of a render line "
+          f"{worst:.4f}; {smi}")
+
+    # --- 39. the ResField zoo, card against CPU -----------------------------
+    import copy
+
+    from splatfields_torch.models import encoders
+    from splatfields_torch.ops.segsum import sorted_segment_sum
+    segsum = encoders.sorted_segment_sum
+    seg_errs, worst_zoo = [], 0.0
+    t0 = time.time()
+    for case in ZOO_CASES:
+        layer = zoo_layer(case, ZOO_CAP, ZOO_IN, ZOO_OUT, ZOO_RANK)
+        x, kw = zoo_inputs(case, ZOO_N, ZOO_IN, ZOO_FRAME)
+        cot = torch.randn(ZOO_N, ZOO_OUT,
+                          generator=torch.Generator().manual_seed(2))
+        outs = {}
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            m = copy.deepcopy(layer).to(d)
+            xs = x.to(d).requires_grad_(True)
+            kws = {k: v.to(d) if torch.is_tensor(v) else v
+                   for k, v in kw.items()}
+            sums = []
+
+            def spy(sidx, vals, n_rows, _sums=sums):
+                _sums.append((sidx.detach(), vals.detach(), n_rows))
+                return segsum(sidx, vals, n_rows)
+
+            encoders.sorted_segment_sum = spy
+            sorted_segment_sum.launches = 0
+            try:
+                y = m(xs, **kws)
+                grads = torch.autograd.grad((y * cot.to(d)).sum(),
+                                            [xs] + list(m.parameters()),
+                                            allow_unused=True)
+            finally:
+                encoders.sorted_segment_sum = segsum
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            n_launch = sorted_segment_sum.launches   # the card's, last
+            outs[where] = [y.detach().cpu()] + [
+                None if g is None else g.cpu() for g in grads]
+        want_launch = 2 if case[0] == "lora_ngp" else 0
+        if n_launch != want_launch:
+            raise AssertionError(f"phase 39 {case[:3]}: {n_launch} segment "
+                                 f"sum launches, want {want_launch}")
+        if want_launch:
+            launches["segsum"]["39 lora_ngp"] = n_launch
+            for sidx, vals, n_rows in sums:
+                seg_errs.append(check_segsum("phase 39 lora_ngp table VJP",
+                                             sidx, vals, n_rows))
+        for i, (a, b) in enumerate(zip(outs["card"], outs["cpu"])):
+            if (a is None) != (b is None):
+                raise AssertionError(f"phase 39 {case[:3]}: gradient {i} "
+                                     "missing on one side")
+            if a is None:
+                continue
+            scale = max(float(b.abs().max()), 1e-30)
+            err = float((a - b).abs().max()) / scale
+            worst_zoo = max(worst_zoo, err)
+            if err > TOL_ZOO:
+                raise AssertionError(f"phase 39 {case[:3]} {case[3]}: "
+                                     f"{'output' if i == 0 else 'gradient'}"
+                                     f" {i} differs by {err:.3e} of its max")
+    print(f"phase 39: {len(ZOO_CASES)} ResField zoo members ({ZOO_IN}->"
+          f"{ZOO_OUT}, capacity {ZOO_CAP}, rank {ZOO_RANK}, {ZOO_N} points)"
+          f", forward and backward, card against CPU within {worst_zoo:.3e}"
+          f" of each tree's max (TOL_ZOO {TOL_ZOO}); lora_ngp's table VJP: "
+          f"{launches['segsum'].get('39 lora_ngp')} segment-sum launches, "
+          f"kernel against plain within {max(seg_errs):.3e}; "
+          f"{time.time() - t0:.1f} s; {smi}")
+    return launches, seg_errs
+
+
 def main() -> int:
     import time
 
@@ -4590,11 +5124,18 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    for name, (lib_path, build_s) in blend_cuda.build().items():
-        print(f"{name} built in {build_s:.2f} s: {lib_path.name}")
-        log = lib_path.with_suffix(".log")
-        if log.exists():
-            print(log.read_text().strip())
+    from concurrent.futures import ThreadPoolExecutor
+
+    from splatfields_torch import native
+    with ThreadPoolExecutor(1) as pool:   # g++ beside nvcc
+        host_libs = pool.submit(lambda: [native.library(n, {})
+                                         for n in NATIVE_LIBS])
+        for name, (lib_path, build_s) in blend_cuda.build().items():
+            print(f"{name} built in {build_s:.2f} s: {lib_path.name}")
+            log = lib_path.with_suffix(".log")
+            if log.exists():
+                print(log.read_text().strip())
+        host_libs.result()
 
     # --- 2. kernel vs plain at the serving shape ---------------------------
     sc = serving_scene()
@@ -4709,6 +5250,8 @@ def main() -> int:
     del sc, params, stats, deform
     torch.cuda.empty_cache()
     took("11-13")
+    # every render line's video.gif, for phase 38
+    video_log = VideoLog().__enter__()
     # --- 14-17. the Blender protocol through the CLIs ---------------------------
     loop_launches, loop_errs = protocol_phases(dev, smi)
     torch.cuda.empty_cache()
@@ -4729,11 +5272,18 @@ def main() -> int:
     # --- 32-35. the Colmap and nerfies datasets, --profile, --watchdog_min --
     dataset_launches, dataset_errs, dataset_partial = dataset_phases(dev, smi)
     took("32-35")
+    # --- 36-39. the carver, a JPEG capture, the videos, the ResField zoo ----
+    tail_launches, zoo_segsum_errs = host_tail_phases(dev, smi, video_log)
+    video_log.__exit__(None, None, None)
+    took("36-39")
     for k in loop_launches:
         loop_launches[k].update(static_launches[k])
         loop_launches[k].update(owlii_launches[k])
         loop_launches[k].update(option_launches[k])
         loop_launches[k].update(dataset_launches[k])
+        loop_launches[k].update(tail_launches[k])
+    segsum_entry["zoo_launches"] = tail_launches["segsum"]
+    segsum_entry["zoo_max_abs_err"] = max(zoo_segsum_errs)
     loop_errs.update(static_errs)
     loop_errs.update(owlii_errs)
     loop_errs.update(option_errs)

@@ -26,7 +26,7 @@ import zlib
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -76,7 +76,7 @@ def decode(data: bytes) -> np.ndarray:
     """PNG bytes -> uint8 [H, W, C] (uint16 at bit depth 16): C = 1 (gray),
     2 (gray+alpha), 3 (RGB) or 4 (RGBA); a palette image comes back as
     RGB, or RGBA when it has a ``tRNS`` chunk."""
-    if data[:8] != _SIGNATURE:
+    if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file")
     pos, idat, palette, trns, hdr = 8, [], None, None, None
     while pos < len(data):
@@ -186,7 +186,7 @@ def encode(img: np.ndarray, ftype: int = 0, level: int = 6) -> bytes:
     rows[:, 0] = ftype
     rows[:, 1:] = _filter(img, ftype).reshape(h, w * nb)
     return b"".join((
-        _SIGNATURE,
+        SIGNATURE,
         _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
                                     0)),
         _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)),

@@ -25,7 +25,7 @@ from pathlib import Path
 
 import numpy as np
 
-from splatfields_torch.data import png
+from splatfields_torch.data import images, png
 from splatfields_torch.data.ply import fetch_pointcloud, store_pointcloud
 from splatfields_torch.data.point_init import (
     mask_filter_points,
@@ -131,7 +131,7 @@ def nerfpp_norm_from_infos(cam_infos) -> dict:
 
 
 def _read_rgba(image_path: str) -> np.ndarray:
-    return png.to_rgba(png.read(image_path)).astype(np.float32) / 255.0
+    return png.to_rgba(images.read(image_path)).astype(np.float32) / 255.0
 
 
 def _composite(im: np.ndarray, white_background: bool):

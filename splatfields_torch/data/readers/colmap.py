@@ -14,10 +14,10 @@
   file when the dataset is read-only).
 - ``read_colmap_scene`` ("ColmapHold"): every 8th image held out.
 
-Images are read by the port's PNG decoder (``data/png.py``); the float32
-arithmetic runs in the JAX reader's order, so images and masks equal
-PIL's bit for bit. Any other format raises NotImplementedError naming
-the file.
+Images are PNG or baseline JPEG, told apart by their first bytes
+(``data/images.py``); the float32 arithmetic runs in the JAX reader's
+order, so images and masks equal PIL's bit for bit. Any other format
+raises NotImplementedError naming the file.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import uuid
 
 import numpy as np
 
-from splatfields_torch.data import colmap_io, png
+from splatfields_torch.data import colmap_io, images, png
 from splatfields_torch.data.ply import fetch_pointcloud, store_pointcloud
 from splatfields_torch.data.readers.blender import nerfpp_norm_from_infos
 from splatfields_torch.data.types import BasicPointCloud, CameraInfo, SceneInfo
@@ -36,19 +36,13 @@ from splatfields_torch.utils.camera_math import focal2fov
 
 PIXELNERF_TRAIN_IDX = [25, 22, 28, 40, 44, 48, 0, 8, 13]
 PIXELNERF_EXCLUDE_IDX = [3, 4, 5, 6, 7, 16, 17, 18, 19, 20, 21, 36, 37, 38, 39]
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def read_image_rgba(path: str) -> np.ndarray:
-    """uint8 RGBA [H, W, 4] of a PNG, as PIL's ``convert("RGBA")`` gives
-    it (16-bit samples to their high byte); any other format raises."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _PNG_SIGNATURE:
-        raise NotImplementedError(
-            f"{path}: only PNG images are read (ROADMAP Queue 1 item 5 "
-            "(a baseline JPEG decoder))")
-    img = png.decode(data)
+    """uint8 RGBA [H, W, 4] of a PNG or JPEG, as PIL's ``convert("RGBA")``
+    gives it (16-bit samples to their high byte, alpha 255 without one);
+    any other format raises."""
+    img = images.read(path)
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
     return png.to_rgba(img)

@@ -14,8 +14,9 @@ anything else (HyperNeRF) every 4th id at ratio 0.5 with no test set.
 random colours. The pred cameras follow a spline
 (``utils/camera_paths.generate_interpolated_path``) through the fid-0
 cameras of the rig in ``VIS_CAM_ORDER``, or are the test cameras when a
-rig id is missing. Images are read by the port's PNG decoder
-(``data/png.py``) and divided by 255, as the JAX reader's PIL array.
+rig id is missing. Images, PNG or baseline JPEG by their first bytes,
+are read by ``data/images.py`` and divided by 255, as the JAX reader's
+PIL array.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
-from splatfields_torch.data import png
+from splatfields_torch.data import images
 from splatfields_torch.data.ply import fetch_pointcloud
 from splatfields_torch.data.readers.blender import nerfpp_norm_from_infos
 from splatfields_torch.data.types import BasicPointCloud, CameraInfo, SceneInfo
@@ -56,9 +57,9 @@ def camera_nerfies_from_json(path, scale):
 
 
 def _read_image(path: str) -> np.ndarray:
-    """float32 [H, W, C] / 255 of a PNG, as ``np.array(PIL.Image.open(
-    path), np.float32) / 255`` (one channel squeezed)."""
-    img = png.read(path)
+    """float32 [H, W, C] / 255 of a PNG or JPEG, as ``np.array(PIL.Image.
+    open(path), np.float32) / 255`` (one channel squeezed)."""
+    img = images.read(path)
     if img.shape[-1] == 1:
         img = img[..., 0]
     return np.array(img, np.float32) / 255.0

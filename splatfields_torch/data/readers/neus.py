@@ -26,8 +26,9 @@ ResFields/Owlii multi-camera video (counterpart of
   camera lists, the ``f < load_time_step`` filter, radius 1, and the
   point init (``vertices``, ``random``, ``hull``, ``depth``).
 
-Images, masks and depths are read by ``data/png.py``, where the JAX
-package uses PIL, imageio and cv2; the values are cv2's: ``imread``'s
+Images, masks and depths are read by ``data/png.py``, and the ResFields
+frames (``rgb/*.jpg`` too) by ``data/images.py``, where the JAX package
+uses PIL, imageio and cv2; the values are cv2's: ``imread``'s
 colour route (grey replicated, alpha dropped, 16-bit samples shifted to
 8 bits; the mask is its blue channel) and ``IMREAD_UNCHANGED``'s uint16
 depth. The JAX reader stacks a camera's frames in float64 before it
@@ -45,7 +46,7 @@ from pathlib import Path
 
 import numpy as np
 
-from splatfields_torch.data import png
+from splatfields_torch.data import images, png
 from splatfields_torch.data.ply import fetch_pointcloud, store_pointcloud
 from splatfields_torch.data.readers.blender import nerfpp_norm_from_infos
 from splatfields_torch.data.types import BasicPointCloud, CameraInfo, SceneInfo
@@ -189,21 +190,6 @@ def read_neus_dtu_scene(path, render_camera="cameras_sphere.npz",
 # ResFields / Owlii multi-camera video
 # ---------------------------------------------------------------------------
 
-def _imread_color(path: str) -> np.ndarray:
-    """uint8 RGB [H, W, 3] as ``cv2.imread(path)[..., ::-1]`` gives it."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: only PNG frames are read (a JPEG route is ROADMAP "
-            "Queue 1 item 5)")
-    img = png.read(path)
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    ch = img.shape[-1]
-    if ch <= 2:
-        return np.repeat(img[..., :1], 3, -1)
-    return img[..., :3]
-
-
 def _imread_unchanged(path: str) -> np.ndarray:
     """``cv2.imread(path, IMREAD_UNCHANGED)``: one channel squeezed, more
     in cv2's BGR(A) order."""
@@ -257,10 +243,10 @@ def read_cameras_from_neus(data_dir, white_background, keep_fid=None,
     cam_infos, pc_xyz, pc_rgb = [], [], []
     for ci in range(n):
         # one frame in float64, as the JAX reader's stacked arrays hold it
-        image = _imread_color(img_paths[ci]) / 255.0
+        image = images.read_color(img_paths[ci]) / 255.0
         mask = None
         if has_masks:
-            mask = _imread_color(mask_paths[ci])[..., 2:3] / 255.0
+            mask = images.read_color(mask_paths[ci])[..., 2:3] / 255.0
             image = image * mask + (1 - mask) * bg
         depth = None
         if has_depth:

@@ -15,7 +15,10 @@ leaf; only the layouts differ:
 - the frozen noise buffers NLC, NHWC and NDHWC -> NCL, NCHW and NCDHW;
 - the NGP hash ``table`` [L, T, F], the ResField ``weights_t`` [C, R]
   and ``matrix_t`` [R, out * in] (already in the port's ``(out, in)``
-  order, so never transposed), the DCT flow head's
+  order, so never transposed), the rest of the ResField zoo's leaves
+  (``chunk_weights`` [K, out, in], ``attention_weight``, ``resnet_vec``,
+  the cp and tucker factors, ``lora_3``'s grid), the density scalars
+  ``beta``, ``lamb``, ``gamma``, the DCT flow head's
   ``trajectory_basis``, and the learned ``planes`` / ``time_planes``
   [P, C, H, W] and ``grid`` [C, D, H, W] keep their layouts.
 
@@ -48,7 +51,11 @@ from splatfields_torch.models.splats import AdamState, SplatParams
 
 # leaves whose layout is the same in both packages
 _KEPT = ("bias", "table", "weights_t", "matrix_t", "trajectory_basis",
-         "planes", "time_planes", "grid")
+         "planes", "time_planes", "grid",
+         # the rest of the ResField zoo and the density scalars
+         "chunk_weights", "attention_weight", "resnet_vec", "lin_w",
+         "lin_f1", "lin_f2", "lin_f3", "tucker_core", "tucker_f0",
+         "tucker_f1", "tucker_f2", "beta", "lamb", "gamma")
 # the noise buffers, channels last in flax, by rank: flax -> torch axes
 _NOISE_TO_TORCH = {3: (0, 2, 1), 4: (0, 3, 1, 2), 5: (0, 4, 1, 2, 3)}
 _NOISE_TO_FLAX = {3: (0, 2, 1), 4: (0, 2, 3, 1), 5: (0, 2, 3, 4, 1)}
@@ -194,7 +201,7 @@ def module_to_flax(module: nn.Module) -> dict:
         node = tree[collection]
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(value)
+        node[path[-1]] = value.copy(order="C")   # 0-d stays 0-d
 
     for mod_name, mod in module.named_modules():
         path = tuple(mod_name.split(".")) if mod_name else ()

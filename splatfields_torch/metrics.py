@@ -8,8 +8,9 @@ while the image uses the Gaussian); ``eval_all``, which writes PSNR,
 SSIM * 100 and LPIPS * 100 over a render directory into
 ``results.yaml``.
 
-PNGs are read by ``data/png.py`` in RGB order, where the JAX package
-reads BGR through cv2; PSNR and SSIM are per-channel sums and means, so
+PNGs and JPEGs (``*.png`` and ``*.jpg``, as the JAX package globs) are
+read by ``data/images.py`` in RGB order, where the JAX package reads BGR
+through cv2; PSNR and SSIM are per-channel sums and means, so
 the order does not change them (tests/test_torch_train_loop.py shows
 it). LPIPS does depend on it, and the reference and the JAX package feed
 it cv2's BGR images, so ``eval_imgs`` hands it the channels reversed.
@@ -26,7 +27,7 @@ import os
 import numpy as np
 from scipy import signal
 
-from splatfields_torch.data import png
+from splatfields_torch.data import images
 from splatfields_torch.ops.lpips import load_lpips
 
 LPIPS_NOTE = ("lpips unavailable: no local VGG-LPIPS weight file found "
@@ -94,18 +95,19 @@ def eval_imgs(pred: np.ndarray, gt: np.ndarray, lpips_fn=None,
     return out
 
 
-def _pngs(d: str) -> list[str]:
-    return sorted(glob.glob(os.path.join(d, "*.png")))
+def _images(d: str) -> list[str]:
+    return sorted(glob.glob(os.path.join(d, "*.png"))
+                  + glob.glob(os.path.join(d, "*.jpg")))
 
 
 def eval_all(src_dir: str, scale_ssim: float = 100.0,
              scale_lpips: float = 100.0,
              lpips_weights_path: str | None = None, device=None) -> dict:
-    """Mean metrics of ``renders/*.png`` against ``gt/*.png`` -> the
+    """Mean metrics of ``renders/*.{png,jpg}`` against ``gt/`` -> the
     summary dict, also written to ``src_dir/results.yaml``. LPIPS runs on
     ``device`` (None: the GPU) when a weight file is found."""
-    gt_paths = _pngs(os.path.join(src_dir, "gt"))
-    pred_paths = _pngs(os.path.join(src_dir, "renders"))
+    gt_paths = _images(os.path.join(src_dir, "gt"))
+    pred_paths = _images(os.path.join(src_dir, "renders"))
     if [os.path.basename(p) for p in gt_paths] != [
             os.path.basename(p) for p in pred_paths]:
         raise ValueError(f"gt and renders differ in {src_dir}: "
@@ -113,7 +115,7 @@ def eval_all(src_dir: str, scale_ssim: float = 100.0,
     lpips_fn = load_lpips(lpips_weights_path, device)
     results = collections.defaultdict(list)
     for gp, pp in zip(gt_paths, pred_paths):
-        ev = eval_imgs(png.read(pp)[..., :3], png.read(gp)[..., :3],
+        ev = eval_imgs(images.read_color(pp), images.read_color(gp),
                        lpips_fn, scale_ssim, scale_lpips)
         for k, v in ev.items():
             results[k].append(v)

@@ -6,11 +6,11 @@ mode, ``deform.msgpack``; written by either package), renders the train,
 test and (``--render_pred``) pred cameras, each at its own fid, to PNGs through ``data/png.py``, with
 depth maps coloured by cv2's ``COLORMAP_JET`` on request, and writes
 PSNR, SSIM and (given VGG weights, ``--lpips_weights``) LPIPS into
-``results.yaml`` (``metrics.eval_all``). The JAX CLI also writes
-``video.mp4`` (or ``video.gif``); the GPU machine has no video encoder,
-so this one writes none and says so (ROADMAP Queue 1 item 5). The parser
-takes every flag of the JAX CLI; ``--render_batch`` has no effect (it
-batches frames into one TPU dispatch).
+``results.yaml`` (``metrics.eval_all``). Every rendered set also goes
+into ``video.gif`` (``data/gif.py``: 50 ms a frame, looping), what the
+JAX CLI writes when no mp4 encoder is present, as on the GPU machine.
+The parser takes every flag of the JAX CLI; ``--render_batch`` has no
+effect (it batches frames into one TPU dispatch).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch
 
 from splatfields_torch import config as cfg_lib
 from splatfields_torch import metrics
-from splatfields_torch.data import png
+from splatfields_torch.data import gif, png
 from splatfields_torch.device import resolve_device
 from splatfields_torch.models.deform_model import DeformModel
 from splatfields_torch.render_lib import render_cameras_batched
@@ -30,8 +30,8 @@ from splatfields_torch.scene import Scene
 from splatfields_torch.utils.system import mkdir_p
 
 DEPTH_MIN = 9.0
-NO_VIDEO = ("no video.mp4 / video.gif: no video encoder on this machine "
-            "(ROADMAP Queue 1 item 5)")
+VIDEO_NOTE = ("mp4 export unavailable (no video encoder on this machine); "
+              "wrote video.gif")
 
 
 def _to_png(img_chw: torch.Tensor) -> np.ndarray:
@@ -79,9 +79,9 @@ def jet(x: np.ndarray) -> np.ndarray:
 def render_set(model_path, name, iteration, views, params, stats, deform,
                pipe_cfg, bg, field_mode, n_frames, sh_degree,
                render_depth=False, lpips_weights=None):
-    """Render ``views`` into ``model_path/name/ours_<iteration>/`` and
-    evaluate against their images -> the metrics summary ({} when the
-    views have no images)."""
+    """Render ``views`` into ``model_path/name/ours_<iteration>/`` (PNGs
+    and ``video.gif``) and evaluate against their images -> the metrics
+    summary ({} when the views have no images)."""
     base = os.path.join(model_path, name, f"ours_{iteration}")
     render_path = os.path.join(base, "renders")
     gts_path = os.path.join(base, "gt")
@@ -91,6 +91,7 @@ def render_set(model_path, name, iteration, views, params, stats, deform,
     if render_depth:
         mkdir_p(depth_path)
     dropped_views = 0
+    frames = []
     outs = render_cameras_batched(views, params, stats, deform, pipe_cfg, bg,
                                   field_mode=field_mode, n_frames=n_frames,
                                   sh_degree=sh_degree)
@@ -103,8 +104,8 @@ def render_set(model_path, name, iteration, views, params, stats, deform,
                       f"instances beyond the dup budget (dup_factor="
                       f"{pipe_cfg.dup_factor}); increase --dup_factor to "
                       "render all splats")
-        png.write(os.path.join(render_path, f"{idx:05d}.png"),
-                  _to_png(out["render"]))
+        frames.append(_to_png(out["render"]))
+        png.write(os.path.join(render_path, f"{idx:05d}.png"), frames[-1])
         if view.image is not None:
             png.write(os.path.join(gts_path, f"{idx:05d}.png"),
                       _to_png(view.image))
@@ -113,8 +114,9 @@ def render_set(model_path, name, iteration, views, params, stats, deform,
             dmax = max(float(depth.max()), DEPTH_MIN + 1e-3)
             dvis = np.clip((depth - DEPTH_MIN) / (dmax - DEPTH_MIN), 0, 1)
             png.write(os.path.join(depth_path, f"{idx:05d}.png"), jet(dvis))
-    if views:
-        print(NO_VIDEO)
+    if frames:
+        gif.write(os.path.join(base, "video.gif"), frames)
+        print(VIDEO_NOTE)
     if any(v.image is not None for v in views):
         return metrics.eval_all(base, lpips_weights_path=lpips_weights,
                                 device=params.xyz.device)

@@ -498,7 +498,7 @@ def check_ported_flags(args):
         raise NotImplementedError(
             "device meshes and multi-process training (--mesh_model, "
             "--mesh_data, --ring, --num_processes, --coordinator_address): "
-            "ROADMAP Queue 1 item 9")
+            "ROADMAP Queue 1 item 9 (multi-device)")
 
 
 def profile_callback(trace_dir: str):

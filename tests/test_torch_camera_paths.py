@@ -111,3 +111,19 @@ def test_render_wander_path():
     got = tp.render_wander_path(R, T, 0.7, 270, num_frames=12)
     _close(got, jp.render_wander_path(R, T, 0.7, 270, num_frames=12))
     assert got.shape == (12, 4, 4) and got.dtype == np.float32
+
+
+def test_orbit_camera_matches_jax():
+    """``utils/gui.OrbitCamera`` against the JAX package's after the same
+    orbit, scale and pan moves: pose, view and intrinsics."""
+    from splatfields_torch.utils import gui
+    from splatfields_tpu.utils import gui as jax_gui
+    cams = [m.OrbitCamera(64, 48, r=2.5, fovy=50.0) for m in (gui, jax_gui)]
+    for cam in cams:
+        cam.orbit(12.0, -7.0)
+        cam.scale(1.5)
+        cam.pan(30.0, -4.0, 2.0)
+        cam.orbit(-3.0, 5.0)
+    for attr in ("pose", "view", "intrinsics"):
+        np.testing.assert_array_equal(getattr(cams[0], attr),
+                                      getattr(cams[1], attr), err_msg=attr)

@@ -266,14 +266,23 @@ def test_text_fallback_matches_jax(scan, tmp_path, how):
 
 
 def test_jpeg_raises_naming_the_file(scan, tmp_path):
+    """A baseline JPEG frame, named .png (the format goes by the first
+    bytes, as in PIL), reads as the JAX reader reads it; a progressive one
+    raises naming the file and the marker."""
     PIL = pytest.importorskip("PIL.Image")
     root = str(tmp_path / "scan")
     shutil.copytree(scan, root)
-    path = os.path.join(root, "images", "007.png")
-    PIL.fromarray(np.full((H, W, 3), 128, np.uint8)).save(path, "JPEG")
-    jax_colmap.read_colmap_scene_sparse(root, n_views=3)  # PIL reads it
+    path = os.path.join(root, "images", "025.png")
+    frame = np.random.RandomState(7).randint(0, 256, (H, W, 3), np.uint8)
+    PIL.fromarray(frame).save(path, "JPEG", quality=80)
+    (want, _), (got, _) = _read_both("read_colmap_scene_sparse", root,
+                                     n_views=3)
+    assert "025" in [c.image_name for c in want.train_cameras]  # the JPEG
+    for split in ("train_cameras", "test_cameras"):
+        _same_infos(getattr(got, split), getattr(want, split))
+    PIL.fromarray(frame).save(path, "JPEG", progressive=True)
     with pytest.raises(NotImplementedError,
-                       match="007.png.*a baseline JPEG decoder"):
+                       match="025.png.*progressive JPEG .SOF2"):
         colmap.read_colmap_scene_sparse(root, n_views=3)
 
 

@@ -4,8 +4,8 @@ The dataset is ``chip_smoke.write_blender_scene`` at the size of
 tests/test_train_e2e.py's fixture (64x64, 5 train and 2 test views, the
 same poses and ground-truth splats), written by the port's PNG encoder.
 Held equal bit for bit: every ``CameraInfo`` field of both Blender
-readers, the point clouds of the random / load / hull routes (the JAX
-package's NumPy route: its C++ carver is switched off), ``load_cam`` at
+readers, the point clouds of the random / load / hull routes (both
+packages' NumPy routes: the C++ carvers are switched off), ``load_cam`` at
 full size, ``Scene`` (camera order, ``cameras.json``, ``input.ply``;
 its splats within create_from_pcd's KNN tolerance of
 tests/test_torch_fields.py), PLY files read and written across, ``cfg_args`` across, and
@@ -57,8 +57,16 @@ def scene_dir(tmp_path_factory):
 
 @pytest.fixture
 def numpy_carver(monkeypatch):
-    """The JAX package's NumPy carving route."""
+    """Both packages' NumPy carving routes (the native carvers are held
+    against each other in tests/test_torch_native.py)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    numpy_route = tpi.mask_filter_points
+
+    def mask_filter_points(xyz, cameras, use_native=True, chunk=1 << 18):
+        return numpy_route(xyz, cameras, False, chunk)
+
+    monkeypatch.setattr(tpi, "mask_filter_points", mask_filter_points)
+    monkeypatch.setattr(tb, "mask_filter_points", mask_filter_points)
 
 
 def _same(a, b, where):
@@ -160,7 +168,8 @@ def test_hull_matches_the_numpy_route(scene_dir, numpy_carver):
     assert 0 < keep.sum() < len(keep)
     for chunk in (1 << 12, 1 << 18):
         np.testing.assert_array_equal(
-            tpi.mask_filter_points(pts, ti, chunk=chunk), keep)
+            tpi.mask_filter_points(pts, ti, use_native=False,
+                                   chunk=chunk), keep)
 
 
 def test_load_cam(scene_dir):

@@ -50,7 +50,11 @@ MODULES = ("splatfields_torch", "splatfields_torch.render_lib",
            "splatfields_torch.data.colmap_io",
            "splatfields_torch.data.readers.colmap",
            "splatfields_torch.data.readers.nerfies",
-           "splatfields_torch.utils.camera_paths", "chip_smoke")
+           "splatfields_torch.utils.camera_paths",
+           "splatfields_torch.native", "splatfields_torch.data.jpeg",
+           "splatfields_torch.data.gif", "splatfields_torch.data.images",
+           "splatfields_torch.models.density",
+           "splatfields_torch.utils.gui", "chip_smoke")
 
 
 def test_import_pulls_in_no_jax():
@@ -206,9 +210,11 @@ assert not bad, bad
 
 def test_datasets_without_the_host_libraries(tmp_path):
     """The Colmap and nerfies readers, their spline path, masked SSIM, the
-    watchdog and the profile callback with FORBIDDEN, HOST_LIBS and
-    ``scipy.misc`` blocked, as on the GPU machine: a small COLMAP scan and
-    a small nerfies capture written and read."""
+    watchdog, the profile callback, the JPEG decoder, the GIF writer and
+    reader and the native carver with FORBIDDEN, HOST_LIBS and
+    ``scipy.misc`` blocked, as on the GPU machine: a small COLMAP scan (one
+    of PNG frames, one of JPEG frames) and a small nerfies capture written
+    and read, a video.gif written and read back, a grid carved."""
     blocked = FORBIDDEN + HOST_LIBS + ("scipy.misc",)
     code = f"""import sys
 for m in {blocked!r}: sys.modules[m] = None
@@ -227,6 +233,19 @@ assert len(SCENE_LOADERS["ColmapHold"](scan, eval_mode=True).test_cameras) == 7
 cap = chip_smoke.write_nerfies_scene({str(tmp_path)!r}, 32, 18, 1, "cpu",
                                      n_splats=300, n_points=100)
 assert len(SCENE_LOADERS["nerfies"](cap).pred_cameras) == 650
+jscan = chip_smoke.write_colmap_scene({str(tmp_path / "jpeg")!r}, 32, 24,
+                                      "cpu", n_splats=300, n_points=100,
+                                      jpeg=True)
+jinfo = SCENE_LOADERS["Colmap"](jscan, n_views=3)
+assert jinfo.train_cameras[0].image_path.endswith(".jpg")
+frames = [(c.image * 255).astype("uint8") for c in jinfo.test_cameras]
+from splatfields_torch.data import gif
+gif.write({str(tmp_path / "v.gif")!r}, frames)
+back, delays, loop = gif.read({str(tmp_path / "v.gif")!r})
+assert back.shape == (25, 24, 32, 3) and loop == 0 and (delays == 50).all()
+from splatfields_torch.data.point_init import visual_hull_from_grid
+assert len(visual_hull_from_grid(jinfo.train_cameras, num_pts=50,
+                                 grid_resolution=16)) > 0
 img = torch.rand(9, 9, 3)
 assert float(masked_ssim(img, img, torch.ones(9, 9, 1))) > 2.99
 StallWatchdog(1.0, exit_fn=lambda: None).start().stop()

@@ -1,6 +1,8 @@
 """The 4-D field's building blocks against the JAX package on the CPU:
 ``ResFieldLinear`` with active ranks (compression 'vm', mode 'lookup',
-fuse 'add'), ``GeneralMLP`` with ResField ranks, every ``FlowHead``
+fuse 'add', the member the 4-D field trains with; the rest of the zoo is
+tests/test_torch_resfield_zoo.py), the density transfer functions,
+``GeneralMLP`` with ResField ranks, every ``FlowHead``
 model, ``SirenMLP`` and ``exp_se3``.
 
 The JAX parameters are drawn by flax, then replaced by numpy draws from a
@@ -24,7 +26,11 @@ from splatfields_tpu.models import flow as jax_flow
 from splatfields_tpu.models import mlp as jax_mlp
 from splatfields_tpu.models import resfields as jax_resfields
 from splatfields_tpu.utils import transforms as jax_transforms
-from splatfields_torch.interop import flax_to_state_dict, load_flax_variables
+from splatfields_torch.interop import (
+    flax_to_state_dict,
+    load_flax_variables,
+    module_to_flax,
+)
 from splatfields_torch.models import flow, mlp, resfields
 from splatfields_torch.utils import transforms
 
@@ -48,7 +54,7 @@ def _randomize(params, seed):
         return params
     rng = np.random.RandomState(seed)
     return {k: v if k == "basis_net" else jax.tree.map(
-        lambda a: (0.3 * rng.randn(*np.shape(a))).astype(np.float32), v)
+        lambda a: np.asarray(0.3 * rng.randn(*np.shape(a)), np.float32), v)
         for k, v in params.items()}
 
 
@@ -135,10 +141,20 @@ def test_resfield_linear_delta_order():
 
 
 def test_resfield_refuses_the_rest_of_the_zoo():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        resfields.ResFieldLinear(3, 2, 1, 2, compression="cp", generator=GEN)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        resfields.ResFieldLinear(3, 2, 1, 2, mode="interpolation",
+    """The rest of the zoo builds (its parity with JAX is
+    tests/test_torch_resfield_zoo.py): ``cp`` holds its factors and the
+    interpolation mode reads time; only a name outside the zoo is refused
+    at construction."""
+    cp = resfields.ResFieldLinear(3, 2, 1, 2, compression="cp",
+                                  generator=GEN)
+    assert sorted(k for k, _ in cp.named_parameters()) == [
+        "bias", "lin_f1", "lin_f2", "lin_f3", "lin_w", "weight"]
+    interp = resfields.ResFieldLinear(3, 2, 1, 2, mode="interpolation",
+                                      generator=GEN)
+    y = interp(torch.ones(4, 3), input_time=torch.zeros(4, 1))
+    assert y.shape == (4, 2) and torch.isfinite(y).all()
+    with pytest.raises(NotImplementedError, match="not a member"):
+        resfields.ResFieldLinear(3, 2, 1, 2, compression="dense",
                                  generator=GEN)
 
 
@@ -223,3 +239,22 @@ def test_exp_se3():
         torch.tensor(h))), h)
     _close(transforms.exp_so3(torch.tensor(S[:, :3]), torch.tensor(theta)),
            jax_transforms.exp_so3(S[:, :3], theta))
+
+
+@pytest.mark.parametrize("which", ["LaplaceDensity", "BellDensity"])
+def test_density(which):
+    """``models/density.py`` against the JAX modules: values, ``inv_s``
+    and the gradients of the scalars and the SDF, the scalars drawn from
+    a seed (tolerance as above)."""
+    from splatfields_tpu.models import density as jax_density
+    from splatfields_torch.models import density
+    sdf = np.random.RandomState(7).randn(23).astype(np.float32) * 0.3
+    sdf[0] = 0.0
+    jm = getattr(jax_density, which)()
+    pm = getattr(density, which)()
+    _parity(jm, pm, (sdf,), seed=8, inputs=(0,))
+    params = module_to_flax(pm)["params"]
+    assert set(params) == ({"beta"} if which == "LaplaceDensity"
+                           else {"lamb", "gamma"})
+    np.testing.assert_allclose(pm.inv_s().detach().numpy(), jm.apply(
+        {"params": params}, method=jm.inv_s), rtol=1e-6)

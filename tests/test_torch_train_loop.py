@@ -29,6 +29,7 @@ PSNR within 1e-3 dB and SSIM (x100) within 1e-3: the frames agree to
 The event function is held to the JAX loop's conditions over iterations
 1-40,000 for the protocol's configurations.
 """
+import os
 import random
 import shutil
 
@@ -41,6 +42,8 @@ from splatfields_torch import config as tcfg
 from splatfields_torch import metrics as tmetrics
 from splatfields_torch import render as trender
 from splatfields_torch import train as ttrain
+from splatfields_torch.data import gif as tgif
+from splatfields_torch.data import png as tpng
 from splatfields_torch.data.ply import read_ply_vertices
 from splatfields_torch.models import splats as tsplats
 from splatfields_tpu import config as jcfg
@@ -142,6 +145,16 @@ def test_render_cli_on_the_jax_run(runs, scene_dir, tmp_path):
     assert abs(results["torch"]["psnr"] - results["jax"]["psnr"]) <= 1e-3
     assert abs(results["torch"]["ssim"] - results["jax"]["ssim"]) <= 1e-3
     assert results["torch"]["lpips"] is None
+    # the port's video.gif: every render, in order, within the fixed
+    # palette's error (tests/test_torch_video.py holds it against PIL's)
+    base = f"{tmp_path}/torch/test/ours_{ITERS}"
+    frames, delays, loop = tgif.read(f"{base}/video.gif")
+    renders = sorted(os.listdir(f"{base}/renders"))
+    assert len(frames) == len(renders) > 0 and loop == 0
+    for frame, name in zip(frames, renders):
+        png = tpng.read(f"{base}/renders/{name}")
+        err = np.abs(frame.astype(np.int64) - png).mean()
+        assert err <= chip_smoke.fixed_palette_mae(png), name
 
 
 def test_channel_order_does_not_move_the_metrics():
