@@ -99,8 +99,8 @@ Phases, each raising on failure:
     step's forward and backward, its last evaluation frame's forward),
     the backward twice bitwise equal.
 16. SplatFields3D with the script's second command line (VarTriPlane,
-    ``lambda_norm`` 0.01, init from phase 15's PLY), 100 iterations, then
-    ``--resume`` to 120; the kernels on the loop's inputs as in phase 15;
+    ``lambda_norm`` 0.01, init from phase 15's PLY), 50 iterations, then
+    ``--resume`` to 70; the kernels on the loop's inputs as in phase 15;
     ``splatfields_torch.render.main`` on the run at 100: results.yaml's
     PSNR within the uint8 PNG round trip's bound of the loop's
     evaluation, its frames within one level of the loop's own state
@@ -110,7 +110,7 @@ Phases, each raising on failure:
     SplatFields3D, on the card and on the CPU with the same seeds:
     per-iteration losses within phase 7's 1e-5 relative (``card_vs_cpu``).
 18. ``scripts/run_blender.sh``'s third command line (3DGS + Moran,
-    ``--lambda_corr 0.01``) on phase 14's scene, 50 iterations: the
+    ``--lambda_corr 0.01``) on phase 14's scene, 20 iterations: the
     Moran term once a step, timed by CUDA events (``CorrTimer``), its
     share of the step, the splats its KNN saw; the kernels on the loop's
     own inputs as in phase 15. Then 8 steps with ``--corr_interval 4``:
@@ -122,7 +122,7 @@ Phases, each raising on failure:
     0.1) and a mesh PLY with vertices and faces.
 20. ``scripts/run_dtu.sh``'s four command lines on a synthetic DTU scan
     (``write_dtu_scene``: 4 views of 1600x1200 with masks, ground truth
-    rendered through the port's DTU cameras): 3DGS 200 iterations at
+    rendered through the port's DTU cameras): 3DGS 100 iterations at
     ``-r 2`` (800x600, random-cube init of 100,000 points) and its render,
     SplatFields3D (``--W 128 --deform_weight 0 --pc_path``) 10
     iterations and its render; the kernels on each loop's inputs as in
@@ -201,7 +201,10 @@ Phases, each raising on failure:
 31. Card against CPU: ``card_vs_cpu`` for a small CLI run with TriPlane,
     the view-dependent head and ``geo_model_disable_pts``; a small static
     step with ``n_splats`` (the same subset on both) and a small 4-D
-    VarHexPlane step with per-frame deltas (``SMALL_HEX``), as phase 7.
+    VarHexPlane step with per-frame deltas (``SMALL_HEX``), as phase 7;
+    then the step's screen gradient at every ``HEX_SEEDS`` net seed, card
+    against CPU f32 and CPU f32 against CPU f64 (``hex_step``): how far
+    the step's conditioning alone moves it.
 
 32. ``scripts/run_dtu.sh``'s four command lines, read from the script,
     on a synthetic COLMAP scan (``write_colmap_scene``: a binary
@@ -231,11 +234,40 @@ Phases, each raising on failure:
     iterations 21-30 exists and names both blend kernels, ten launches
     each; the watchdog's thread stops with the run.
 
+40. ``SPLATFIELDS_MLP_BF16`` off then on (the JAX package's default for a
+    static field: bf16 activations between the MLP layers) on phase 6's
+    step: ms/step of each, the field's attributes on against off; phase
+    7's small step with the option on, card against CPU, within the bf16
+    bound of ``check_small_step_bf16``.
+41. ``SPLATFIELDS_NGP_BF16_TABLE`` off then on (the JAX package's default
+    off the CPU: the hash grid gathers from a bf16 copy of its table) on
+    phase 9's NGP step: ms/step of each, the attributes on against off,
+    the segment-sum kernel on the on-step's own rows against its plain
+    version.
+42. Multi-device on one card (``splatfields_torch/parallel``): (a) both
+    blend kernels on each model rank's slice of a ``SLICE_RES`` training
+    frame's tile grid for 2 and 4 ranks (padded starts and counts, global
+    tile ids clamped to the last tile), against the plain versions and
+    the whole frame; (b) ``train.main`` with ``--mesh_model 1`` (a world
+    of 1 over NCCL, the sharded step) resumed from iteration 1 to
+    ``MESH_ITERS`` of ``run_blender.sh``'s SplatFields3D line on phase
+    14's scene, against the same run without a mesh; (c) a world of 2 spawned processes on
+    the one card over gloo with CUDA tensors, a 1 x 2 mesh, one sharded
+    field step against the single-device step on the same state.
+
+Every phase before 40 runs with both bf16 options off (set by ``main``):
+under ``auto`` they would be on for CUDA tensors, and the earlier checks
+hold f32 numerics. From phase 14 on, every call of ``train.main``,
+``render.main`` and ``extract_geo.main`` starts with TF32 turned on and
+must return with it off (``F32Mains``): the CLIs turn it off themselves.
+
 The line before the last is a JSON object of the kernels (the blend
 kernels' ``loop_launches``: their counts in phases 15, 16, 18, 20, 23,
 25, 27, 29, 30, 32, 33 and 35, ``loop_max_abs_err``: their errors on those
 phases' inputs, and ``partial_tile_max_abs_err`` / ``partial_tile_max_err``:
-their errors on phases 20, 32 and 33's partial tiles; the fused kernels'
+their errors on phases 20, 32 and 33's partial tiles, and phases 40-42's
+launches; the segment sum's ``bf16_table_launches`` and
+``bf16_table_max_abs_err``: phase 41's; the fused kernels'
 ``option_launches`` and ``option_max_layer_gap``: phase 28's); the last
 line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -2750,7 +2782,7 @@ PROTOCOL_3DGS = ("--white_background --eval --is_static --n_views 10 "
                  "--pts_samples hull --max_num_pts 300000 --load_time_step 0 "
                  "--composition_rank 0").split()
 # phase 16's iterations, and 20 more resumed
-PROTOCOL_FIELD_ITERS = 100
+PROTOCOL_FIELD_ITERS = 50
 PROTOCOL_FIELD = ("--white_background --eval --encoder_type "
                   "VarTriPlaneEncoder --lambda_norm 0.01 --n_views 10 "
                   "--pts_samples load --max_num_pts 100000 --load_time_step 0 "
@@ -2990,7 +3022,7 @@ def protocol_phases(dev, smi):
 PROTOCOL_MORAN = ("--white_background --eval --is_static --n_views 10 "
                   "--pts_samples hull --max_num_pts 300000 --lambda_corr 0.01 "
                   "--load_time_step 0 --composition_rank 0").split()
-MORAN_ITERS = 50
+MORAN_ITERS = 20
 # run_dtu.sh's flags (its 3DGS lines keep --load_time_step at its default)
 DTU_3DGS = ("--white_background --lambda_mask 0.1 -r 2 --is_static "
             "--n_views 3").split()
@@ -2999,7 +3031,7 @@ DTU_FIELD = ("--deform_weight 0 --white_background --lambda_mask 0.1 "
              "VarTriPlaneEncoder --W 128 --max_num_pts 300000 -r 2 "
              "--load_time_step 0 --composition_rank 0").split()
 DTU_SIZE, DTU_VIEWS = (1600, 1200), 4
-DTU_ITERS, DTU_FIELD_ITERS = 200, 10
+DTU_ITERS, DTU_FIELD_ITERS = 100, 10
 MESH_RES, MESH_THRESHOLD = 128, 0.5
 
 
@@ -3283,10 +3315,10 @@ OWLII_HIDDEN = dict(encoder_type="VarTriPlaneEncoder", composition_rank=40,
 OWLII_FRAMES = 100
 # phase 25's scene: its frames go through the render CLI's host metrics
 # (scipy SSIM) in the time limit at this resolution and this many frames
-# (run_owlii.sh's TIME_STEP, 100 by default: 550 frames rendered, not
+# (run_owlii.sh's TIME_STEP, 100 by default: 220 frames rendered, not
 # 1,100)
 OWLII_RES = 160
-OWLII_PROTOCOL_FRAMES = 50
+OWLII_PROTOCOL_FRAMES = 20
 OWLII_ITERS = 30
 OWLII_DENSIFY = 15       # densify_from_iter and densification_interval
 OWLII_PROFILE = (15, 5)  # iterations 16-20 timed, 21-25 profiled
@@ -3937,7 +3969,7 @@ OPTION_OWLII_FRAMES = 10
 OPTION_BLENDER_FLAGS = ["--encoder_type", "TriPlaneEncoder",
                         "--use_view_dep_rgb", "--n_splats",
                         str(OPTION_N_SPLATS)]
-OPTION_BLENDER_ITERS = 50
+OPTION_BLENDER_ITERS = 30
 # phase 31: a small static CLI run with the new flags, card against CPU
 OPTION_SMALL_FLAGS = ["--encoder_type", "TriPlaneEncoder",
                       "--use_view_dep_rgb", "--geo_model_disable_pts",
@@ -4314,6 +4346,115 @@ def subset_step(dev, pts, cols, subset):
     return res["cuda"], res["cpu"]
 
 
+HEX_SEEDS = tuple(range(5))   # phase 31's study: the net's weight seeds
+HEX_NOISE = 1e-6              # its relative perturbation of the attributes
+HEX_DRAWS = 3
+
+
+def hex_step(device, pts, cols, seed=0):
+    """Phase 31's small VarHexPlane per-frame step on ``device`` from the
+    net of ``seed``."""
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.models import splats
+    net = small_4d_net(device, seed, **SMALL_HEX)
+    p_, s_ = splats.create_from_pcd(pts[:2000], cols[:2000], 0, device=device)
+    fp = {k: v.detach() for k, v in net.named_parameters()}
+    step = train_lib.make_train_step(
+        net, config.OptimizationConfig(lambda_mask=0.0, lambda_norm=0.01),
+        config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128),
+        64, 64, 2, True, SMALL_HEX["n_frames"], 0)
+    return step(p_, s_, nonzero_adam(p_, 1), fp, nonzero_adam(fp, 2),
+                owlii_batch(make_views(3, 64)[1:], 2 / 3,
+                            np.random.RandomState(1), device),
+                splats.splat_lr_tree(*SPLAT_LRS), FIELD_LR)
+
+
+def hex_attributes(device, pts, cols, seed, dtype=None):
+    """The field's attributes in phase 31's step, from the net of
+    ``seed``: on ``device`` in f32, or with the net and the splats cast to
+    ``dtype`` after the same f32 draws (float64 on the CPU); returned in
+    f32."""
+    import torch
+
+    from splatfields_torch import train_lib
+    from splatfields_torch.models import splats
+    net = small_4d_net(device, seed, **SMALL_HEX)
+    p_, s_ = splats.create_from_pcd(pts[:2000], cols[:2000], 0, device=device)
+    default = torch.get_default_dtype()
+    if dtype is not None:
+        net = net.to(dtype)
+        p_ = splats.tree_map(lambda a: a.to(dtype), p_)
+        torch.set_default_dtype(dtype)
+    try:
+        with torch.no_grad():
+            a = train_lib.field_attributes(
+                net, p_.xyz, splats.get_scaling(p_), s_.valid, 2 / 3,
+                SMALL_HEX["n_frames"])
+    finally:
+        torch.set_default_dtype(default)
+    return {k: v.float() if v.is_floating_point() else v for k, v in a.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def hex_screen_grad(attrs, device):
+    """Phase 31's step from the field's attributes on: both views'
+    renders and the loss -> the last view's screen-offset gradient, in
+    float64 on the CPU."""
+    import torch
+
+    from splatfields_torch import config, train_lib
+    attrs = {k: v.to(device) for k, v in attrs.items()}
+    batch = owlii_batch(make_views(3, 64)[1:], 2 / 3,
+                        np.random.RandomState(1), device)
+    pipe = config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128)
+    n = attrs["means3d"].shape[0]
+    offsets = [torch.zeros(n, 2, device=device, requires_grad=True)
+               for _ in range(2)]
+    outs = [train_lib.render_view(
+        attrs, {k: batch[k][v] for k in ("viewmatrix", "projmatrix",
+                                         "campos", "tanfovx", "tanfovy")},
+        batch["bg"], 64, 64, 0, pipe, offsets[v]) for v in range(2)]
+    loss, _ = train_lib.compute_losses(
+        outs, batch, attrs, config.OptimizationConfig(lambda_mask=0.0,
+                                                      lambda_norm=0.01),
+        attrs["valid"])
+    (g,) = torch.autograd.grad(loss, offsets[-1])
+    return g.double().cpu()
+
+
+def hex_study(dev, pts, cols):
+    """Phase 31's study of how far the step's screen gradient moves, over
+    its max, at every ``HEX_SEEDS`` net seed: the card against the CPU
+    (each its own attributes, render and backward), the CPU on the
+    float64 attributes against the CPU, and the CPU on its own attributes
+    perturbed by ``HEX_NOISE`` relative noise (``HEX_DRAWS`` draws, the
+    largest) against the CPU. -> {seed: (card, f64, noise)}."""
+    import torch
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for s in HEX_SEEDS:
+        a_cpu = hex_attributes(cpu, pts, cols, s)
+        ref = hex_screen_grad(a_cpu, cpu)
+        scale = ref.abs().max()
+
+        def gap(g):
+            return float((g - ref).abs().max() / scale)
+
+        noisy = []
+        for _ in range(HEX_DRAWS):
+            pert = {k: v * (1 + HEX_NOISE * (2 * torch.rand(
+                v.shape, generator=gen) - 1)) if v.is_floating_point()
+                else v for k, v in a_cpu.items()}
+            noisy.append(gap(hex_screen_grad(pert, cpu)))
+        out[s] = (gap(hex_screen_grad(hex_attributes(dev, pts, cols, s),
+                                      dev)),
+                  gap(hex_screen_grad(hex_attributes(
+                      cpu, pts, cols, s, torch.float64), cpu)),
+                  max(noisy))
+    return out
+
+
 def option_phases(dev, smi):
     """Phases 27-31: the train CLI's field options. Returns ({kernel name:
     {phase: launches}}, {phase: check_loop_blends' errors}, {fused kernel
@@ -4388,27 +4529,19 @@ def option_phases(dev, smi):
           "(phase 7's configuration, the same subset on both), card "
           "against CPU:")
     check_small_step(*subset_step(dev, pts, cols, subset))
-    res = {}
-    cams = make_views(3, 64)[1:]
-    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        net = small_4d_net(device, **SMALL_HEX)
-        p_, s_ = splats.create_from_pcd(pts[:2000], cols[:2000], 0,
-                                        device=device)
-        fp = {k: v.detach() for k, v in net.named_parameters()}
-        step = train_lib.make_train_step(
-            net, config.OptimizationConfig(lambda_mask=0.0,
-                                           lambda_norm=0.01),
-            config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128),
-            64, 64, 2, True, SMALL_HEX["n_frames"], 0)
-        res[name] = step(p_, s_, nonzero_adam(p_, 1), fp,
-                         nonzero_adam(fp, 2),
-                         owlii_batch(cams, 2 / 3, np.random.RandomState(1),
-                                     device),
-                         splats.splat_lr_tree(*SPLAT_LRS), FIELD_LR)
+    res = {name: hex_step(device, pts, cols)
+           for name, device in (("cuda", dev), ("cpu", torch.device("cpu")))}
     print("phase 31: a small 4-D step (chip_smoke.SMALL_HEX: VarHexPlane "
           "with per-frame deltas, 2,000 splats, 64x64, 2 views, fid 2/3), "
           "card against CPU:")
     check_small_step(res["cuda"], res["cpu"])
+    study = hex_study(dev, pts, cols)
+    print("phase 31 study, the small 4-D step's screen gradient, largest "
+          "difference over its max, by net seed (card - CPU; CPU on the "
+          f"f64 attributes - CPU; CPU on its attributes x (1 +- {HEX_NOISE}"
+          f") - CPU, worst of {HEX_DRAWS} draws): "
+          + "; ".join(f"seed {s}: {a:.3e}, {b:.3e}, {c:.3e}"
+                      for s, (a, b, c) in study.items()))
     took(31)
     return launches, loop_errs, fused_launches, fused_gaps
 
@@ -5087,6 +5220,532 @@ def host_tail_phases(dev, smi, video_log):
     return launches, seg_errs
 
 
+# --- phases 40-41: the JAX package's bf16 defaults ------------------------------
+# phase 40's small bf16 step, card against CPU: both round at the same
+# points, and only the f32 sums' order differs (~1e-7 relative), so an
+# activation lying that close to a bf16 rounding boundary rounds to the
+# neighbouring value on one side: one bf16 step, 2^-8 relative, on that
+# splat's attributes. A few splats at most; the bound allows every
+# attribute one step: the loss within 2^-8 relative, the screen gradient
+# within two steps (2^-7) of its max, a splat radius off by one pixel on
+# at most 1% of the splats, parameters within 2^-7 of their lr (Adam's
+# update from non-zero moments is smooth in the gradient) plus 1e-5
+# relative.
+BF16_STEP = 2.0 ** -8
+
+
+def check_small_step_bf16(card, cpu):
+    import torch
+
+    from splatfields_torch.models import splats
+    (sp_g, _, _, fp_g, _, out_g), (sp_c, _, _, fp_c, _, out_c) = card, cpu
+    loss_g, loss_c = float(out_g.loss), float(out_c.loss)
+    radii_off = int((out_g.radii.cpu() != out_c.radii).sum())
+    radii_far = int(((out_g.radii.cpu() - out_c.radii).abs() > 1).sum())
+    sg_c = out_c.screen_grad
+    sg_err = float((out_g.screen_grad.cpu() - sg_c).abs().max()
+                   / sg_c.abs().max())
+    lrs = splats.tree_items(splats.splat_lr_tree(*SPLAT_LRS))
+    worst = 0.0
+    for tree_g, tree_c, lr_of in (
+            (splats.tree_items(sp_g), splats.tree_items(sp_c), lrs.get),
+            (fp_g, fp_c, lambda _: FIELD_LR)):
+        for k, want in tree_c.items():
+            err = float(((tree_g[k].cpu() - want).abs()
+                         - 1e-5 * want.abs()).max()) if want.numel() else 0.0
+            worst = max(worst, err / lr_of(k))
+    n = out_c.radii.shape[0]
+    print(f"small bf16 step: loss card {loss_g:.7f}, CPU {loss_c:.7f} "
+          f"(bound {BF16_STEP} relative); radii differ on {radii_off} of {n} "
+          f"(by more than 1: {radii_far}); screen_grad err over its max "
+          f"{sg_err:.3e} (bound {2 * BF16_STEP}); updated params, worst err "
+          f"over lr {worst:.3e} (bound {2 * BF16_STEP})")
+    if not abs(loss_g - loss_c) <= BF16_STEP * abs(loss_c):
+        raise AssertionError("small bf16 step: losses differ")
+    if radii_far or radii_off > 0.01 * n:
+        raise AssertionError("small bf16 step: radii differ")
+    if not sg_err <= 2 * BF16_STEP:
+        raise AssertionError("small bf16 step: screen_grad differs")
+    if not worst <= 2 * BF16_STEP:
+        raise AssertionError("small bf16 step: updated parameters differ")
+
+
+def timed_steps(step, state, batches):
+    """Phase 6's loop: TRAIN_WARMUP steps, then TRAIN_STEPS timed with
+    CUDA events -> (ms/step, the first step's StepOut, the last state)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    first = None
+    for i, b in enumerate(batches[:TRAIN_WARMUP + TRAIN_STEPS]):
+        if i == TRAIN_WARMUP:
+            start.record()
+        *state, out = step(*state, b, splats_lrs(), FIELD_LR)
+        first = first or out
+    end.record()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out.loss)):
+        raise AssertionError("non-finite loss")
+    return start.elapsed_time(end) / TRAIN_STEPS, first, state
+
+
+def splats_lrs():
+    from splatfields_torch.models import splats
+    return splats.splat_lr_tree(*SPLAT_LRS)
+
+
+def attribute_gap(net, params, stats, env, values) -> dict:
+    """The field's attributes of ``params`` with ``env`` set to each of
+    ``values``: per key, the largest difference over the largest value."""
+    import torch
+
+    from splatfields_torch import train_lib
+    from splatfields_torch.models import splats
+    outs = []
+    with torch.no_grad():
+        for v in values:
+            os.environ[env] = v
+            outs.append(train_lib.field_attributes(
+                net, params.xyz, splats.get_scaling(params), stats.valid, 0.0,
+                0))
+    os.environ[env] = "off"
+    a, b = outs
+    return {k: float((a[k].float() - b[k].float()).abs().max()
+                     / b[k].float().abs().max().clamp_min(1e-30))
+            for k in ("means3d", "opacity", "scales", "rotations", "rgb")}
+
+
+def bf16_phases(dev, smi):
+    """Phases 40-41: the MLP's bf16 activations and the hash grid's bf16
+    gather source, each off then on in one call. Returns ({kernel name:
+    {phase: launches}}, phase 41's segment-sum error)."""
+    import torch
+
+    from splatfields_torch.models import splats
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.ops.segsum import sorted_segment_sum
+    launches = {"blend_fwd": {}, "blend_bwd": {}, "segsum": {}}
+    sc = serving_scene(dev)
+    batches = training_batches(dev)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+
+    def fresh(deform):
+        return (sc.params, sc.stats, splats.adam_init(sc.params),
+                deform.params, deform.opt_state)
+
+    # --- 40. SPLATFIELDS_MLP_BF16 off / on on phase 6's step ----------------
+    ms, firsts = {}, {}
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = 0
+    for mode in ("off", "on"):
+        os.environ["SPLATFIELDS_MLP_BF16"] = mode
+        step = train_step_fn(sc.deform, sc.pipe, RES)
+        ms[mode], firsts[mode], _ = timed_steps(step, fresh(sc.deform),
+                                                batches)
+    os.environ["SPLATFIELDS_MLP_BF16"] = "off"
+    launches["blend_fwd"]["40"] = blend_fwd.launches
+    launches["blend_bwd"]["40"] = blend_bwd.launches
+    if (blend_fwd.launches, blend_bwd.launches) != (2 * steps, 2 * steps):
+        raise AssertionError(f"phase 40: blend launches {blend_fwd.launches}"
+                             f", {blend_bwd.launches} for {2 * steps} steps")
+    gap = attribute_gap(sc.deform.net, sc.params, sc.stats,
+                        "SPLATFIELDS_MLP_BF16", ("on", "off"))
+    loss_gap = abs(float(firsts["on"].loss) - float(firsts["off"].loss))
+    print(f"phase 40: SPLATFIELDS_MLP_BF16 off {ms['off']:.4f} ms/step, on "
+          f"{ms['on']:.4f} ms/step ({RES}x{RES}, {N_SPLATS} splats, "
+          f"{TRAIN_STEPS} steps after {TRAIN_WARMUP}); on against off: the "
+          f"field's attributes, largest difference over largest value "
+          f"{gap}; first step's loss {float(firsts['off'].loss):.7f} / "
+          f"{float(firsts['on'].loss):.7f} (gap {loss_gap:.3e}); {smi}")
+    if not max(gap.values()) > 0:
+        raise AssertionError("phase 40: bf16 did not change the attributes")
+    res = {}
+    cam = make_views(2, 64)[1]
+    os.environ["SPLATFIELDS_MLP_BF16"] = "on"
+    try:
+        for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            from splatfields_torch.models.deform_model import DeformModel
+            p_, s_ = splats.create_from_pcd(sc.pts[:2000], sc.cols[:2000], 0,
+                                            device=device)
+            d_ = DeformModel(sc.hidden, radius=1.0, seed=0, device=device)
+            res[name] = train_step_fn(d_, sc.pipe, 64)(
+                p_, s_, nonzero_adam(p_, 1), d_.params,
+                nonzero_adam(d_.params, 2),
+                train_batch(cam, np.random.RandomState(1), device),
+                splats_lrs(), FIELD_LR)
+    finally:
+        os.environ["SPLATFIELDS_MLP_BF16"] = "off"
+    print("phase 40: phase 7's small step with SPLATFIELDS_MLP_BF16=on, "
+          "card against CPU:")
+    check_small_step_bf16(res["cuda"], res["cpu"])
+
+    # --- 41. SPLATFIELDS_NGP_BF16_TABLE off / on on phase 9's step ----------
+    deform = ngp_model(dev)
+    step = train_step_fn(deform, sc.pipe, RES)
+    torch.cuda.synchronize()
+    blend_fwd.launches = blend_bwd.launches = sorted_segment_sum.launches = 0
+    for mode in ("off", "on"):
+        os.environ["SPLATFIELDS_NGP_BF16_TABLE"] = mode
+        ms[mode], firsts[mode], _ = timed_steps(step, fresh(deform), batches)
+    got = (blend_fwd.launches, blend_bwd.launches, sorted_segment_sum.launches)
+    launches["blend_fwd"]["41"], launches["blend_bwd"]["41"] = got[:2]
+    launches["segsum"]["41"] = got[2]
+    if got != (2 * steps,) * 3:
+        raise AssertionError(f"phase 41: launches {got} for {2 * steps} "
+                             "NGP steps")
+    os.environ["SPLATFIELDS_NGP_BF16_TABLE"] = "on"
+    try:
+        _, (sidx, vals, n_rows) = capture_table_vjp(sc, deform, step,
+                                                    batches[-1], splats_lrs())
+    finally:
+        os.environ["SPLATFIELDS_NGP_BF16_TABLE"] = "off"
+    gap = attribute_gap(deform.net, sc.params, sc.stats,
+                        "SPLATFIELDS_NGP_BF16_TABLE", ("on", "off"))
+    loss_gap = abs(float(firsts["on"].loss) - float(firsts["off"].loss))
+    print(f"phase 41: SPLATFIELDS_NGP_BF16_TABLE off {ms['off']:.4f} ms/step,"
+          f" on {ms['on']:.4f} ms/step ({RES}x{RES}, {N_SPLATS} splats, "
+          f"{TRAIN_STEPS} steps after {TRAIN_WARMUP}); on against off: the "
+          f"field's attributes {gap}; first step's loss gap {loss_gap:.3e}; "
+          f"{smi}")
+    if not max(gap.values()) > 0:
+        raise AssertionError("phase 41: the bf16 table changed nothing")
+    seg_err = check_segsum("phase 41, the bf16-table step's own rows", sidx,
+                           vals, n_rows)
+    del sc, deform
+    torch.cuda.empty_cache()
+    return launches, seg_err
+
+
+# --- phase 42: multi-device on one card -------------------------------------
+SLICE_RES = (808, 800)   # 51 x 50 tiles: 4 slices pad the grid by 2
+MESH_ITERS = 5           # phase 42's CLI runs, resumed after iteration 1
+WORLD_SPLATS = 2000      # phase 42's two-process world: phase 7's size
+WORLD_TIMEOUT_S = 300
+
+
+def slice_phase(sc, dev):
+    """Phase 42 (a): both blend kernels on each rank's slice of a
+    SLICE_RES training frame's tile grid (``parallel.step.local_tiles``:
+    padded starts and counts, global ids clamped to the last tile) for 2
+    and 4 model ranks, against the plain versions; each slice's forward
+    equals the whole frame's on its tiles, and the slices' backward rows
+    sum to the whole frame's backward."""
+    import torch
+
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.ops.raster.blend_torch import (
+        blend_bwd_plain,
+        blend_sorted_plain,
+    )
+    from splatfields_torch.parallel.step import local_tiles, tile_slice
+    w, h = SLICE_RES
+    cam = make_views(2, RES)[1]
+    cam.image_width, cam.image_height = w, h
+    rng = np.random.RandomState(2)
+    batch = train_batch(cam, rng, dev)
+    batch["image"] = torch.as_tensor(rng.rand(1, 3, h, w).astype(np.float32),
+                                     device=dev)
+    step = train_lib.make_train_step(
+        sc.deform.net, config.OptimizationConfig(lambda_mask=0.0,
+                                                 lambda_norm=0.01),
+        sc.pipe, w, h, 1, True, 0, 0)
+    bargs = training_blend_args(sc, step, batch, splats_lrs())
+    pack, start, counts, ids, *gs_outs = bargs[:10]
+    tiles_x, ts, tc = bargs[10:13]
+    tiles_y, num_tiles = -(-h // ts), counts.shape[0]
+    gs = gs_outs[:3]
+    full = blend_fwd(pack, start, counts, tiles_x, tiles_y, ts, tc, 128)
+    full_grad = blend_bwd(pack, start, counts, ids, *gs, *full, tiles_x, ts,
+                          tc)
+    launches = [0, 0]
+    for n_model in (2, 4):
+        total = torch.zeros_like(full_grad)
+        for m in range(n_model):
+            s_, c_, i_ = local_tiles(start, counts, num_tiles, n_model, m)
+            fwd_args = (pack, s_, c_, tiles_x, tiles_y, ts, tc, 128, i_)
+            n0 = blend_fwd.launches
+            got = blend_fwd(*fwd_args)
+            launches[0] += blend_fwd.launches - n0
+            label = f"phase 42, {n_model} model ranks, slice {m}"
+            check_close(label, got, blend_sorted_plain(*fwd_args))
+            first, t_loc = tile_slice(num_tiles, n_model, m)
+            real = min(t_loc, num_tiles - first)   # past it: padding
+            check_close(label + " against the whole frame",
+                        [g[:real] for g in got],
+                        [f[i_[:real].long()] for f in full])
+            keep = torch.arange(t_loc, device=dev) < real
+            g_loc = [g[i_.long()] * keep.view(-1, *[1] * (g.ndim - 1))
+                     for g in gs]
+            bwd_args = (pack, s_, c_, i_, *g_loc, *got)
+            n0 = blend_bwd.launches
+            grad = blend_bwd(*bwd_args, tiles_x, ts, tc)
+            launches[1] += blend_bwd.launches - n0
+            check_bwd(label + ", backward", grad,
+                      blend_bwd_plain(*bwd_args, tiles_x, ts, tc, 128))
+            total += grad
+        check_bwd(f"phase 42, {n_model} slices' backward summed against the "
+                  "whole frame's", total, full_grad)
+    pad = -(-num_tiles // 4) * 4 - num_tiles
+    print(f"phase 42 (a): {num_tiles} tiles ({tiles_x} x {tiles_y}), 4 "
+          f"slices pad {pad}; blend_fwd {launches[0]} and blend_bwd "
+          f"{launches[1]} launches on slices")
+    if not pad:
+        raise AssertionError("phase 42: SLICE_RES pads no slice")
+    return launches
+
+
+def world_rank(rank, world, store, out_path, seed, device_type="cuda"):
+    """One rank of phase 42 (c)'s world: gloo, CUDA tensors on the one
+    card (``device_type``), a 1 x ``world`` mesh, one sharded field step
+    of phase 7's configuration with two views; rank 0 saves the whole
+    state."""
+    import torch
+    import torch.distributed as dist
+
+    from splatfields_torch.models import splats
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.parallel import mesh as mesh_lib
+    from splatfields_torch.parallel import step as pstep
+    os.environ["SPLATFIELDS_MLP_BF16"] = "off"
+    dev = torch.device(device_type, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh_lib.initialize_distributed(None, world, rank, backend="gloo",
+                                    init_method=f"file://{store}",
+                                    timeout_s=WORLD_TIMEOUT_S)
+    mesh = mesh_lib.make_mesh(world)
+    state, step_args = world_case(dev, mesh, seed)
+    blend_fwd.launches = blend_bwd.launches = 0
+    out = pstep.make_sharded_train_step(*step_args)(*state)
+    p, s, o = pstep.unshard_train_state(*out[:3], mesh)
+    torch.cuda.synchronize()
+    counts = [blend_fwd.launches, blend_bwd.launches]
+    all_counts = mesh_lib.all_reduce(torch.tensor(counts, device=dev),
+                                     mesh.model_group)
+    dist.destroy_process_group()
+    if rank == 0:
+        torch.save({"params": splats.tree_items(p),
+                    "max_radii2d": s.max_radii2d, "field": out[3],
+                    "loss": out[5].loss, "launches": all_counts.tolist()},
+                   out_path)
+
+
+def world_case(dev, mesh, seed):
+    """Phase 42 (c)'s state and step arguments: phase 7's field step with
+    two views (``mesh`` None: the single-device step's arguments)."""
+    import torch
+
+    from splatfields_torch import config
+    from splatfields_torch.models import splats
+    from splatfields_torch.models.deform_model import DeformModel
+    from splatfields_torch.parallel import step as pstep
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-0.9, 0.9, (WORLD_SPLATS, 3)).astype(np.float32)
+    cols = rng.rand(WORLD_SPLATS, 3).astype(np.float32)
+    p_, s_ = splats.create_from_pcd(pts, cols, 0, device=dev)
+    d_ = DeformModel(config.HiddenConfig(encoder_type="VarTriPlaneEncoder",
+                                         composition_rank=0, n_frames=0),
+                     radius=1.0, seed=seed, device=dev)
+    cams = make_views(3, 64)[1:]
+    r = np.random.RandomState(1)
+    b = [train_batch(c, r, dev) for c in cams]
+    batch = dict(b[0])
+    for k in ("viewmatrix", "projmatrix", "campos", "image"):
+        batch[k] = torch.cat([x[k] for x in b])
+    batch["tanfovx"] = [x["tanfovx"][0] for x in b]
+    batch["tanfovy"] = [x["tanfovy"][0] for x in b]
+    state = [p_, s_, nonzero_adam(p_, 1), d_.params,
+             nonzero_adam(d_.params, 2)]
+    opt = config.OptimizationConfig(lambda_mask=0.0, lambda_norm=0.01)
+    pipe = config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128)
+    if mesh is None:
+        from splatfields_torch import train_lib
+        step_args = (d_.net, opt, pipe, 64, 64, 2, True, 0, 0)
+        return state + [batch, splats_lrs(), FIELD_LR], step_args
+    state[:3] = pstep.shard_train_state(*state[:3], mesh)
+    step_args = (d_.net, opt, pipe, 64, 64, 2, True, 0, mesh, 0)
+    return state + [batch, splats_lrs(), FIELD_LR], step_args
+
+
+def mesh_phases(dev, smi):
+    """Phase 42: the multi-device path on one card. Returns {kernel name:
+    {phase: launches}}."""
+    import shutil
+    import time
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from splatfields_torch import train, train_lib
+    from splatfields_torch.models import splats
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    # --- (a) the blend kernels on tile slices -------------------------------
+    sc = serving_scene(dev)
+    sliced = slice_phase(sc, dev)
+    del sc
+    torch.cuda.empty_cache()
+
+    # --- (b) the CLI on a world of 1 over NCCL ------------------------------
+    # both runs resume from one run's state after iteration 1: the first
+    # Adam step (zero moments) is lr * g / (|g| + eps), which turns the
+    # card's atomics' summation noise into updates of up to lr; from
+    # non-zero moments the loop is smooth in the gradient
+    proto = os.path.join(here, "build", "blender_protocol")
+    pc = os.path.join(proto, "out", "3DGS", "point_cloud", "iteration_300",
+                      "point_cloud.ply")
+    argv = (["-s", os.path.join(proto, "lego")] + PROTOCOL_FIELD
+            + ["--pc_path", pc, "--test_iterations", str(MESH_ITERS),
+               "--quiet"])
+    first = os.path.join(proto, "out", "mesh_single")
+    shutil.rmtree(first, ignore_errors=True)
+    train.main(argv + ["-m", first, "--iterations", "1"])
+    runs, cli_launches, losses = {}, [0, 0], {}
+    training = train.training
+
+    def spy(*args, **kw):
+        """``training`` with every iteration's loss kept."""
+        got, callback = [], kw.get("progress_callback")
+
+        def both(it, loss, *rest):
+            got.append(loss)
+            if callback:
+                callback(it, loss, *rest)
+
+        losses[spy.run] = got
+        return training(*args, **dict(kw, progress_callback=both))
+
+    train.training = spy
+    shutil.rmtree(first.replace("single", "mesh"), ignore_errors=True)
+    shutil.copytree(first, first.replace("single", "mesh"))
+    for name, extra in (("single", []), ("mesh", ["--mesh_model", "1"])):
+        spy.run = name
+        torch.cuda.synchronize()
+        blend_fwd.launches = blend_bwd.launches = 0
+        t0 = time.time()
+        runs[name] = train.main(
+            argv + ["-m", first.replace("single", name), "--iterations",
+                    str(MESH_ITERS), "--resume"] + extra)
+        torch.cuda.synchronize()
+        print(f"phase 42 (b): run_blender.sh's SplatFields3D line, resumed "
+              f"from iteration 1 to {MESH_ITERS}, {name}: "
+              f"{time.time() - t0:.1f} s, {runs[name].ms_per_it:.3f} ms/it, "
+              f"best PSNR {runs[name].best_psnr:.4f}")
+        if name == "mesh":
+            cli_launches = [blend_fwd.launches, blend_bwd.launches]
+    train.training = training
+    if torch.distributed.is_initialized():
+        raise AssertionError("phase 42: the CLI left its process group")
+    a, b = runs["single"], runs["mesh"]
+    rel = (np.abs(np.subtract(losses["mesh"], losses["single"]))
+           / np.abs(losses["single"]))
+    gaps = {k: float((getattr(b.params, k) - getattr(a.params, k)).abs().max())
+            for k in splats.tree_items(a.params)}
+    gaps["field"] = max(float((b.deform.params[k] - v).abs().max())
+                        for k, v in a.deform.params.items())
+    print(f"phase 42 (b): the world-of-1 NCCL mesh against no mesh: losses "
+          f"{losses['single']} / {losses['mesh']}, worst rel {rel.max():.3e};"
+          f" largest difference of the final state per leaf {gaps}; PSNR "
+          f"{a.best_psnr:.6f} / {b.best_psnr:.6f}; blend launches "
+          f"{cli_launches}; {smi}")
+    # phase 17's criterion for two runs of one loop: each iteration's loss
+    # within 1e-5 relative (the card's atomics sum in any order)
+    if not (len(rel) == MESH_ITERS - 1 and rel.max() <= 1e-5
+            and abs(a.best_psnr - b.best_psnr) <= 1e-3
+            and cli_launches == [MESH_ITERS - 1 + len(PROTOCOL_TEST_THETAS)
+                                 + 5, MESH_ITERS - 1]):
+        raise AssertionError("phase 42: the mesh run differs from the run "
+                             "without a mesh")
+
+    # --- (c) a world of 2 processes on the one card over gloo ---------------
+    base = os.path.join(here, "build", "mesh_world")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    out_path = os.path.join(base, "rank0.pt")
+    t0 = time.time()
+    ctx = mp.start_processes(
+        world_rank, args=(2, os.path.join(base, "store"), out_path, 0,
+                          dev.type),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.time() + WORLD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.time(), 0.0)):
+            if time.time() >= deadline:
+                raise TimeoutError("phase 42: the 2-process world did not "
+                                   f"end in {WORLD_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    world_s = time.time() - t0
+    got = torch.load(out_path, map_location=dev)
+    state, step_args = world_case(dev, None, 0)
+    want = train_lib.make_train_step(*step_args)(*state)
+    loss_gap = abs(float(got["loss"]) - float(want[5].loss))
+
+    def past_rtol(a, b):   # abs err past 1e-4 relative, JAX's tolerance
+        if not b.numel():
+            return 0.0
+        return float(((a - b).abs() - 1e-4 * b.abs()).max())
+
+    gaps = {k: past_rtol(v, getattr(want[0], k))
+            for k, v in got["params"].items()}
+    gaps["field"] = max(past_rtol(got["field"][k], v)
+                        for k, v in want[3].items())
+    radii_eq = torch.equal(got["max_radii2d"], want[1].max_radii2d)
+    print(f"phase 42 (c): 2 processes on one card over gloo (CUDA tensors), "
+          f"1 x 2 mesh, {WORLD_SPLATS} splats, 64x64, 2 views: {world_s:.1f} "
+          f"s; against the single-device step: loss gap {loss_gap:.3e}, "
+          f"parameters' worst abs err past 1e-4 relative {gaps}, max_radii2d "
+          f"equal {radii_eq}; blend launches in the world {got['launches']}")
+    if not (loss_gap < 1e-4 and max(gaps.values()) <= 2e-5 and radii_eq):
+        raise AssertionError("phase 42: the 2-process world differs from "
+                             "the single-device step")
+    if got["launches"] != [4, 4]:
+        raise AssertionError(f"phase 42: the world launched "
+                             f"{got['launches']}, not 2 views x 2 ranks")
+    shutil.rmtree(base, ignore_errors=True)
+    return {"blend_fwd": {"42": sliced[0] + cli_launches[0]
+                          + got["launches"][0]},
+            "blend_bwd": {"42": sliced[1] + cli_launches[1]
+                          + got["launches"][1]}}
+
+
+class F32Mains:
+    """Every call of ``train.main``, ``render.main`` and
+    ``extract_geo.main`` while entered starts with TF32 turned on and must
+    return with both flags off: the CLIs keep their math f32 on their own
+    (``device.full_f32_math``). ``calls`` counts the mains checked."""
+
+    def __enter__(self):
+        import torch
+
+        from splatfields_torch import extract_geo, render, train
+        self.calls, self.saved = 0, []
+        for mod in (train, render, extract_geo):
+            self.saved.append((mod, mod.main))
+            mod.main = self._checked(mod.__name__, mod.main, torch)
+        return self
+
+    def _checked(self, name, fn, torch):
+        def run(*args, **kw):
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            out = fn(*args, **kw)
+            if (torch.backends.cudnn.allow_tf32
+                    or torch.backends.cuda.matmul.allow_tf32):
+                raise AssertionError(f"{name}.main left TF32 on")
+            self.calls += 1
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for mod, fn in self.saved:
+            mod.main = fn
+
+
 def main() -> int:
     import time
 
@@ -5102,6 +5761,11 @@ def main() -> int:
     # the reference numbers are f32: keep cuDNN convs and matmuls off TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # and the JAX package's bf16 defaults off (on for CUDA tensors under
+    # "auto"): every check before phase 40 is f32; phases 40-41 turn them
+    # on for their own runs
+    os.environ["SPLATFIELDS_MLP_BF16"] = "off"
+    os.environ["SPLATFIELDS_NGP_BF16_TABLE"] = "off"
 
     from splatfields_torch.models import splats
     from splatfields_torch.models.deform_model import DeformModel
@@ -5250,6 +5914,8 @@ def main() -> int:
     del sc, params, stats, deform
     torch.cuda.empty_cache()
     took("11-13")
+    # every CLI call from here on must leave TF32 off by itself
+    f32_mains = F32Mains().__enter__()
     # every render line's video.gif, for phase 38
     video_log = VideoLog().__enter__()
     # --- 14-17. the Blender protocol through the CLIs ---------------------------
@@ -5276,14 +5942,27 @@ def main() -> int:
     tail_launches, zoo_segsum_errs = host_tail_phases(dev, smi, video_log)
     video_log.__exit__(None, None, None)
     took("36-39")
+    # --- 40-41. the bf16 defaults, off and on ---------------------------------
+    bf16_launches, bf16_segsum_err = bf16_phases(dev, smi)
+    took("40-41")
+    # --- 42. multi-device on one card -------------------------------------------
+    mesh_launches = mesh_phases(dev, smi)
+    took("42")
+    f32_mains.__exit__(None, None, None)
+    print(f"TF32 off after each of {f32_mains.calls} CLI mains (each "
+          "started with TF32 on)")
     for k in loop_launches:
         loop_launches[k].update(static_launches[k])
         loop_launches[k].update(owlii_launches[k])
         loop_launches[k].update(option_launches[k])
         loop_launches[k].update(dataset_launches[k])
         loop_launches[k].update(tail_launches[k])
+        loop_launches[k].update(bf16_launches[k])
+        loop_launches[k].update(mesh_launches[k])
     segsum_entry["zoo_launches"] = tail_launches["segsum"]
     segsum_entry["zoo_max_abs_err"] = max(zoo_segsum_errs)
+    segsum_entry["bf16_table_launches"] = bf16_launches["segsum"]
+    segsum_entry["bf16_table_max_abs_err"] = bf16_segsum_err
     loop_errs.update(static_errs)
     loop_errs.update(owlii_errs)
     loop_errs.update(option_errs)

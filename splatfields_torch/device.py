@@ -1,4 +1,4 @@
-"""Device choice for the port's entry points."""
+"""Device choice and math precision for the port's entry points."""
 from __future__ import annotations
 
 import torch
@@ -13,3 +13,12 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "splatfields_torch runs on a CUDA GPU by default and none is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def full_f32_math():
+    """Keep cuDNN convolutions and CUDA matmuls in f32: torch's defaults
+    let cuDNN run convolutions in TF32, a 10-bit mantissa, and the port's
+    numerics are the JAX package's f32. The CLIs call this before any
+    work."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

@@ -21,7 +21,7 @@ import sys
 import torch
 
 from splatfields_torch import config as cfg_lib
-from splatfields_torch.device import resolve_device
+from splatfields_torch.device import full_f32_math, resolve_device
 from splatfields_torch.models import splats as splats_lib
 from splatfields_torch.models.deform_model import DeformModel
 from splatfields_torch.models.splatfields import time_inputs
@@ -133,6 +133,7 @@ def build_parser():
 
 def main(argv=None, device=None) -> dict:
     """The CLI -> the Moran report. ``device=None`` means the GPU."""
+    full_f32_math()
     dev = resolve_device(device)
     args = cfg_lib.get_combined_args(
         build_parser(), argv if argv is not None else sys.argv[1:])

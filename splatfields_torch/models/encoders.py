@@ -33,12 +33,16 @@ points (the JAX ``stop_gradient``). A time axis of a VarTriPlane with
 ``n_planes > 3`` reads coordinate 3; on 3-D points that index is past the
 last column, which JAX clamps to z, and so does the port.
 
-The JAX package's bf16 gather source (``SPLATFIELDS_NGP_BF16_TABLE``), its
-quad-packed samplers and its channel-packed decoder
-(``SPLATFIELDS_PACKED_CNN``) are TPU A/B options and not ported: the port
-gathers from f32 and runs one decoder per plane, the JAX CPU defaults.
+The hash grid gathers from a bf16 copy of the f32 table by the JAX
+package's ``SPLATFIELDS_NGP_BF16_TABLE`` rule (``ngp_bf16_table``: on for
+CUDA tensors under ``auto``); the gradient stays f32 through the sorted
+segment sum. The JAX package's quad-packed samplers and its
+channel-packed decoder (``SPLATFIELDS_PACKED_CNN``) are TPU A/B options
+and not ported: the port runs one decoder per plane, the JAX CPU default.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -251,6 +255,14 @@ def _sort_rows(ids: torch.Tensor, rows: torch.Tensor):
     return sidx, rows.index_select(0, perm)
 
 
+def ngp_bf16_table(table: torch.Tensor) -> bool:
+    """``SPLATFIELDS_NGP_BF16_TABLE``'s rule (JAX ``models/encoders.py:
+    67-70``): ``on``, ``off``, or ``auto`` (the default and any other
+    value), which gathers from bf16 off the CPU: for CUDA tensors."""
+    env = os.environ.get("SPLATFIELDS_NGP_BF16_TABLE", "auto")
+    return env == "on" or (env == "auto" and table.is_cuda)
+
+
 class _SortedGather(torch.autograd.Function):
     """``table[ids]`` for a [R, F] table and [K] int32 row ids; the VJP
     sorts the ids with the gradient rows and sums them per row with
@@ -260,16 +272,18 @@ class _SortedGather(torch.autograd.Function):
     sums.)"""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, bf16_source=False):
         ctx.save_for_backward(ids)
         ctx.n_rows = table.shape[0]
+        if bf16_source:
+            return table.to(torch.bfloat16).index_select(0, ids).float()
         return table.index_select(0, ids)
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         sidx, rows = _sort_rows(ids, g)
-        return sorted_segment_sum(sidx, rows, ctx.n_rows), None
+        return sorted_segment_sum(sidx, rows, ctx.n_rows), None, None
 
 
 class HashGridEncoder(nn.Module):
@@ -324,7 +338,8 @@ class HashGridEncoder(nn.Module):
         ids, f = self.corner_ids(pts01)
         flat_ids = (ids + self.level_offset[:, None, None]).reshape(-1)
         gathered = _SortedGather.apply(
-            self.table.reshape(-1, self.n_features), flat_ids).reshape(
+            self.table.reshape(-1, self.n_features), flat_ids,
+            ngp_bf16_table(self.table)).reshape(
                 self.n_levels, n, 8, self.n_features)
         w = torch.where(self.corners.bool(), f[:, :, None, :],
                         1.0 - f[:, :, None, :]).prod(dim=-1)   # [L, N, 8]

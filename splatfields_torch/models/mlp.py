@@ -10,18 +10,32 @@ activation (leaky_relu 0.01) follows EVERY layer including the last, and
 ResField ranks go on the created hidden layers with index >= 1 only, with
 capacity ``n_frames``; ``frame_id`` (a host int) reaches every layer.
 
-Activations stay f32. The JAX package defaults static fields to bf16
-activations (``SPLATFIELDS_MLP_BF16=auto``; f32 when ``n_frames > 0``);
-that option is not ported yet (ROADMAP).
+Activations between layers are bf16 or f32 by the JAX package's
+``SPLATFIELDS_MLP_BF16``: ``on``, ``off``, or ``auto`` (the default and any
+other value): bf16 for a static field (``n_frames == 0``), f32 for a 4-D
+one, on every device. In bf16 the rounding points are JAX's: the input is
+cast once and the skip concatenates that cast; each plain layer is
+``resfields.bf16_linear`` (bf16 operands summed in f32, f32 bias); the
+activation runs in f32 and its result is cast to bf16; the last output
+is cast back to f32 before ``out_activation``.
 """
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
 import torch.nn as nn
 
 from splatfields_torch.models.resfields import ResFieldLinear, _out_act
+
+
+def mlp_bf16(n_frames: int) -> bool:
+    """``SPLATFIELDS_MLP_BF16``'s rule (JAX ``models/mlp.py:166-170``)."""
+    env = os.environ.get("SPLATFIELDS_MLP_BF16", "auto")
+    if env in ("on", "off"):
+        return env == "on"
+    return n_frames == 0
 
 
 def embed_dim(multires: int, input_dims: int = 3) -> int:
@@ -51,6 +65,7 @@ class GeneralMLP(nn.Module):
                  composition_rank: int = 0, n_frames: int = 100, *,
                  generator: torch.Generator):
         super().__init__()
+        self.n_frames = n_frames
         self.multires = multires
         self.skips = tuple(skips)
         self.act = _out_act(act)
@@ -80,9 +95,14 @@ class GeneralMLP(nn.Module):
             h_in = positional_embed(xyz, self.multires)
         if xyz_feat is not None:
             h_in = torch.cat([h_in, xyz_feat], dim=-1)
+        bf16 = mlp_bf16(self.n_frames)
+        if bf16:
+            h_in = h_in.to(torch.bfloat16)
         h = h_in
         for i in range(self.n_layers):
             h = self.act(getattr(self, f"net_{i}")(h, frame_id))
+            if bf16:
+                h = h.to(torch.bfloat16)
             if i in self.skips and i != self.n_layers - 1:
                 h = torch.cat([h_in, h], dim=-1)
-        return self.out_activation(h)
+        return self.out_activation(h.float() if bf16 else h)

@@ -120,6 +120,17 @@ class _NGPHead(nn.Module):
             self.HashGridEncoder_0(pts01))))
 
 
+def bf16_linear(x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """JAX's mixed-precision plain layer (``SPLATFIELDS_MLP_BF16``): the
+    bf16 activations times the weight rounded to bf16, summed in f32,
+    plus the f32 bias. The product runs in f32 on the bf16 values, where
+    each product of two bf16 numbers is exact, so only the order of the
+    f32 sum can differ from JAX's; the casts' backwards round the input's
+    and the weight's gradients to bf16 where JAX's transposes do."""
+    return F.linear(x.float(), weight.to(torch.bfloat16).float(), bias)
+
+
 class ResFieldLinear(nn.Module):
     """y = x W^T + b plus a temporal residual; weight [out, in] (the JAX
     layout is [in, out])."""
@@ -365,13 +376,20 @@ class ResFieldLinear(nn.Module):
         ``ignore_residuals``) is the plain Linear."""
         plain = (self.ignore_residuals or not self.active
                  or self.compression == "resnet")
-        if not plain and self.compression.startswith("lora"):
+        if plain or (frame_id is None and input_time is None
+                     and not self.compression.startswith("lora")):
+            if x.dtype == torch.bfloat16:
+                return bf16_linear(x, self.weight, self.bias)
+            return F.linear(x, self.weight, self.bias)
+        if x.dtype == torch.bfloat16:
+            # a residual path reads bf16 activations promoted to f32, as
+            # JAX's type promotion does
+            x = x.float()
+        if self.compression.startswith("lora"):
             if coordinates is None:
                 raise ValueError("coordinates must be provided for lora "
                                  "compressions")
             return self._query_lora(x, coordinates)
-        if plain or (frame_id is None and input_time is None):
-            return F.linear(x, self.weight, self.bias)
         w = self._weight(input_time, frame_id)
         if w.ndim == 2:
             return F.linear(x, w, self.bias)

@@ -38,7 +38,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
         img2 = img2[None]
     c = img1.shape[0]
     k = torch.as_tensor(_gaussian_kernel(window_size, 1.5),
-                        device=img1.device)
+                        device=img1.device, dtype=img1.dtype)
     # one filter pass over mu1, mu2, E[x1^2], E[x2^2], E[x1 x2]
     maps = _filter2d_same(torch.cat([img1, img2, img1 * img1, img2 * img2,
                                      img1 * img2]), k)

@@ -23,7 +23,7 @@ import torch
 from splatfields_torch import config as cfg_lib
 from splatfields_torch import metrics
 from splatfields_torch.data import gif, png
-from splatfields_torch.device import resolve_device
+from splatfields_torch.device import full_f32_math, resolve_device
 from splatfields_torch.models.deform_model import DeformModel
 from splatfields_torch.render_lib import render_cameras_batched
 from splatfields_torch.scene import Scene
@@ -182,6 +182,7 @@ def build_render_parser():
 
 
 def main(argv=None, device=None):
+    full_f32_math()
     args = cfg_lib.get_combined_args(
         build_render_parser(), argv if argv is not None else sys.argv[1:])
     model_cfg, pipe_cfg, hidden_cfg, _ = cfg_lib.extract_configs(args)

@@ -22,30 +22,44 @@ its jitted steps; eager PyTorch has no re-jit, but a grown capacity or
 ``dup_factor`` builds a new step. The loop reads the loss and the dropped
 instance count once a step (one device sync), as the JAX loop does.
 
-Flags without a counterpart here: the device mesh and multi-process
-flags raise NotImplementedError (ROADMAP Queue 1 item 9); ``--scan_k`` is
-accepted and has no effect (it batches iterations into one TPU
-dispatch).
+A device mesh (``--mesh_model``, ``--mesh_data``, ``--ring``) trains
+with ``parallel/step.py``'s sharded step on ``torch.distributed``, one
+process a device, as the JAX CLI does on its mesh: the splat state is
+split over the model axis (the capacity rounded up to a multiple of it,
+at the start and on growth), ``densify_and_prune`` runs on the mesh
+(``make_sharded_densify``), rank 0 evaluates and writes the checkpoints,
+the PLY, ``cfg_args`` and the metrics, and ``--resume`` re-shards the
+saved state. ``--num_processes``/``--process_id``/
+``--coordinator_address`` join one process of a multi-host world; without
+them ``--mesh_model x --mesh_data > 1`` spawns that many local ranks, one a
+GPU (gloo ranks on the CPU with ``device="cpu"``). The JAX CLI's refusals
+stay: ``--n_splats`` on a mesh, a view batch that does not split over the
+data axis. ``--scan_k`` is accepted and has no effect (it batches
+iterations into one TPU dispatch).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import random
+import socket
 import sys
 import time
 from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from splatfields_torch import checkpointing
 from splatfields_torch import config as cfg_lib
 from splatfields_torch import train_lib
-from splatfields_torch.device import resolve_device
+from splatfields_torch.device import full_f32_math, resolve_device
 from splatfields_torch.models import splats as splats_lib
 from splatfields_torch.models.deform_model import DeformModel
 from splatfields_torch.ops.ssim import psnr as psnr_fn
+from splatfields_torch.parallel import mesh as mesh_lib
+from splatfields_torch.parallel import step as pstep
 from splatfields_torch.render_lib import render_camera
 from splatfields_torch.scene import Scene
 from splatfields_torch.utils.metrics_writer import MetricsWriter
@@ -143,11 +157,16 @@ def _set_rng_state(rng: random.Random, saved: list):
     rng.setstate((saved[0], tuple(saved[1]), saved[2]))
 
 
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
 def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
              save_iterations, args=None, quiet=False,
              progress_callback=None, resume=False,
              rng: random.Random | None = None, device=None,
-             watchdog_min: float = 0.0) -> TrainResult:
+             watchdog_min: float = 0.0, mesh=None,
+             ring: bool = False) -> TrainResult:
     """Train one scene.
 
     ``rng`` orders the views and shuffles the cameras (a fresh
@@ -157,8 +176,16 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
     ``progress_callback(iteration, loss, params, stats)`` runs after
     every iteration. With ``watchdog_min`` > 0 a ``StallWatchdog`` exits
     the process (code 114) when no iteration ends for that many minutes;
-    it stops with the loop, also when the loop raises."""
+    it stops with the loop, also when the loop raises.
+
+    ``mesh`` (``parallel.mesh.make_mesh``; every rank of its process group
+    calls ``training``): the sharded step on this rank's chunk of the
+    splat state (``ring``: the ring exchange). Rank 0 evaluates and
+    writes; every rank returns the whole final state, and rank 0 the best
+    PSNR."""
     dev = resolve_device(device)
+    writer_rank = mesh is None or mesh.rank == 0
+    quiet = quiet or not writer_rank
     rng = rng if rng is not None else random.Random(0)
     # the frame count only reaches a field: a static run (run_dtu.sh's
     # 3DGS lines keep the default --load_time_step 100) ignores it; a
@@ -169,13 +196,16 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
     is_static = model_cfg.is_static
     enable_g_opt = not opt_cfg.disable_gaussian_opt
 
-    if model_cfg.model_path:
+    if model_cfg.model_path and writer_rank:
         os.makedirs(model_cfg.model_path, exist_ok=True)
         if args is not None:
             cfg_lib.save_cfg_args(model_cfg.model_path, args)
 
     t_scene = time.time()
-    scene = Scene(model_cfg, rng=rng, device=dev)
+    # only the writing rank's Scene writes cameras.json and input.ply
+    scene = Scene(model_cfg if writer_rank
+                  else dataclasses.replace(model_cfg, model_path=""),
+                  rng=rng, device=dev)
     if not quiet:
         print(f"Scene: {len(scene.get_train_cameras())} train, "
               f"{len(scene.get_test_cameras())} test cameras, "
@@ -189,6 +219,36 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
 
     params, stats = scene.splats, scene.splat_stats
     splat_opt = splats_lib.adam_init(params)
+    n_model = mesh.n_model if mesh is not None else 1
+    if mesh is not None:
+        if opt_cfg.n_splats > 0:
+            raise ValueError("--n_splats subsampling is not supported with "
+                             "a device mesh (pass -1); see parallel/step.py")
+        if deform:
+            deform.params = pstep.replicate(deform.params)
+
+    def shard(p, s, o):
+        """The state as this rank holds it: the capacity rounded up to a
+        multiple of the model axis, this rank's chunk."""
+        if mesh is None:
+            return p, s, o
+        if p.capacity % n_model:
+            p, s, o = splats_lib.grow_capacity(
+                p, s, o, _round_up(p.capacity, n_model))
+        return pstep.shard_train_state(p, s, o, mesh)
+
+    def whole(p, s, o):
+        """The whole state (a collective over the model row)."""
+        if mesh is None:
+            return p, s, o
+        return pstep.unshard_train_state(p, s, o, mesh)
+
+    def n_valid(s) -> int:
+        n = s.valid.sum()
+        return int(mesh_lib.all_reduce(n, mesh.model_group)
+                   if mesh is not None else n)
+
+    params, stats, splat_opt = shard(params, stats, splat_opt)
     xyz_sched = expon_lr_func(
         lr_init=opt_cfg.position_lr_init * 5.0,
         lr_final=opt_cfg.position_lr_final * 5.0,
@@ -214,13 +274,22 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
         num_views = min(opt_cfg.num_views,
                         max(len(v) for v in by_fid.values()))
 
-    writer = MetricsWriter(model_cfg.model_path)
+    writer = MetricsWriter(model_cfg.model_path if writer_rank else None)
     # the densify noise and the n_splats subsample's keys
     densify_gen = torch.Generator(device=dev).manual_seed(0)
     step_cache = {}
 
+    if mesh is not None and num_views % mesh.n_data:
+        raise ValueError(f"num_views {num_views} must divide by the data "
+                         f"axis {mesh.n_data}")
+
     def get_step(field_mode, sh_deg):
         key = (field_mode, sh_deg, params.capacity, pipe_cfg.dup_factor)
+        if key not in step_cache and mesh is not None:
+            step_cache[key] = pstep.make_sharded_train_step(
+                deform.net if deform else None, opt_eff, pipe_cfg, w, h,
+                num_views // mesh.n_data, field_mode, n_frames, mesh, sh_deg,
+                enable_gaussian_opt=enable_g_opt, ring=ring)
         if key not in step_cache:
             step_cache[key] = train_lib.make_train_step(
                 deform.net if deform else None, opt_eff, pipe_cfg, w, h,
@@ -241,9 +310,9 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
         restored = checkpointing.load_train_state(model_cfg.model_path, dev)
         if restored is not None:
             state, meta = restored
-            params = state["splat_params"]
-            stats = state["splat_stats"]
-            splat_opt = state["splat_opt"]
+            params, stats, splat_opt = shard(
+                state["splat_params"], state["splat_stats"],
+                state["splat_opt"])
             if deform:
                 deform.net.load_state_dict(state["field_state"])
                 deform.opt_state = state["field_opt"]
@@ -320,7 +389,7 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
                 log = {"train_loss_patches/total_loss": out_loss,
                        "train_loss_patches/l1_loss": float(out.l1),
                        "iter_time": times[-1] * 1000.0,
-                       "total_points": int(stats.valid.sum())}
+                       "total_points": n_valid(stats)}
                 for k, v in out.loss_dict.items():
                     if k != "l1":
                         log[f"train_loss_patches/{k}"] = v
@@ -340,41 +409,57 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
                       f"({np.mean(times[-50:]) * 1000:.1f} ms/it)", flush=True)
 
             if ev.densify:
-                noise = torch.randn(params.capacity, 2, 3,
+                # every rank draws the whole capacity's noise: the same
+                # draws, the same densify
+                noise = torch.randn(params.capacity * n_model, 2, 3,
                                     generator=densify_gen, device=dev)
-                n_before = int(stats.valid.sum())
-                params, stats, splat_opt, lost = splats_lib.densify_and_prune(
-                    params, stats, splat_opt, noise,
-                    opt_cfg.densify_grad_threshold, 0.005,
-                    scene.cameras_extent, ev.size_threshold,
-                    percent_dense=opt_cfg.percent_dense)
+                n_before = n_valid(stats)
+                if mesh is None:
+                    params, stats, splat_opt, lost = \
+                        splats_lib.densify_and_prune(
+                            params, stats, splat_opt, noise,
+                            opt_cfg.densify_grad_threshold, 0.005,
+                            scene.cameras_extent, ev.size_threshold,
+                            percent_dense=opt_cfg.percent_dense)
+                else:
+                    params, stats, splat_opt, lost = \
+                        pstep.make_sharded_densify(
+                            mesh, ev.size_threshold, opt_cfg.percent_dense)(
+                            params, stats, splat_opt, noise,
+                            opt_cfg.densify_grad_threshold, 0.005,
+                            scene.cameras_extent)
                 lost = int(lost)
                 if lost > 0:
-                    params, stats, splat_opt = splats_lib.grow_capacity(
+                    params, stats, splat_opt = whole(params, stats, splat_opt)
+                    params, stats, splat_opt = shard(*splats_lib.grow_capacity(
                         params, stats, splat_opt,
-                        int(params.capacity * 1.5) + lost)
+                        _round_up(int(params.capacity * 1.5) + lost,
+                                  n_model)))
                     step_cache.clear()
-                densified.append((iteration, n_before, int(stats.valid.sum()),
-                                  lost))
+                densified.append((iteration, n_before, n_valid(stats), lost))
                 if not quiet:
                     print(f"[ITER {iteration}] densify: {n_before} -> "
                           f"{densified[-1][2]} splats, {lost} dropped, "
-                          f"capacity {params.capacity}", flush=True)
+                          f"capacity {params.capacity * n_model}", flush=True)
 
-            if ev.test:
-                cur = evaluate(scene, params, stats, deform, pipe_cfg, bg_np,
-                               active_sh, ev.field_mode, n_frames, iteration,
-                               quiet=quiet, writer=writer)
+            if (ev.test or ev.save) and mesh is not None:
+                full = whole(params, stats, splat_opt)
+            else:
+                full = (params, stats, splat_opt)
+            if ev.test and writer_rank:
+                cur = evaluate(scene, full[0], full[1], deform, pipe_cfg,
+                               bg_np, active_sh, ev.field_mode, n_frames,
+                               iteration, quiet=quiet, writer=writer)
                 if cur > best_psnr:
                     best_psnr, best_iter = cur, iteration
-            if ev.save and model_cfg.model_path:
+            if ev.save and model_cfg.model_path and writer_rank:
                 if not quiet:
                     print(f"[ITER {iteration}] saving")
-                scene.save(iteration, params, stats)
+                scene.save(iteration, full[0], full[1])
                 if deform:
                     deform.save_weights(model_cfg.model_path, iteration)
                 checkpointing.save_train_state(
-                    model_cfg.model_path, iteration, params, stats, splat_opt,
+                    model_cfg.model_path, iteration, *full,
                     deform.net.state_dict() if deform else {},
                     deform.opt_state if deform else splats_lib.adam_init({}),
                     densify_gen, extra={"dup_factor": pipe_cfg.dup_factor,
@@ -387,6 +472,7 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
 
     total = time.time() - t_start
     writer.close()
+    params, stats, splat_opt = whole(params, stats, splat_opt)
     n_its = len(times)
     ms_per_it = total * 1000 / max(n_its, 1)
     if not quiet:
@@ -467,12 +553,14 @@ def build_train_parser():
                         help="capture a torch.profiler trace of iterations "
                              "20-30 into <model_path>/trace")
     parser.add_argument("--mesh_model", type=int, default=0,
-                        help="device mesh: not ported (ROADMAP Queue 1 "
-                             "item 9); 0 only")
+                        help="model-axis size of the ('data','model') device "
+                             "mesh; 0 = single-device step (default)")
     parser.add_argument("--mesh_data", type=int, default=1,
-                        help="device mesh: not ported (item 9); 1 only")
+                        help="data-axis size of the device mesh")
     parser.add_argument("--ring", action="store_true",
-                        help="ring exchange: not ported (item 9)")
+                        help="ring-exchange Gaussian blocks over the model "
+                             "axis instead of all_gathering attributes "
+                             "(for splat counts too large to replicate)")
     parser.add_argument("--scan_k", type=int, default=None,
                         help="accepted with no effect: it batches "
                              "iterations into one TPU dispatch, and eager "
@@ -482,23 +570,48 @@ def build_train_parser():
                              "progress for this many minutes (supervisors "
                              "restart with --resume); 0 = off")
     parser.add_argument("--coordinator_address", type=str, default="",
-                        help="multi-host: not ported (item 9)")
+                        help="host:port of process 0 (multi-host worlds)")
     parser.add_argument("--num_processes", type=int, default=1,
-                        help="multi-host: not ported (item 9); 1 only")
+                        help="total processes, one a GPU (multi-host "
+                             "worlds)")
     parser.add_argument("--process_id", type=int, default=0,
-                        help="multi-host: not ported (item 9)")
+                        help="this process's index (multi-host worlds)")
     return parser
 
 
-def check_ported_flags(args):
-    """NotImplementedError, naming the ROADMAP item, for a flag of the JAX
-    CLI the port does not run yet."""
-    if (args.mesh_model > 0 or args.mesh_data > 1 or args.ring
-            or args.num_processes > 1 or args.coordinator_address):
-        raise NotImplementedError(
-            "device meshes and multi-process training (--mesh_model, "
-            "--mesh_data, --ring, --num_processes, --coordinator_address): "
-            "ROADMAP Queue 1 item 9 (multi-device)")
+def mesh_shape(args) -> tuple[int, int] | None:
+    """(data, model) of the mesh the flags ask for, or None (the
+    single-device step): a mesh when ``--num_processes > 1`` or
+    ``--mesh_model > 0``, the model axis ``--mesh_model`` or else the
+    processes over ``--mesh_data``, as in the JAX CLI."""
+    if args.num_processes <= 1 and args.mesh_model <= 0:
+        return None
+    n_model = args.mesh_model or args.num_processes // args.mesh_data
+    if n_model < 1:
+        raise ValueError(f"{args.num_processes} processes do not fill "
+                         f"{args.mesh_data} data rows")
+    return args.mesh_data, n_model
+
+
+def check_mesh_flags(args):
+    """The JAX CLI's refusals that the flags alone decide: ``--n_splats``
+    on a mesh, and a view batch of one (no ``--all_training``) over more
+    than one data row. A larger batch is checked against the data axis
+    once the scene is read."""
+    if mesh_shape(args) is None:
+        return
+    if args.n_splats > 0:
+        raise ValueError("--n_splats subsampling is not supported with a "
+                         "device mesh (pass -1); see parallel/step.py")
+    if not args.all_training and args.mesh_data > 1:
+        raise ValueError(f"num_views 1 must divide by the data axis "
+                         f"{args.mesh_data}")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def profile_callback(trace_dir: str):
@@ -528,11 +641,68 @@ def profile_callback(trace_dir: str):
     return callback
 
 
+def _rank_main(rank: int, argv: list, device, world: int, init_method: str):
+    """One spawned local rank: rank ``rank`` of ``world`` on GPU ``rank``
+    (NCCL), or on the CPU over gloo when ``device`` is the CPU."""
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if cpu:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh_lib.initialize_distributed(
+        None, world, rank, backend="gloo" if cpu else "nccl",
+        init_method=init_method)
+    try:
+        main(argv, device="cpu" if cpu else f"cuda:{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(argv: list, device, world: int):
+    """``world`` local ranks (``torch.multiprocessing``, spawned), each
+    running this CLI; a rank's failure stops the others and raises."""
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu and torch.cuda.device_count() < world:
+        raise RuntimeError(
+            f"a mesh of {world} devices needs {world} local GPUs, one a "
+            f"rank; this host has {torch.cuda.device_count()}")
+    import torch.multiprocessing as mp
+    mp.start_processes(
+        _rank_main, args=(argv, device, world,
+                          f"tcp://127.0.0.1:{_free_port()}"),
+        nprocs=world, join=True, start_method="spawn")
+
+
 def main(argv=None, device=None):
-    """The CLI -> ``training``'s ``TrainResult``."""
+    """The CLI -> ``training``'s ``TrainResult``. A mesh of several ranks
+    without ``--num_processes`` spawns them here and returns None once
+    they end."""
+    full_f32_math()
     parser = build_train_parser()
-    args = parser.parse_args(argv if argv is not None else sys.argv[1:])
-    check_ported_flags(args)
+    argv = list(argv if argv is not None else sys.argv[1:])
+    args = parser.parse_args(argv)
+    check_mesh_flags(args)
+    shape = mesh_shape(args)
+    mesh, own_group = None, False
+    if shape is not None:
+        world = shape[0] * shape[1]
+        if not dist.is_initialized():
+            if args.num_processes <= 1 and world > 1:
+                return _spawn(argv, device, world)
+            if device is None and torch.cuda.is_available():
+                device = f"cuda:{args.process_id % torch.cuda.device_count()}"
+            cpu = device is not None and torch.device(device).type == "cpu"
+            init_method = (None if args.coordinator_address
+                           else f"tcp://127.0.0.1:{_free_port()}")
+            mesh_lib.initialize_distributed(
+                args.coordinator_address or None, args.num_processes,
+                args.process_id, backend="gloo" if cpu else "nccl",
+                init_method=init_method)
+            own_group = True
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = mesh_lib.make_mesh(world, data=shape[0])
+        print(f"Device mesh: data={shape[0]} model={shape[1]} "
+              f"({dist.get_world_size()} process(es), {dist.get_backend()})")
     args.save_iterations.append(args.iterations)
     if args.configs:
         args = cfg_lib.merge_yaml_config(args, args.configs)
@@ -544,11 +714,16 @@ def main(argv=None, device=None):
     if args.profile and model_cfg.model_path:
         callback = profile_callback(os.path.join(model_cfg.model_path,
                                                  "trace"))
-    out = training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg,
-                   args.test_iterations, args.save_iterations, args=args,
-                   quiet=args.quiet, resume=args.resume,
-                   progress_callback=callback, device=device,
-                   watchdog_min=args.watchdog_min)
+    try:
+        out = training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg,
+                       args.test_iterations, args.save_iterations, args=args,
+                       quiet=args.quiet, resume=args.resume,
+                       progress_callback=callback, device=device,
+                       watchdog_min=args.watchdog_min, mesh=mesh,
+                       ring=args.ring)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
     print("\nTraining complete.")
     return out
 

@@ -40,6 +40,17 @@ from splatfields_torch.ops.raster.blend_torch import (
 from tests.test_torch_raster import BLEND_CASES, SCENES, _jax_pre, _t, _tiles
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(case):
     scene, tile_cap, k_chunk = BLEND_CASES[case]
     s = SCENES[scene]()

@@ -26,6 +26,17 @@ OPACITIES = np.array(
      0.99, 1.0], np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _conics(rng, n, kind):
     """[n, 3] conics (a, b, c): inverse covariances of the given shape."""
     th = rng.uniform(0, np.pi, n)

@@ -38,6 +38,17 @@ MLP_ONLY = dict(encoder_type="", composition_rank=0)
 TOL_FIELD = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_deform():
     return JaxDeformModel(jcfg.HiddenConfig(**MLP_ONLY), radius=1.0)

@@ -48,6 +48,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESIZE_LEVELS = 1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scene_dir(tmp_path_factory):
     return chip_smoke.write_blender_scene(
@@ -335,7 +346,7 @@ def test_protocol_command_lines_parse():
         theirs = vars(jparser.parse_known_args(argv)[0])
         assert {k: mine[k] for k in theirs} == theirs
         if "--iterations" in argv:
-            ttrain.check_ported_flags(parser.parse_args(argv))
+            ttrain.check_mesh_flags(parser.parse_args(argv))
     assert vars(ttrain.build_train_parser().parse_args(trains[0]))[
         "is_static"]
     field = vars(ttrain.build_train_parser().parse_args(trains[1]))
@@ -348,18 +359,21 @@ def test_protocol_command_lines_parse():
     (["--num_processes", "2"], 9), (["--coordinator_address", "h:1"], 9),
     (["--profile"], 5), (["--watchdog_min", "5"], 5)])
 def test_unported_flags_raise(flags, item):
+    """Every flag of the JAX CLI is ported now: item 5's reach training
+    (tests/test_torch_colmap.py runs them), item 9's (multi-device) pass
+    the mesh checks and give the JAX CLI's mesh shape: a mesh only with
+    ``--mesh_model`` or ``--num_processes`` (tests/test_torch_parallel.py
+    holds the refusals and the sharded step)."""
     args = ttrain.build_train_parser().parse_args(["-s", "x"] + flags)
+    ttrain.check_mesh_flags(args)
     if item == 5:
-        # ported with item 5's last flags: they pass, and reach training
-        # (tests/test_torch_colmap.py runs them)
-        ttrain.check_ported_flags(args)
         assert args.profile or args.watchdog_min == 5.0
     else:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            ttrain.check_ported_flags(args)
+        want = {"--mesh_model": (1, 2), "--num_processes": (1, 2)}
+        assert ttrain.mesh_shape(args) == want.get(flags[0])
     args = ttrain.build_train_parser().parse_args(["-s", "x", "--scan_k",
                                                    "4"])
-    ttrain.check_ported_flags(args)
+    ttrain.check_mesh_flags(args)
 
 
 @pytest.mark.parametrize("kind,item", [

@@ -47,6 +47,17 @@ jneus = pytest.importorskip("splatfields_tpu.data.readers.neus")
 
 # --- tests/test_protocol_scripts.py's DTU fixture, copied -----------------
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _write_png(path, arr):
     import PIL.Image
     PIL.Image.fromarray(arr).save(path)

@@ -26,6 +26,17 @@ N = 256
 ENC = {"noise_res": 4}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jax_hidden = jax_config.HiddenConfig(

@@ -50,6 +50,17 @@ PUBLISHED = {
              skips=(20,), out=4)]}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(feat_dim, n, seed=0):
     """The plan and numpy inputs: packed weights and biases zero in the
     padding, standard normal embeddings, features and cotangents."""

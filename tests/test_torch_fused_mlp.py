@@ -60,6 +60,17 @@ ENCODERS = {"": {},
 KEYS = ("means3D", "rgb", "scales", "opacity", "rotations")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree(x):
     return jax.tree.map(np.asarray, x)
 

@@ -34,9 +34,13 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    # the checks here are f32: the JAX package's bf16 defaults, on for
+    # CUDA tensors under "auto", stay off
+    monkeypatch.setenv("SPLATFIELDS_MLP_BF16", "off")
+    monkeypatch.setenv("SPLATFIELDS_NGP_BF16_TABLE", "off")
     return torch.device("cuda")
 
 

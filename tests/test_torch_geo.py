@@ -46,6 +46,17 @@ from splatfields_tpu.models import splats as jsplats
 from splatfields_tpu.ops import marching as jmarch
 from splatfields_tpu.scene import Scene as JaxScene
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _field(res=24, seed=0):
     rng = np.random.RandomState(seed)
     g = np.stack(np.meshgrid(*[np.linspace(-1, 1, res)] * 3, indexing="ij"),

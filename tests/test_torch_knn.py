@@ -29,6 +29,17 @@ from splatfields_torch.ops import knn as tknn
 from splatfields_tpu.ops import knn as jknn
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _points(kind, n=700, seed=0):
     rng = np.random.RandomState(seed)
     pts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)

@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from splatfields_torch import metrics as tmetrics
@@ -21,6 +22,17 @@ from splatfields_torch.data import png
 from splatfields_torch.ops import lpips as tlpips
 from splatfields_tpu import metrics as jmetrics
 from splatfields_tpu.ops import lpips as jlpips
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 @pytest.fixture(scope="module")
 def weights(tmp_path_factory):

@@ -54,6 +54,17 @@ Out = namedtuple("Out", "color")
 N_ATTR, N_INVALID = 300, 30
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(mode, seed=0):
     rng = np.random.RandomState(seed)
     n = N_ATTR

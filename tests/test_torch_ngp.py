@@ -35,6 +35,17 @@ SMALL = dict(encoder_type="NGPMLP", composition_rank=0, n_levels=4,
              log2_hashmap_size=12)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _points(seed, n=N, lo=0.0, hi=1.0):
     return np.random.RandomState(seed).uniform(lo, hi, (n, 3)).astype(
         np.float32)

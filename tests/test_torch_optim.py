@@ -43,6 +43,17 @@ FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
           "opacity")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rtol=1e-6, atol=0.0, msg=""):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol,
                                atol=atol, err_msg=msg)

@@ -32,6 +32,17 @@ from splatfields_torch.ops.raster.preprocess import preprocess
 from splatfields_torch.utils import camera_math as cm
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_scene(n=256, seed=0, width=64, height=48):
     """Random splats in [-1, 1]^3 seen from z = -4 (as in test_raster.py)."""
     rng = np.random.RandomState(seed)

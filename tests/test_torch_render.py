@@ -14,6 +14,7 @@ import math
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from splatfields_tpu import config as jax_config
@@ -30,6 +31,17 @@ from splatfields_torch.utils import camera_math as cm
 
 W, H, N = 64, 48, 256
 ENC = {"noise_res": 4}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _camera(view=1, fov=0.8):

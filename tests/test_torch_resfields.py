@@ -37,6 +37,17 @@ from splatfields_torch.utils import transforms
 GEN = torch.Generator().manual_seed(0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, what="", scale=None):
     want = np.asarray(want)
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else got

@@ -18,6 +18,17 @@ from splatfields_torch.ops.segsum import (
 from splatfields_tpu.ops.segsum_pallas import sorted_segment_sum as jax_segsum
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(sidx, vals, n_rows, **kernel_args):
     want = jax_segsum(jnp.asarray(sidx), jnp.asarray(vals), n_rows,
                       interpret=True, **kernel_args)

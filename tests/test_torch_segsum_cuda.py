@@ -37,9 +37,13 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    # the checks here are f32: the JAX package's bf16 defaults, on for
+    # CUDA tensors under "auto", stay off
+    monkeypatch.setenv("SPLATFIELDS_MLP_BF16", "off")
+    monkeypatch.setenv("SPLATFIELDS_NGP_BF16_TABLE", "off")
     return torch.device("cuda")
 
 

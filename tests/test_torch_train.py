@@ -55,6 +55,17 @@ SPLAT_LRS = (1.6e-4, 2.5e-3, 0.05, 1e-3, 1e-3)   # bench.py
 FIELD_LR = 1e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _moments(tree, seed):
     """Non-zero Adam moments shaped like a numpy tree."""
     rng = np.random.RandomState(seed)

@@ -59,6 +59,17 @@ ARGV = ["--white_background", "--eval", "--n_views", "4", "--pts_samples",
         "--is_static", "--iterations", str(ITERS)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the CPU's cores, and a full torch thread pool in each worker
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scene_dir(tmp_path_factory):
     return chip_smoke.write_blender_scene(
