@@ -99,8 +99,8 @@ Phases, each raising on failure:
     step's forward and backward, its last evaluation frame's forward),
     the backward twice bitwise equal.
 16. SplatFields3D with the script's second command line (VarTriPlane,
-    ``lambda_norm`` 0.01, init from phase 15's PLY), 50 iterations, then
-    ``--resume`` to 70; the kernels on the loop's inputs as in phase 15;
+    ``lambda_norm`` 0.01, init from phase 15's PLY), 30 iterations, then
+    ``--resume`` to 50; the kernels on the loop's inputs as in phase 15;
     ``splatfields_torch.render.main`` on the run at 100: results.yaml's
     PSNR within the uint8 PNG round trip's bound of the loop's
     evaluation, its frames within one level of the loop's own state
@@ -116,21 +116,21 @@ Phases, each raising on failure:
     own inputs as in phase 15. Then 8 steps with ``--corr_interval 4``:
     the term, KNN included, runs at 2 of them.
 19. ``splatfields_torch.extract_geo.main`` on phase 15's 3DGS and phase
-    16's SplatFields3D run with ``--mesh_resolution 128``:
+    16's SplatFields3D run with ``--mesh_resolution 64``:
     ``MoransI_iteration_N.yaml`` (its four values within 1e-5 of the
     port's on the CPU from the same saved state, relative to |value| +
     0.1) and a mesh PLY with vertices and faces.
 20. ``scripts/run_dtu.sh``'s four command lines on a synthetic DTU scan
     (``write_dtu_scene``: 4 views of 1600x1200 with masks, ground truth
-    rendered through the port's DTU cameras): 3DGS 100 iterations at
+    rendered through the port's DTU cameras): 3DGS 50 iterations at
     ``-r 2`` (800x600, random-cube init of 100,000 points) and its render,
     SplatFields3D (``--W 128 --deform_weight 0 --pc_path``) 10
     iterations and its render; the kernels on each loop's inputs as in
     phase 15 and on its partial bottom row of tiles (600 = 37.5 tiles),
     where the backward's upstream gradient must be 0 off the image
     (``check_partial_tiles``).
-21. ``card_vs_cpu`` for the Moran line (the 64x64 scene) and the DTU
-    3DGS line (a 160x120 scan at ``-r 2``).
+21. ``card_vs_cpu`` (3 iterations) for the Moran line (the 64x64 scene)
+    and the DTU 3DGS line (a 160x120 scan at ``-r 2``).
 22. The render CLI with ``--lpips_weights`` (a seeded random VGG16 file,
     ``write_lpips_weights``) on phase 20's 3DGS run: results.yaml's lpips
     within 1e-4 relative of the CPU's on the same PNGs.
@@ -165,7 +165,7 @@ Phases, each raising on failure:
     11 x ``OWLII_PROTOCOL_FRAMES`` frames, its ms/frame and its split
     (scene load, metrics, the rest); then ``extract_geo.main`` on the run
     (fid 0, a 64^3 mesh).
-26. A 5-iteration 4-D loop (``OWLII_SMALL_ARGV``: ``run_owlii.sh``'s
+26. A 3-iteration 4-D loop (``OWLII_SMALL_ARGV``: ``run_owlii.sh``'s
     flags on a 64x64, 2-frame ResFields scene, 2 views, 2,000 hull
     points) on the CPU, and on the card each iteration from the CPU's
     train state before it (``--resume``): losses within phase 7's 1e-5
@@ -204,7 +204,10 @@ Phases, each raising on failure:
     VarHexPlane step with per-frame deltas (``SMALL_HEX``), as phase 7;
     then the step's screen gradient at every ``HEX_SEEDS`` net seed, card
     against CPU f32 and CPU f32 against CPU f64 (``hex_step``): how far
-    the step's conditioning alone moves it.
+    the step's conditioning alone moves it; and the card's own attributes
+    rendered on the card and on the CPU (plain blends), the renders and
+    their VJP compared (``hex_equal_attributes``), a check the weights'
+    margin cannot move.
 
 32. ``scripts/run_dtu.sh``'s four command lines, read from the script,
     on a synthetic COLMAP scan (``write_colmap_scene``: a binary
@@ -254,8 +257,32 @@ Phases, each raising on failure:
     14's scene, against the same run without a mesh; (c) a world of 2 spawned processes on
     the one card over gloo with CUDA tensors, a 1 x 2 mesh, one sharded
     field step against the single-device step on the same state.
+43. The segment-sum kernel on the plane gradient's own rows
+    (``SPLATFIELDS_PLANE_GRAD_PALLAS``): one full-width phase-6 step's
+    sorted table rows of one plane (100,000 slots of 64 columns into
+    160 x 160 rows) and, under ``SPLATFIELDS_QUAD_MULTI``, of all three
+    (300,000 into 76,800), against the plain version within TOL_SEGSUM,
+    two launches bitwise equal; the kernel's, the plain version's and
+    ``index_add_``'s ms against the bytes bound; one plane's table VJP by
+    each route and ``F.grid_sample``'s backward for the same gradient;
+    the prefix-sum route (``SPLATFIELDS_SORTED_PLANE_GRAD``) at N =
+    100,000, card against CPU, within 2 N u of the column's absolute
+    running sum.
+44. Every off-by-default option of the JAX package on phase 6's step
+    (``PLANE_OPTIONS``: the quad sampler, its bf16 table, the multi-plane
+    table, both plane-gradient routes, the packed decoder with the
+    default's weights, bf16 convs, ``fuse_heads``), the default first, in
+    one call; ``SPLATFIELDS_NGP_SORTED_GRAD=off`` on phase 9's; 4-D
+    ``fuse_heads`` on the owlii4d step at 1 view and composition_rank 0:
+    ms/step, the GPU idle share over one profiled step, the attributes'
+    gap to the default (f32 options under 1e-4 of the largest value),
+    blend and segment-sum launches; and each option's small step card
+    against CPU as phase 7 with the decoder at 4x4 noise (bf16 options:
+    ``check_small_step_bf16``).
 
-Every phase before 40 runs with both bf16 options off (set by ``main``):
+Phases 43-44 set each option themselves and refuse to run with one set
+in the environment. Every phase before 40 runs with both bf16 options
+off (set by ``main``):
 under ``auto`` they would be on for CUDA tensors, and the earlier checks
 hold f32 numerics. From phase 14 on, every call of ``train.main``,
 ``render.main`` and ``extract_geo.main`` starts with TF32 turned on and
@@ -267,7 +294,9 @@ kernels' ``loop_launches``: their counts in phases 15, 16, 18, 20, 23,
 phases' inputs, and ``partial_tile_max_abs_err`` / ``partial_tile_max_err``:
 their errors on phases 20, 32 and 33's partial tiles, and phases 40-42's
 launches; the segment sum's ``bf16_table_launches`` and
-``bf16_table_max_abs_err``: phase 41's; the fused kernels'
+``bf16_table_max_abs_err``: phase 41's, and its ``plane_grad_*``
+keys: phase 43's errors, times and bounds on the plane gradient and
+phase 44's launches there; the fused kernels'
 ``option_launches`` and ``option_max_layer_gap``: phase 28's); the last
 line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -2782,7 +2811,7 @@ PROTOCOL_3DGS = ("--white_background --eval --is_static --n_views 10 "
                  "--pts_samples hull --max_num_pts 300000 --load_time_step 0 "
                  "--composition_rank 0").split()
 # phase 16's iterations, and 20 more resumed
-PROTOCOL_FIELD_ITERS = 50
+PROTOCOL_FIELD_ITERS = 30
 PROTOCOL_FIELD = ("--white_background --eval --encoder_type "
                   "VarTriPlaneEncoder --lambda_norm 0.01 --n_views 10 "
                   "--pts_samples load --max_num_pts 100000 --load_time_step 0 "
@@ -3031,8 +3060,8 @@ DTU_FIELD = ("--deform_weight 0 --white_background --lambda_mask 0.1 "
              "VarTriPlaneEncoder --W 128 --max_num_pts 300000 -r 2 "
              "--load_time_step 0 --composition_rank 0").split()
 DTU_SIZE, DTU_VIEWS = (1600, 1200), 4
-DTU_ITERS, DTU_FIELD_ITERS = 100, 10
-MESH_RES, MESH_THRESHOLD = 128, 0.5
+DTU_ITERS, DTU_FIELD_ITERS = 50, 10
+MESH_RES, MESH_THRESHOLD = 64, 0.5
 
 
 class CorrTimer:
@@ -3095,6 +3124,73 @@ def mesh_counts(path):
             int(head.split("element face ")[1].split()[0]))
 
 
+def moran_equal_inputs(ply, model, it, hidden, cpu_deform, cpu_attrs,
+                       cpu_pts, cpu_nn, dev, smi):
+    """Phase 19's SplatFields3D report on equal inputs: the card's own field
+    outputs of the saved state, their KNN and Moran's I on the card and on
+    the CPU, within phase 19's bound. The field's conditioning (its
+    outputs card against CPU, which move the KNN's near-ties) cannot move
+    this check. Also prints the field outputs' gap card against CPU as
+    phase 19 runs (f32, TF32 off), and under the bf16 MLP (the JAX
+    package's ``auto`` for a static field) and cuDNN's TF32, torch's
+    default: what a run without ``main``'s settings sees."""
+    import torch
+
+    from splatfields_torch import extract_geo
+    from splatfields_torch.models import splats
+    from splatfields_torch.models.deform_model import DeformModel
+    from splatfields_torch.ops import knn as knn_ops
+    params, stats, _ = splats.load_ply(ply, device=dev)
+    deform = DeformModel(hidden, radius=1.0, device=dev)
+    deform.load_weights(model, it)
+    cpu_params, cpu_stats, _ = splats.load_ply(ply, device="cpu")
+
+    def field_gap(attrs, pts, ref_attrs, ref_pts):
+        """Largest |card - CPU| over the CPU's largest |value|, per output."""
+        out = {k: float((attrs[k].cpu() - v).abs().max() / v.abs().max())
+               for k, v in ref_attrs.items()}
+        out["means"] = float((pts.cpu() - ref_pts).abs().max()
+                             / ref_pts.abs().max())
+        return out
+
+    attrs, pts = extract_geo.moran_inputs(params, stats, deform, 0)
+    w, card_nn = knn_ops.query_nn(pts, n_neighbors=5)
+    card = extract_geo.morans_of(attrs, w, card_nn)
+    w, nn = knn_ops.query_nn(pts.cpu(), n_neighbors=5)
+    cpu = extract_geo.morans_of({k: v.cpu() for k, v in attrs.items()}, w, nn)
+    gap = {k: abs(card[k] - v) / (abs(v) + 0.1) for k, v in cpu.items()}
+    f32_gap = field_gap(attrs, pts, cpu_attrs, cpu_pts)
+    other = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    with Env({"SPLATFIELDS_MLP_BF16": "on"}):
+        bf16_attrs, bf16_pts = extract_geo.moran_inputs(
+            cpu_params, cpu_stats, cpu_deform, 0)
+        for label, mlp, conv_tf32 in (("TF32 convs", "off", True),
+                                      ("bf16 MLP", "on", False),
+                                      ("bf16 MLP and TF32 convs", "on", True)):
+            os.environ["SPLATFIELDS_MLP_BF16"] = mlp
+            torch.backends.cudnn.allow_tf32 = conv_tf32
+            try:
+                got = extract_geo.moran_inputs(params, stats, deform, 0)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            other[label] = field_gap(*got, *((bf16_attrs, bf16_pts)
+                                           if mlp == "on"
+                                           else (cpu_attrs, cpu_pts)))
+    print(f"phase 19 SplatFields3D on equal inputs (the card's field "
+          f"outputs): MoransI on the card {card}, the CPU's KNN and Moran "
+          f"{cpu}; |diff| / (|CPU| + 0.1) {gap}; neighbour rows that differ "
+          f"card against CPU {int((card_nn.cpu() != nn).any(1).sum())}, the "
+          f"CPU's on the card's outputs against on its own "
+          f"{int((nn != cpu_nn).any(1).sum())} of {nn.shape[0]}; field "
+          f"outputs card against CPU, largest gap over the largest value: "
+          f"as phase 19 runs {f32_gap}, "
+          + ", ".join(f"with {k} {v}" for k, v in other.items()) + f"; {smi}")
+    if not (set(cpu) == set(card) and max(gap.values()) <= 1e-5):
+        raise AssertionError("phase 19 SplatFields3D: card and CPU differ on "
+                             "equal inputs")
+
+
 def static_phases(dev, smi):
     """Phases 18-22: the Moran line, extract_geo, run_dtu.sh, card against
     CPU, and the render CLI's LPIPS. Returns ({kernel name: {phase:
@@ -3111,6 +3207,7 @@ def static_phases(dev, smi):
     from splatfields_torch.metrics import read_results
     from splatfields_torch.models import splats
     from splatfields_torch.models.deform_model import DeformModel
+    from splatfields_torch.ops import knn as knn_ops
     from splatfields_torch.ops.lpips import load_lpips
     from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
     from splatfields_torch.utils.system import search_for_max_iteration
@@ -3204,16 +3301,18 @@ def static_phases(dev, smi):
         if not (verts > 0 and faces > 0):
             raise AssertionError(f"phase 19 {name}: empty mesh")
         # the port on the CPU, from the same saved state
-        params, stats, _ = splats.load_ply(os.path.join(
-            model, "point_cloud", f"iteration_{it}", "point_cloud.ply"),
-            device="cpu")
+        ply = os.path.join(model, "point_cloud", f"iteration_{it}",
+                           "point_cloud.ply")
+        params, stats, _ = splats.load_ply(ply, device="cpu")
         deform = None
         if name != "3DGS":
             hidden = train.cfg_lib.extract_configs(argparse.Namespace(
                 **train.cfg_lib.load_cfg_args(model)))[2]
             deform = DeformModel(hidden, radius=1.0, device="cpu")
             deform.load_weights(model, it)
-        cpu = extract_geo.morans_report(params, stats, deform, 0)
+        attrs, pts = extract_geo.moran_inputs(params, stats, deform, 0)
+        w, nn_ix = knn_ops.query_nn(pts, n_neighbors=5)
+        cpu = extract_geo.morans_of(attrs, w, nn_ix)
         gap = {k: abs(report[k] - v) / (abs(v) + 0.1) for k, v in cpu.items()}
         print(f"phase 19 {name}: extract_geo at iteration {it}, "
               f"{int(stats.valid.sum())} splats, mesh {MESH_RES}^3 -> {verts} "
@@ -3222,7 +3321,11 @@ def static_phases(dev, smi):
               f"(|CPU| + 0.1) {gap}; {smi}")
         if not (set(cpu) == set(report) and max(gap.values()) <= 1e-5):
             raise AssertionError(f"phase 19 {name}: card and CPU differ")
-        del params, stats, deform
+        if deform is not None:
+            # 3DGS's report reads the PLY alone: its inputs were equal
+            moran_equal_inputs(ply, model, it, hidden, deform, attrs, pts,
+                               nn_ix, dev, smi)
+        del params, stats, deform, attrs, pts, w, nn_ix
 
     # --- 20. run_dtu.sh -------------------------------------------------------
     t0 = time.time()
@@ -3278,12 +3381,12 @@ def static_phases(dev, smi):
                  "--n_views", "4", "--pts_samples", "hull", "--num_pts",
                  "2000", "--lambda_corr", "0.01", "--load_time_step", "0",
                  "--composition_rank", "0"],
-                os.path.join(base, "small_out", "moran"), dev)
+                os.path.join(base, "small_out", "moran"), dev, iters=3)
     dtu_small = write_dtu_scene(os.path.join(base, "dtu_small"), 160, 120,
                                 3, torch.device("cpu"), n_splats=3000)
     card_vs_cpu("phase 21 DTU 3DGS",
                 ["-s", dtu_small, "--num_pts", "2000"] + DTU_3DGS,
-                os.path.join(base, "small_out", "dtu"), dev)
+                os.path.join(base, "small_out", "dtu"), dev, iters=3)
 
     # --- 22. the render CLI with --lpips_weights ------------------------------
     weights = write_lpips_weights(os.path.join(base, "lpips_vgg.npz"))
@@ -3318,7 +3421,7 @@ OWLII_FRAMES = 100
 # (run_owlii.sh's TIME_STEP, 100 by default: 220 frames rendered, not
 # 1,100)
 OWLII_RES = 160
-OWLII_PROTOCOL_FRAMES = 20
+OWLII_PROTOCOL_FRAMES = 10
 OWLII_ITERS = 30
 OWLII_DENSIFY = 15       # densify_from_iter and densification_interval
 OWLII_PROFILE = (15, 5)  # iterations 16-20 timed, 21-25 profiled
@@ -3794,7 +3897,7 @@ def owlii_small_scene(root):
     return write_owlii_scene(root, 64, 2, torch.device("cpu"))
 
 
-def owlii_card_vs_cpu(dev, iters=5):
+def owlii_card_vs_cpu(dev, iters=3):
     """Phase 26: ``resumed_card_vs_cpu`` of ``OWLII_SMALL_ARGV`` on
     ``owlii_small_scene``."""
     import shutil
@@ -3806,11 +3909,12 @@ def owlii_card_vs_cpu(dev, iters=5):
         ["-s", owlii_small_scene(base)] + OWLII_SMALL_ARGV, base, dev, iters)
 
 
-def resumed_card_vs_cpu(label, argv, base, dev, iters=5):
-    """A 5-iteration loop of the command line ``argv`` (a 4-D run) on the
-    CPU, and on the card each iteration k from the CPU's train state after
-    k - 1 (``--resume``), run directories under ``base``: the losses of
-    every iteration within phase 7's 1e-5 relative -> the worst. The CPU
+def resumed_card_vs_cpu(label, argv, base, dev, iters=3):
+    """An ``iters``-iteration loop of the command line ``argv`` (a 4-D
+    run) on the CPU, and on the card each iteration k from the CPU's train
+    state after k - 1 (``--resume``), run directories under ``base``: the
+    losses of every iteration within phase 7's 1e-5 relative -> the
+    worst. The CPU
     runs the loop twice, and the two runs' spread is printed: Adam from
     zero moments moves every ResField entry by its learning rate whatever
     the size of its gradient, so f32 noise in near-zero gradients
@@ -3965,7 +4069,7 @@ HEX_OPTIONS = (
 OPTION_OWLII_FLAGS = ["--encoder_type", "VarHexPlaneEncoder",
                       "--layer_strategy", "per_frame"]
 OPTION_OWLII_ITERS = 8
-OPTION_OWLII_FRAMES = 10
+OPTION_OWLII_FRAMES = 5
 OPTION_BLENDER_FLAGS = ["--encoder_type", "TriPlaneEncoder",
                         "--use_view_dep_rgb", "--n_splats",
                         str(OPTION_N_SPLATS)]
@@ -4346,7 +4450,7 @@ def subset_step(dev, pts, cols, subset):
     return res["cuda"], res["cpu"]
 
 
-HEX_SEEDS = tuple(range(5))   # phase 31's study: the net's weight seeds
+HEX_SEEDS = tuple(range(3))   # phase 31's study: the net's weight seeds
 HEX_NOISE = 1e-6              # its relative perturbation of the attributes
 HEX_DRAWS = 3
 
@@ -4396,14 +4500,16 @@ def hex_attributes(device, pts, cols, seed, dtype=None):
             if isinstance(v, torch.Tensor)}
 
 
-def hex_screen_grad(attrs, device):
+def hex_render_vjp(attrs, device):
     """Phase 31's step from the field's attributes on: both views'
-    renders and the loss -> the last view's screen-offset gradient, in
-    float64 on the CPU."""
+    renders and the loss, and its VJP -> (the renders [2, 3, 64, 64], {the
+    last view's screen offset ("screen") and each float attribute:
+    gradient}), in float64 on the CPU."""
     import torch
 
     from splatfields_torch import config, train_lib
-    attrs = {k: v.to(device) for k, v in attrs.items()}
+    attrs = {k: v.detach().to(device).requires_grad_(v.is_floating_point())
+             for k, v in attrs.items()}
     batch = owlii_batch(make_views(3, 64)[1:], 2 / 3,
                         np.random.RandomState(1), device)
     pipe = config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128)
@@ -4418,8 +4524,44 @@ def hex_screen_grad(attrs, device):
         outs, batch, attrs, config.OptimizationConfig(lambda_mask=0.0,
                                                       lambda_norm=0.01),
         attrs["valid"])
-    (g,) = torch.autograd.grad(loss, offsets[-1])
-    return g.double().cpu()
+    names = [k for k, v in attrs.items() if v.requires_grad]
+    grads = torch.autograd.grad(loss, [offsets[-1]] + [attrs[k]
+                                                       for k in names],
+                                allow_unused=True)
+    return (torch.stack([o.color for o in outs]).detach().double().cpu(),
+            {k: g.double().cpu() for k, g in zip(["screen"] + names, grads)
+             if g is not None})
+
+
+def hex_screen_grad(attrs, device):
+    """Phase 31's step from the field's attributes on -> the last view's
+    screen-offset gradient, in float64 on the CPU."""
+    return hex_render_vjp(attrs, device)[1]["screen"]
+
+
+def hex_equal_attributes(dev, pts, cols, seed=0):
+    """Phase 31's render and its VJP on equal attributes: the card's own
+    (the net of ``seed``) rendered on the card (kernels) and on the CPU
+    (plain blends). The renders within TOL's colour bound, each gradient
+    within 1e-4 of its max (phase 7's screen-gradient bound); the
+    weights' margin (``hex_study``) cannot move this check. -> (render
+    err, {name: gradient err over its max})."""
+    attrs = hex_attributes(dev, pts, cols, seed)
+    (card, g_card), (cpu, g_cpu) = (hex_render_vjp(attrs, dev),
+                                    hex_render_vjp(attrs, "cpu"))
+    render_err = float((card - cpu).abs().max())
+    errs = {k: float((g_card[k] - g).abs().max() / g.abs().max().clamp_min(
+        1e-30)) for k, g in g_cpu.items()}
+    print(f"phase 31: the card's attributes (seed {seed}) rendered on the "
+          f"card and on the CPU: render max abs err {render_err:.3e} (bound "
+          f"{TOL['color']}); the VJP, largest difference over its max "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + " (bound 1e-4)")
+    if not render_err <= TOL["color"]:
+        raise AssertionError("phase 31: the render on equal attributes")
+    if set(errs) != set(g_card) or not max(errs.values()) <= 1e-4:
+        raise AssertionError("phase 31: the VJP on equal attributes")
+    return render_err, errs
 
 
 def hex_study(dev, pts, cols):
@@ -4542,6 +4684,7 @@ def option_phases(dev, smi):
           f") - CPU, worst of {HEX_DRAWS} draws): "
           + "; ".join(f"seed {s}: {a:.3e}, {b:.3e}, {c:.3e}"
                       for s, (a, b, c) in study.items()))
+    hex_equal_attributes(dev, pts, cols)
     took(31)
     return launches, loop_errs, fused_launches, fused_gaps
 
@@ -4557,7 +4700,7 @@ COLMAP_GT_SPLATS, COLMAP_POINTS = 30_000, 20_000
 # reader's default 300,000-point cap keeps the DUSt3R cloud whole)
 NERFIES_SIZE, NERFIES_TIMES = (480, 270), 10
 NERFIES_GT_SPLATS, NERFIES_POINTS = 30_000, 100_000
-NERFIES_ITERS = 12
+NERFIES_ITERS = 8
 NERFIES_PRED = 650      # 14 keyframes of the rig, 50 poses a segment
 GEO_MESH_RES = 64
 # phase 34: a small Colmap and a small nerfies run, card against CPU
@@ -4873,6 +5016,7 @@ def profile_phase(dev, smi, counted):
 # the native carver at 256^3 over phase 14's 100 masks
 NATIVE_LIBS = ("hullcarve", "jpeg", "gif")
 CARVE_RES = 256
+CARVE_NUMPY_MASKS = 10       # of them, carved by both routes and compared
 CARVE_TIE_BAND = 1e-3        # tests/test_native.py's band of rounding ties
 # phase 37: a COLMAP capture of JPEG frames (phase 32's size and counts)
 JPEG_QUALITY = 90
@@ -5057,19 +5201,26 @@ def host_tail_phases(dev, smi, video_log):
     t0 = time.time()
     keep = mask_filter_points(grid, infos)
     native_s = time.time() - t0
+    # both routes over the first CARVE_NUMPY_MASKS masks (the NumPy
+    # route's seconds kept the phase in time)
+    some = infos[:CARVE_NUMPY_MASKS]
     t0 = time.time()
-    keep_np = mask_filter_points(grid, infos, use_native=False)
+    keep_some = mask_filter_points(grid, some)
+    some_s = time.time() - t0
+    t0 = time.time()
+    keep_np = mask_filter_points(grid, some, use_native=False)
     numpy_s = time.time() - t0
-    diff = float((keep != keep_np).mean())
+    diff = float((keep_some != keep_np).mean())
     print(f"phase 36: {CARVE_RES}^3 carve over {len(infos)} masks of "
           f"{infos[0].width}x{infos[0].height} (read in {read_s:.3f} s): "
-          f"native {native_s:.3f} s, NumPy {numpy_s:.3f} s "
-          f"({numpy_s / native_s:.1f}x), {int(keep.sum())} points kept, "
-          f"keep masks differ on {diff:.3e} of the grid "
-          f"(band {CARVE_TIE_BAND}); {os.cpu_count()} host cores; {smi}")
+          f"native {native_s:.3f} s, {int(keep.sum())} points kept; over "
+          f"the first {len(some)}: native {some_s:.3f} s, NumPy "
+          f"{numpy_s:.3f} s ({numpy_s / some_s:.1f}x), keep masks differ "
+          f"on {diff:.3e} of the grid (band {CARVE_TIE_BAND}); "
+          f"{os.cpu_count()} host cores; {smi}")
     if not (diff < CARVE_TIE_BAND and keep.any()):
         raise AssertionError(f"phase 36: the carvers differ on {diff}")
-    del grid, keep, keep_np, infos
+    del grid, keep, keep_some, keep_np, infos
 
     # --- 37. a COLMAP capture of JPEG frames through the CLIs --------------
     base = os.path.join(here, "build", "jpeg_protocol")
@@ -5308,7 +5459,12 @@ def attribute_gap(net, params, stats, env, values) -> dict:
                 net, params.xyz, splats.get_scaling(params), stats.valid, 0.0,
                 0))
     os.environ[env] = "off"
-    a, b = outs
+    return attribute_gaps(*outs)
+
+
+def attribute_gaps(a, b) -> dict:
+    """Per attribute, the largest difference of ``a`` from ``b`` over
+    ``b``'s largest value."""
     return {k: float((a[k].float() - b[k].float()).abs().max()
                      / b[k].float().abs().max().clamp_min(1e-30))
             for k in ("means3d", "opacity", "scales", "rotations", "rgb")}
@@ -5713,6 +5869,484 @@ def mesh_phases(dev, smi):
                           + got["launches"][1]}}
 
 
+# --- phases 43-44: the JAX package's off-by-default field options ------------
+# phase 44: each option on phase 6's workload (phase 9's for the NGP one,
+# the owlii4d step at 1 view and composition_rank 0 for the 4-D fused
+# heads: a rank-40 field fuses nothing), TRAIN_WARMUP warm-ups and
+# PAIR_STEPS timed steps, the GPU idle share over one profiled step (the
+# profiler's own cost kept the phase in time); QUAD_MULTI with
+# PLANE_GRAD_PALLAS is phase 43's, on a step's own rows
+PAIR_STEPS = 4
+# (label, environment, fuse_heads, bf16 numerics): the static field options
+PLANE_OPTIONS = (
+    ("QUAD_SAMPLE", {"SPLATFIELDS_QUAD_SAMPLE": "on"}, False, False),
+    ("PLANE_BF16", {"SPLATFIELDS_PLANE_BF16": "on"}, False, True),
+    ("QUAD_MULTI", {"SPLATFIELDS_QUAD_MULTI": "on"}, False, False),
+    ("PLANE_GRAD_PALLAS", {"SPLATFIELDS_PLANE_GRAD_PALLAS": "on"}, False,
+     False),
+    ("SORTED_PLANE_GRAD", {"SPLATFIELDS_SORTED_PLANE_GRAD": "on"}, False,
+     False),
+    ("PACKED_CNN", {"SPLATFIELDS_PACKED_CNN": "on"}, False, False),
+    ("CNN_BF16", {"SPLATFIELDS_CNN_BF16": "on"}, False, True),
+    ("fuse_heads", {}, True, False))
+PLANE_ENVS = ("SPLATFIELDS_QUAD_SAMPLE", "SPLATFIELDS_PLANE_BF16",
+              "SPLATFIELDS_QUAD_MULTI", "SPLATFIELDS_PLANE_GRAD_PALLAS",
+              "SPLATFIELDS_SORTED_PLANE_GRAD", "SPLATFIELDS_PACKED_CNN",
+              "SPLATFIELDS_CNN_BF16", "SPLATFIELDS_NGP_SORTED_GRAD")
+F32_EPS = 2.0 ** -24
+# phase 43: the cumsum route (SORTED_PLANE_GRAD) card against CPU, in f32
+# units (u) of the column's absolute running sum. Both run f32 prefix sums
+# in other orders: an H100 run read 4.6 u, the CPU's own error against
+# float64 1.6 u. 64 u stays an order above those; a running sum kept in
+# bf16 (steps of 2^-8, 2^16 u) sits far past it (phase 43 prints one)
+CUMSUM_TOL_U = 64
+# phase 44's small steps card against CPU: phase 7's configuration with
+# the decoder at 4x4 noise (32x32 planes), so that the CPU's side stays
+# short; the 4-D one SMALL_4D's at composition_rank 0
+SMALL_OPTION_HIDDEN = dict(encoder_type="VarTriPlaneEncoder",
+                           composition_rank=0, n_frames=0,
+                           encoder_args={"noise_res": 4})
+
+
+class Env:
+    """Inside ``with``: the environment variables ``values`` set, restored
+    (or removed) after."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pack_tensorial(subs, packed):
+    """Copy the weights of P unpacked ``Tensorial2D`` modules into one
+    packed with ``n_packs=P`` (``SPLATFIELDS_PACKED_CNN``): the grouped
+    convs' weights, per-frame deltas and biases, the GroupNorm affines and
+    the noise concatenate pack-major; the attention's projections stack
+    into its block-diagonal kernels ([in, out] each) and biases. The
+    packed module then computes the P planes of the unpacked ones."""
+    import torch
+    sds = [s.state_dict() for s in subs]
+    state = {}
+    for key in packed.state_dict():
+        *mod, leaf = key.split(".")
+        if leaf.startswith("to_") and leaf.endswith(("_kernel", "_bias")):
+            name, kind = leaf.rsplit("_", 1)
+            src = ".".join(mod + [name, "weight" if kind == "kernel"
+                                  else "bias"])
+            state[key] = torch.stack([sd[src].t() if kind == "kernel"
+                                      else sd[src] for sd in sds])
+        else:
+            dim = 1 if leaf in ("frame_weights", "noise") else 0
+            state[key] = torch.cat([sd[key] for sd in sds], dim=dim)
+    packed.load_state_dict(state)
+
+
+def option_model(hidden, env, fuse, dev, like=None):
+    """The field model of ``hidden`` (a ``HiddenConfig`` or its keywords;
+    seed 0) built under ``env``, with ``fuse_heads``; under
+    ``SPLATFIELDS_PACKED_CNN`` its packed decoder takes the weights of
+    ``like``'s (a default model's) three."""
+    from splatfields_torch import config
+    from splatfields_torch.models.deform_model import DeformModel
+    if isinstance(hidden, dict):
+        hidden = config.HiddenConfig(**hidden)
+    with Env(env):
+        deform = DeformModel(hidden, radius=1.0, seed=0, device=dev)
+    deform.net.fuse_heads = fuse
+    enc = deform.net.encoder
+    if getattr(enc, "packed", False):
+        pack_tensorial([getattr(like.net.encoder, f"subs_{i}")
+                        for i in range(enc.n_planes)], enc.subs_packed)
+        deform.params = {k: v.detach() for k, v in
+                         deform.net.named_parameters()}
+    return deform
+
+
+def option_run(dev, label, deform, n_frames, batches, pts, cols, env):
+    """TRAIN_WARMUP + PAIR_STEPS steps of ``deform`` under ``env`` (the
+    last PAIR_STEPS timed), then one profiled. -> (ms/step, idle share,
+    its GPU busy ms, blend launches, segment-sum launches)."""
+    import torch
+
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.models import splats
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+    from splatfields_torch.ops.segsum import sorted_segment_sum
+    pipe = config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128)
+    step = train_lib.make_train_step(
+        deform.net, config.OptimizationConfig(lambda_mask=0.0,
+                                              lambda_norm=0.01),
+        pipe, RES, RES, 1, True, n_frames, 0)
+    sp, st = splats.create_from_pcd(pts, cols, 0, capacity=N_SPLATS,
+                                    device=dev)
+    state = [sp, st, splats.adam_init(sp), deform.params, deform.opt_state]
+    lrs = splats.splat_lr_tree(*SPLAT_LRS)
+    n_steps = TRAIN_WARMUP + PAIR_STEPS
+    with Env(env):
+        torch.cuda.synchronize()
+        blend_fwd.launches = blend_bwd.launches = 0
+        sorted_segment_sum.launches = 0
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        for i, b in enumerate(batches[:n_steps]):
+            if i == TRAIN_WARMUP:
+                start.record()
+            *state, out = step(*state, b, lrs, FIELD_LR)
+        end.record()
+        torch.cuda.synchronize()
+        launches = (blend_fwd.launches, blend_bwd.launches,
+                    sorted_segment_sum.launches)
+        if not bool(torch.isfinite(out.loss)):
+            raise AssertionError(f"{label}: non-finite loss")
+        if launches[:2] != (n_steps, n_steps):
+            raise AssertionError(f"{label}: blend launches {launches[:2]} "
+                                 f"for {n_steps} steps")
+
+        def run1():
+            state[:5] = step(*state, batches[n_steps], lrs, FIELD_LR)[:5]
+            torch.cuda.synchronize()
+
+        _, busy_ms, idle, _ = device_idle(run1)
+    return (start.elapsed_time(end) / PAIR_STEPS, idle, busy_ms,
+            launches[:2], launches[2])
+
+
+def option_attributes(deform, env, n_frames, pts, dev):
+    """The field's attributes of ``deform`` (its initial weights) at the
+    splats of ``pts`` under ``env``."""
+    import torch
+
+    from splatfields_torch import train_lib
+    from splatfields_torch.models import splats
+    sp, st = splats.create_from_pcd(pts, pts, 0, capacity=N_SPLATS,
+                                    device=dev)
+    fid = 0.5 if n_frames else 0.0
+    with Env(env), torch.no_grad():
+        return train_lib.field_attributes(
+            deform.net, sp.xyz, splats.get_scaling(sp), st.valid, fid,
+            n_frames)
+
+
+def small_option_step(hidden, env, fuse, bf16, n_frames, dev, pts, cols):
+    """Phase 7's small step (2,000 splats, 64x64, the net of ``hidden``;
+    4-D: SMALL_4D's sizes at composition_rank 0, 2 views) with one
+    option, on the card and on the CPU from the same weights, held as
+    phase 7 holds it (bf16 options: ``check_small_step_bf16``)."""
+    import torch
+
+    from splatfields_torch import config, train_lib
+    from splatfields_torch.models import splats
+    res = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        like = None if n_frames else option_model(hidden, {}, False, device)
+        with Env(env):
+            if n_frames:
+                net = small_4d_net(device, 0, **dict(SMALL_4D,
+                                                     composition_rank=0))
+                net.fuse_heads = fuse
+                fp = {k: v.detach() for k, v in net.named_parameters()}
+                step = train_lib.make_train_step(
+                    net, config.OptimizationConfig(lambda_mask=0.0,
+                                                   lambda_norm=0.01),
+                    config.PipelineConfig(tile_size=16, tile_cap=1024,
+                                          k_chunk=128),
+                    64, 64, 2, True, SMALL_4D["n_frames"], 0)
+                batch = owlii_batch(make_views(3, 64)[1:], 2 / 3,
+                                    np.random.RandomState(1), device)
+            else:
+                d_ = option_model(hidden, env, fuse, device, like=like)
+                fp = d_.params
+                step = train_step_fn(d_, config.PipelineConfig(
+                    tile_size=16, tile_cap=1024, k_chunk=128), 64)
+                batch = train_batch(make_views(2, 64)[1],
+                                    np.random.RandomState(1), device)
+            p_, s_ = splats.create_from_pcd(pts[:2000], cols[:2000], 0,
+                                            device=device)
+            res[name] = step(p_, s_, nonzero_adam(p_, 1), fp,
+                             nonzero_adam(fp, 2), batch,
+                             splats.splat_lr_tree(*SPLAT_LRS), FIELD_LR)
+    (check_small_step_bf16 if bf16 else check_small_step)(res["cuda"],
+                                                          res["cpu"])
+
+
+def capture_plane_grads(sc, env, dev):
+    """One full-width phase-6 step under ``env`` with the quad table's VJP
+    captured: every ``quad_table_grad`` call's (route, idx, w4, g, n_rows)
+    and every ``sorted_segment_sum`` call's (sidx, vals, n_rows) it
+    made."""
+    from splatfields_torch.models import splats
+    from splatfields_torch.ops import grid_sample
+    grads, sums = [], []
+    table_grad, segsum = (grid_sample.quad_table_grad,
+                          grid_sample.sorted_segment_sum)
+
+    def grad_spy(route, idx, w4, g, n_rows):
+        grads.append((route, idx.detach(), w4.detach(), g.detach(), n_rows))
+        return table_grad(route, idx, w4, g, n_rows)
+
+    def segsum_spy(sidx, vals, n_rows):
+        sums.append((sidx.detach(), vals.detach(), n_rows))
+        return segsum(sidx, vals, n_rows)
+
+    deform = option_model(sc.hidden, env, False, dev)
+    step = train_step_fn(deform, sc.pipe, RES)
+    grid_sample.quad_table_grad = grad_spy
+    grid_sample.sorted_segment_sum = segsum_spy
+    try:
+        with Env(env):
+            step(sc.params, sc.stats, splats.adam_init(sc.params),
+                 deform.params, deform.opt_state, training_batches(dev)[-1],
+                 splats_lrs(), FIELD_LR)
+    finally:
+        grid_sample.quad_table_grad = table_grad
+        grid_sample.sorted_segment_sum = segsum
+    return grads, sums
+
+
+def plane_segsum_phase(sc, dev, smi):
+    """Phase 43: the segment-sum kernel on the plane gradient's own rows.
+    Returns the segment sum's plane entries for the kernels line."""
+    import torch
+
+    from splatfields_torch.models.encoders import _SPACE_AXES
+    from splatfields_torch.ops import grid_sample
+    from splatfields_torch.ops.segsum import (
+        sorted_segment_sum,
+        sorted_segment_sum_plain,
+    )
+    entry = {"plane_grad_max_abs_err": {}, "plane_grad_ms": {},
+             "plane_grad_graph_ms": {}, "plane_grad_plain_ms": {},
+             "plane_grad_library_ms": {}, "plane_grad_bound_ms": {},
+             "plane_grad_route_ms": {}}
+    one = {"SPLATFIELDS_PLANE_GRAD_PALLAS": "on"}
+    multi = dict(one, SPLATFIELDS_QUAD_MULTI="on")
+    (grads, sums), (_, sums_m) = (capture_plane_grads(sc, one, dev),
+                                  capture_plane_grads(sc, multi, dev))
+    if len(sums) != 3 or len(sums_m) != 1:
+        raise AssertionError(f"phase 43: {len(sums)} and {len(sums_m)} "
+                             "segment sums, want 3 and 1")
+    for label, (sidx, vals, n_rows) in (("one plane", sums[0]),
+                                        ("QUAD_MULTI", sums_m[0])):
+        err = check_segsum(f"phase 43, the plane gradient, {label}", sidx,
+                           vals, n_rows)
+        if vals.shape[1] != 64:
+            raise AssertionError(f"phase 43: D {vals.shape[1]}, want 64")
+        d = vals.shape[1]
+        ms = cuda_ms(lambda: sorted_segment_sum(sidx, vals, n_rows), 20)
+        graph = graph_ms(lambda: sorted_segment_sum(sidx, vals, n_rows), 20)
+        plain = cuda_ms(lambda: sorted_segment_sum_plain(sidx, vals, n_rows),
+                        5)
+        lib = cuda_ms(lambda: torch.zeros(n_rows, d, device=dev).index_add_(
+            0, sidx, vals), 5)
+        bytes_moved = sidx.numel() * 4 + vals.numel() * 4 + n_rows * d * 4
+        bound = max(bytes_moved / HBM_BYTES_PER_S,
+                    vals.numel() / F32_FLOPS) * 1e3
+        for key, v in (("max_abs_err", err), ("ms", ms), ("graph_ms", graph),
+                       ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", bound)):
+            entry[f"plane_grad_{key}"][label] = v
+        print(f"phase 43, {label}: sorted_segment_sum {ms:.5f} ms (graph "
+              f"replay {graph:.5f}), plain {plain:.5f}, index_add_ {lib:.5f}"
+              f"; {sidx.numel()} slots, {n_rows} rows, D {d}, "
+              f"{bytes_moved} bytes, bound {bound:.5f} ms (bytes); {smi}")
+    # one plane's whole table VJP by each route, and F.grid_sample's
+    # backward for the same plane gradient
+    _, idx, w4, g, n_rows = grads[0]
+    route_ms = {r: cuda_ms(lambda r=r: grid_sample.quad_table_grad(
+        r, idx, w4, g, n_rows), 10) for r in grid_sample.GRAD_ROUTES}
+    # the plane whose table that VJP was, by its rows
+    xyz = sc.params.xyz.detach()
+    all_planes = sc.deform.net.generate_planes().detach()
+    h, w = all_planes.shape[2:]
+    (i, coords), = [(i, xyz[:, list(ax)]) for i, ax in enumerate(_SPACE_AXES)
+                    if torch.equal(grid_sample.quad_idx_w(xyz[:, list(ax)],
+                                                          h, w)[0], idx)]
+    planes = all_planes[i:i + 1].requires_grad_()
+    out = grid_sample.grid_sample_planes(planes, coords[None])
+    gs_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, planes, g[:, None], retain_graph=True), 10)
+    route_ms["F.grid_sample backward"] = gs_ms
+    entry["plane_grad_route_ms"] = route_ms
+    print(f"phase 43: one plane's table VJP ({idx.shape[0]} points, "
+          f"{h}x{w}x{g.shape[1]}), ms by route: {route_ms}; {smi}")
+    # the cumsum route (SORTED_PLANE_GRAD) at N = 100,000, card against
+    # CPU: its error is absolute, on the order of the running sum
+    got = grid_sample.quad_table_grad("cumsum", idx, w4, g, n_rows)
+    want = grid_sample.quad_table_grad("cumsum", idx.cpu(), w4.cpu(),
+                                       g.cpu(), n_rows)
+    rows = grid_sample._expand(g, w4).double()
+    prefix = rows.abs().sum(0).cpu()           # the running sum's reach
+    n = idx.shape[0]
+    gap = ((got.cpu().double() - want.double()).abs().amax(0) / prefix
+           .clamp_min(1e-30))
+    exact = grid_sample.quad_table_grad("scatter", idx.cpu(), w4.cpu(),
+                                        g.cpu().double(), n_rows)
+    own = ((want.double() - exact).abs().amax(0) / prefix.clamp_min(1e-30))
+    witness = (bf16_prefix_rows(idx, w4, g, n_rows).cpu().double()
+               - want.double()).abs().amax(0) / prefix.clamp_min(1e-30)
+    bound = CUMSUM_TOL_U * F32_EPS
+    entry["cumsum_gap_over_prefix"] = float(gap.max())
+    print(f"phase 43: SORTED_PLANE_GRAD's prefix sums at N = {n}: card "
+          f"against CPU, largest gap over the column's absolute running "
+          f"sum {float(gap.max()):.3e} (bound {CUMSUM_TOL_U} u = "
+          f"{bound:.3e}; {float(gap.max()) / F32_EPS:.1f} u); the CPU's own "
+          f"error against f64 {float(own.max()):.3e}; the same sums in bf16 "
+          f"on the card {float(witness.max()):.3e} "
+          f"({float(witness.max()) / F32_EPS:.1f} u); largest absolute gap "
+          f"{float((got.cpu() - want).abs().max()):.3e}, largest entry "
+          f"{float(want.abs().max()):.3e}")
+    if not float(gap.max()) <= bound:
+        raise AssertionError("phase 43: the cumsum route, card against CPU")
+    return entry
+
+
+def bf16_prefix_rows(idx, w4, g, n_rows):
+    """``ops/grid_sample.segment_rows_sum`` with its running sum kept in
+    bf16: the precision fault that phase 43's CUMSUM_TOL_U must catch."""
+    import torch
+
+    from splatfields_torch.ops import grid_sample
+    c = g.shape[1]
+    sidx, order = torch.sort(idx, stable=True)
+    sp = torch.cat([g, w4], dim=1).index_select(0, order)
+    rows = grid_sample._expand(sp[:, :c], sp[:, c:]).to(torch.bfloat16)
+    csum = torch.cumsum(rows, dim=0).float()
+    csum0 = torch.cat([csum.new_zeros(1, 4 * c), csum], dim=0)
+    edges = torch.searchsorted(sidx, torch.arange(
+        n_rows + 1, dtype=sidx.dtype, device=idx.device), side="left")
+    seg = csum0.index_select(0, edges)
+    return seg[1:] - seg[:-1]
+
+
+def plane_phases(dev, smi):
+    """Phases 43-44: the JAX package's off-by-default options. Returns
+    (the segment sum's entries for the kernels line, {kernel name:
+    {phase: launches}})."""
+    import time
+
+    import torch
+
+    launches = {"blend_fwd": {}, "blend_bwd": {}, "segsum": {}}
+    for name in PLANE_ENVS:
+        if name in os.environ:
+            raise AssertionError(f"phases 43-44: {name} is set")
+    sc = serving_scene(dev)
+    # --- 43. the segment sum on the plane gradient ---------------------------
+    entry = plane_segsum_phase(sc, dev, smi)
+    torch.cuda.empty_cache()
+
+    # --- 44. every option, default then on, in one call -------------------
+    rng = np.random.RandomState(0)
+    batches = [train_batch(c, rng, dev)
+               for c in make_views(TRAIN_WARMUP + PAIR_STEPS + 1, RES)]
+    pts, cols = sc.pts, sc.cols
+    default = option_model(sc.hidden, {}, False, dev)
+    base = option_attributes(default, {}, 0, pts, dev)
+    rows = {}
+    cases = [("default", {}, False, False)] + list(PLANE_OPTIONS)
+    t0 = time.time()
+    for label, env, fuse, bf16 in cases:
+        deform = (default if label == "default" else
+                  option_model(sc.hidden, env, fuse, dev, like=default))
+        ms, idle, busy, blends, seg = option_run(
+            dev, label, deform, 0, batches, pts, cols, env)
+        gap = max(attribute_gaps(option_attributes(deform, env, 0, pts, dev),
+                                 base).values())
+        rows[label] = (ms, idle, gap)
+        phase = f"44 {label}"
+        launches["blend_fwd"][phase], launches["blend_bwd"][phase] = blends
+        want_seg = {"PLANE_GRAD_PALLAS": 3 * (TRAIN_WARMUP
+                                              + PAIR_STEPS)}.get(label, 0)
+        if seg != want_seg:
+            raise AssertionError(f"phase 44 {label}: {seg} segment sums, "
+                                 f"want {want_seg}")
+        if want_seg:
+            launches["segsum"][phase] = seg
+        print(f"phase 44 {label}: phase 6's step {ms:.4f} ms/step "
+              f"({PAIR_STEPS} steps after {TRAIN_WARMUP}), GPU idle share "
+              f"{idle:.4f} (busy {busy:.3f} ms in 1 step), attributes' "
+              f"gap to the default {gap:.3e}, blend launches {blends}, "
+              f"segment sums {seg}; {time.time() - t0:.1f} s in; {smi}")
+        if label != "default":
+            small_option_step(SMALL_OPTION_HIDDEN, env, fuse, bf16, 0, dev,
+                              pts, cols)
+        if deform is not default:
+            del deform
+        torch.cuda.empty_cache()
+    # f32 options compute the default's function; bf16 ones round it
+    for label, _, _, bf16 in cases:
+        gap = rows[label][2]
+        if not (gap > 0 if bf16 else gap < 1e-4):
+            raise AssertionError(f"phase 44 {label}: attributes' gap {gap}")
+
+    # NGP_SORTED_GRAD=off on phase 9's step (auto: the sorted VJP)
+    ngp = ngp_model(dev)
+    ngp_base = option_attributes(ngp, {}, 0, pts, dev)
+    for label, env in (("NGP default", {}),
+                       ("NGP_SORTED_GRAD=off",
+                        {"SPLATFIELDS_NGP_SORTED_GRAD": "off"})):
+        deform = ngp if not env else option_model(NGP_HIDDEN, env, False,
+                                                  dev)
+        ms, idle, busy, blends, seg = option_run(
+            dev, label, deform, 0, batches, pts, cols, env)
+        gap = max(attribute_gaps(option_attributes(deform, env, 0, pts, dev),
+                                 ngp_base).values())
+        want = 0 if env else TRAIN_WARMUP + PAIR_STEPS
+        if seg != want:
+            raise AssertionError(f"phase 44 {label}: {seg} segment sums, "
+                                 f"want {want}")
+        print(f"phase 44 {label}: phase 9's step {ms:.4f} ms/step, GPU idle "
+              f"share {idle:.4f} (busy {busy:.3f} ms in 1 step), "
+              f"attributes' gap {gap:.3e}, segment sums {seg}; "
+              f"{time.time() - t0:.1f} s in; {smi}")
+    small_option_step(dict(NGP_HIDDEN, **NGP_SMALL),
+                      {"SPLATFIELDS_NGP_SORTED_GRAD": "off"}, False, False, 0,
+                      dev, pts, cols)
+    del ngp, deform
+    torch.cuda.empty_cache()
+
+    # fuse_heads on the owlii4d step (1 view, composition_rank 0)
+    hidden_4d = dict(OWLII_HIDDEN, composition_rank=0)
+    rng = np.random.RandomState(1)
+    frames = rng.permutation(OWLII_FRAMES)[:TRAIN_WARMUP + PAIR_STEPS + 1]
+    cams = make_views(len(frames), RES)
+    b4 = [owlii_batch([c], float(f) / (OWLII_FRAMES - 1), rng, dev)
+          for c, f in zip(cams, frames)]
+    base4 = None
+    for label, fuse in (("4-D default", False), ("4-D fuse_heads", True)):
+        deform = option_model(hidden_4d, {}, fuse, dev)
+        ms, idle, busy, blends, _ = option_run(
+            dev, label, deform, OWLII_FRAMES, b4, pts, cols, {})
+        attrs = option_attributes(deform, {}, OWLII_FRAMES, pts, dev)
+        base4 = base4 or attrs
+        gap = max(attribute_gaps(attrs, base4).values())
+        launches["blend_fwd"][f"44 {label}"] = blends[0]
+        launches["blend_bwd"][f"44 {label}"] = blends[1]
+        print(f"phase 44 {label}: the owlii4d step at 1 view, "
+              f"composition_rank 0, {ms:.4f} ms/step, GPU idle share "
+              f"{idle:.4f} (busy {busy:.3f} ms in 1 step), attributes' "
+              f"gap {gap:.3e}; {time.time() - t0:.1f} s in; {smi}")
+        if fuse and not gap < 1e-4:
+            raise AssertionError(f"phase 44 {label}: gap {gap}")
+        del deform
+    small_option_step(None, {}, True, False, SMALL_4D["n_frames"], dev, pts,
+                      cols)
+    del sc
+    torch.cuda.empty_cache()
+    return entry, launches
+
+
 class F32Mains:
     """Every call of ``train.main``, ``render.main`` and
     ``extract_geo.main`` while entered starts with TF32 turned on and must
@@ -5948,6 +6582,9 @@ def main() -> int:
     # --- 42. multi-device on one card -------------------------------------------
     mesh_launches = mesh_phases(dev, smi)
     took("42")
+    # --- 43-44. the off-by-default field options ------------------------------
+    plane_entry, plane_launches = plane_phases(dev, smi)
+    took("43-44")
     f32_mains.__exit__(None, None, None)
     print(f"TF32 off after each of {f32_mains.calls} CLI mains (each "
           "started with TF32 on)")
@@ -5959,10 +6596,14 @@ def main() -> int:
         loop_launches[k].update(tail_launches[k])
         loop_launches[k].update(bf16_launches[k])
         loop_launches[k].update(mesh_launches[k])
+        loop_launches[k].update(plane_launches[k])
     segsum_entry["zoo_launches"] = tail_launches["segsum"]
     segsum_entry["zoo_max_abs_err"] = max(zoo_segsum_errs)
     segsum_entry["bf16_table_launches"] = bf16_launches["segsum"]
     segsum_entry["bf16_table_max_abs_err"] = bf16_segsum_err
+    # phase 43: the plane gradient's rows; phase 44: its launches there
+    segsum_entry.update(plane_entry)
+    segsum_entry["plane_grad_launches"] = plane_launches["segsum"]
     loop_errs.update(static_errs)
     loop_errs.update(owlii_errs)
     loop_errs.update(option_errs)

@@ -11,14 +11,31 @@ port on a CUDA card: the same synthetic protocol, no JAX, no dataset.
    a step, ``lambda_norm`` 0.01.
 3. PSNR on the two held-out views through ``render_lib.render_camera``.
 
-``--ab`` trains twice in one process, the variant's bf16 option
-(``SPLATFIELDS_MLP_BF16`` for the field, ``SPLATFIELDS_NGP_BF16_TABLE`` for
-NGP) off and then on, each from the same seeds, and prints both PSNRs and
-their gap against the JAX gate's epsilon of 0.3 dB. The script prints
-one JSON line with the card's name and power limit and writes no file
-(the JAX records ``quality_gate*.json`` stay the JAX package's).
+``--ab`` trains, at each seed of ``--seeds`` (the scene, the initial
+cloud and the net's weights), once with every bf16 option off and once
+with each of the variant's bf16 options on alone (the field:
+``SPLATFIELDS_MLP_BF16``, ``SPLATFIELDS_CNN_BF16``,
+``SPLATFIELDS_PLANE_BF16``; NGP: ``SPLATFIELDS_NGP_BF16_TABLE``), all
+in one process. It prints each seed's pair, and per option the mean of
+on - off over the seeds, their spread (sample standard deviation) and the
+standard error, against the JAX gate's epsilon of 0.3 dB. One pair says
+little: the card's atomics make two runs of one seed differ.
+
+If ``SPLATFIELDS_MLP_BF16``'s mean lies more than 0.3 dB below 0 and one
+spread above the mean stays below 0, the script trains once more at each
+seed with one head at a time in bf16 (the option on inside that head's
+forward only) and reports each head's mean gap: which head's rounding
+costs the PSNR.
+
+Without ``--ab`` the options stay as the environment sets them (``auto``
+where unset), so the gate measures what the port ships.
+
+The script prints one JSON line with the card's name and power limit and
+writes no file (the JAX records ``quality_gate*.json`` stay the JAX
+package's).
 
     python3 scripts/quality_gate_torch.py [--variant ngp] [--ab]
+        [--seeds 0,1,2,3,4]
 
 It needs a CUDA card and exits non-zero without one.
 """
@@ -36,7 +53,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 EPSILON_DB = 0.3
-OPTIONS = {"field": "SPLATFIELDS_MLP_BF16", "ngp": "SPLATFIELDS_NGP_BF16_TABLE"}
+OPTIONS = {"field": ("SPLATFIELDS_MLP_BF16", "SPLATFIELDS_CNN_BF16",
+                     "SPLATFIELDS_PLANE_BF16"),
+           "ngp": ("SPLATFIELDS_NGP_BF16_TABLE",)}
+ALL_OPTIONS = tuple(o for opts in OPTIONS.values() for o in opts)
+HEADS = ("mlp_deform", "mlp_rgb", "mlp_scale", "mlp_opacity", "mlp_rotation")
 
 
 class OrbitCam:
@@ -97,8 +118,29 @@ def render_plain(pts, scales, rots, opac, cols, cam, dev):
         2, 0, 1)
 
 
-def train_and_eval(variant, seed, iters, dev):
-    """One gate run -> (held-out PSNR per view, final loss, train s)."""
+def bf16_head(net, name):
+    """``SPLATFIELDS_MLP_BF16=on`` inside the forward of ``net``'s head
+    ``name`` only (the rest of the net as the environment says)."""
+    head = getattr(net, name)
+    forward = head.forward
+
+    def in_bf16(*args, **kw):
+        saved = os.environ.get("SPLATFIELDS_MLP_BF16")
+        os.environ["SPLATFIELDS_MLP_BF16"] = "on"
+        try:
+            return forward(*args, **kw)
+        finally:
+            if saved is None:
+                del os.environ["SPLATFIELDS_MLP_BF16"]
+            else:
+                os.environ["SPLATFIELDS_MLP_BF16"] = saved
+
+    head.forward = in_bf16
+
+
+def train_and_eval(variant, seed, iters, dev, bf16_heads=()):
+    """One gate run -> (held-out PSNR per view, final loss, train s);
+    ``bf16_heads``: heads run with the bf16 MLP alone."""
     import torch
 
     from splatfields_torch import config, train_lib
@@ -127,7 +169,9 @@ def train_and_eval(variant, seed, iters, dev):
     hidden = config.HiddenConfig(
         encoder_type="NGPMLP" if variant == "ngp" else "VarTriPlaneEncoder",
         composition_rank=0, n_frames=0)
-    deform = DeformModel(hidden, radius=1.0, seed=0, device=dev)
+    deform = DeformModel(hidden, radius=1.0, seed=seed, device=dev)
+    for name in bf16_heads:
+        bf16_head(deform.net, name)
     fp, fopt = deform.params, deform.opt_state
     pipe = config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128)
     step = train_lib.make_train_step(
@@ -167,13 +211,21 @@ def train_and_eval(variant, seed, iters, dev):
     return psnrs, final_loss, train_s
 
 
+def spread(gaps):
+    """(mean, sample standard deviation, standard error) of on - off."""
+    g = np.asarray(gaps, np.float64)
+    sd = float(g.std(ddof=1)) if g.size > 1 else float("nan")
+    return float(g.mean()), sd, sd / math.sqrt(g.size)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", choices=tuple(OPTIONS), default="field")
     ap.add_argument("--iters", type=int, default=300)
-    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--seeds", default="42",
+                    help="comma-separated seeds, e.g. 0,1,2,3,4")
     ap.add_argument("--ab", action="store_true",
-                    help="the variant's bf16 option off, then on")
+                    help="every bf16 option off, then each option on")
     args = ap.parse_args(argv)
 
     import torch
@@ -187,24 +239,55 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    option = OPTIONS[args.variant]
-    settings = ("off", "on") if args.ab else (os.environ.get(option,
-                                                             "auto"),)
-    rows = {}
-    for value in settings:
-        os.environ[option] = value
-        psnrs, loss, train_s = train_and_eval(args.variant, args.seed,
-                                              args.iters, dev)
-        rows[value] = {"psnr_db": float(np.mean(psnrs)), "per_view": psnrs,
-                       "final_loss": loss, "train_s": train_s}
-    result = {"variant": args.variant, "option": option, "runs": rows,
-              "iters": args.iters, "resolution": "400x400",
-              "n_splats": 20_000, "seed": args.seed, "card": smi,
-              "device": torch.cuda.get_device_name(0)}
-    if args.ab:
-        gap = rows["off"]["psnr_db"] - rows["on"]["psnr_db"]
-        result.update(on_below_off_db=gap, epsilon_db=EPSILON_DB,
-                      within_epsilon=bool(gap <= EPSILON_DB))
+    seeds = [int(s) for s in args.seeds.split(",")]
+
+    def run(seed, on=None, heads=(), forced=True):
+        """One gate run; ``forced``: every bf16 option off but ``on``."""
+        if forced:
+            for name in ALL_OPTIONS:
+                os.environ[name] = "on" if name == on else "off"
+        psnrs, loss, train_s = train_and_eval(args.variant, seed,
+                                              args.iters, dev, heads)
+        row = {"psnr_db": float(np.mean(psnrs)), "per_view": psnrs,
+               "final_loss": loss, "train_s": train_s}
+        print(json.dumps({"seed": seed, "on": on, "bf16_heads": heads,
+                          **row}), flush=True)
+        return row
+
+    result = {"variant": args.variant, "iters": args.iters,
+              "resolution": "400x400", "n_splats": 20_000, "seeds": seeds,
+              "card": smi, "device": torch.cuda.get_device_name(0)}
+    if not args.ab:
+        result["runs"] = {s: run(s, forced=False) for s in seeds}
+        result["options"] = {o: os.environ.get(o, "auto")
+                             for o in OPTIONS[args.variant]}
+        print(json.dumps(result))
+        return 0
+    off = {s: run(s) for s in seeds}
+    result["off"] = off
+    result["options"] = {}
+    for name in OPTIONS[args.variant]:
+        on = {s: run(s, name) for s in seeds}
+        gaps = [on[s]["psnr_db"] - off[s]["psnr_db"] for s in seeds]
+        mean, sd, se = spread(gaps)
+        result["options"][name] = {
+            "pairs": {s: [off[s]["psnr_db"], on[s]["psnr_db"]]
+                      for s in seeds},
+            "on_minus_off_db": gaps, "mean_db": mean, "spread_db": sd,
+            "stderr_db": se,
+            "within_epsilon": bool(mean >= -EPSILON_DB)}
+    mlp = result["options"].get("SPLATFIELDS_MLP_BF16")
+    if mlp and mlp["mean_db"] < -EPSILON_DB and (
+            mlp["mean_db"] + mlp["spread_db"] < 0):
+        study = {}
+        for head in HEADS:
+            gaps = [run(s, None, (head,))["psnr_db"] - off[s]["psnr_db"]
+                    for s in seeds]
+            mean, sd, se = spread(gaps)
+            study[head] = {"on_minus_off_db": gaps, "mean_db": mean,
+                           "spread_db": sd, "stderr_db": se}
+        result["head_study"] = study
+    result["epsilon_db"] = EPSILON_DB
     print(json.dumps(result))
     return 0
 

@@ -37,6 +37,14 @@ def morans_report(params, stats, deform, n_frames, fid=0.0) -> dict:
     rgb in field mode), over the neighbourhoods of the splats' positions
     (the field's means in field mode; a 4-D field's at time step
     ``fid``)."""
+    attrs, pts = moran_inputs(params, stats, deform, n_frames, fid)
+    return morans_of(attrs, *knn_ops.query_nn(pts, n_neighbors=5))
+
+
+@torch.no_grad()
+def moran_inputs(params, stats, deform, n_frames, fid=0.0):
+    """``morans_report``'s inputs: ({attr: [N, ...]}, positions [N, 3]) of
+    the valid splats."""
     valid = stats.valid
     xyz = params.xyz[valid]
     if deform is not None:
@@ -57,7 +65,13 @@ def morans_report(params, stats, deform, n_frames, fid=0.0) -> dict:
                 xyz.shape[0], -1),
         }
         pts = xyz
-    w, nn_ix = knn_ops.query_nn(pts, n_neighbors=5)
+    return attrs, pts
+
+
+@torch.no_grad()
+def morans_of(attrs, w, nn_ix) -> dict:
+    """``morans_report`` of ``moran_inputs``' attributes over the
+    neighbourhoods (weights, indices) of ``knn.query_nn``."""
     out = {}
     for key in ("scale", "rotation", "opacity", "rgb"):
         if key in attrs:

@@ -19,8 +19,10 @@ leaf; only the layouts differ:
   (``chunk_weights`` [K, out, in], ``attention_weight``, ``resnet_vec``,
   the cp and tucker factors, ``lora_3``'s grid), the density scalars
   ``beta``, ``lamb``, ``gamma``, the DCT flow head's
-  ``trajectory_basis``, and the learned ``planes`` / ``time_planes``
-  [P, C, H, W] and ``grid`` [C, D, H, W] keep their layouts.
+  ``trajectory_basis``, the learned ``planes`` / ``time_planes``
+  [P, C, H, W] and ``grid`` [C, D, H, W], and a channel-packed
+  attention's block-diagonal ``to_*_kernel`` [P, c, c] and ``to_*_bias``
+  [P, c] (``SPLATFIELDS_PACKED_CNN``) keep their layouts.
 
 Loading is strict: a key the module lacks, a module key the tree lacks,
 or a shape mismatch raises. Gradients and Adam moments, which have the
@@ -45,6 +47,7 @@ import torch
 from torch import nn
 
 from splatfields_torch.device import resolve_device
+from splatfields_torch.models.decoder import SpatialAttention
 from splatfields_torch.models.resfields import ResFieldLinear
 from splatfields_torch.models.splats import AdamState, SplatParams
 
@@ -55,7 +58,13 @@ _KEPT = ("bias", "table", "weights_t", "matrix_t", "trajectory_basis",
          # the rest of the ResField zoo and the density scalars
          "chunk_weights", "attention_weight", "resnet_vec", "lin_w",
          "lin_f1", "lin_f2", "lin_f3", "tucker_core", "tucker_f0",
-         "tucker_f1", "tucker_f2", "beta", "lamb", "gamma")
+         "tucker_f1", "tucker_f2", "beta", "lamb", "gamma",
+         # a channel-packed SpatialAttention's block-diagonal biases
+         "to_q_bias", "to_k_bias", "to_v_bias", "to_out_bias")
+# its block-diagonal kernels [P, c, c], kept; the conv stacks' bias-free
+# kernels of the same suffix are rank 4 and 5 in flax, rank 3 and 5 here
+_PACKED_KERNELS = ("to_q_kernel", "to_k_kernel", "to_v_kernel",
+                   "to_out_kernel")
 # the noise buffers, channels last in flax, by rank: flax -> torch axes
 _NOISE_TO_TORCH = {3: (0, 2, 1), 4: (0, 3, 1, 2), 5: (0, 4, 1, 2, 3)}
 _NOISE_TO_FLAX = {3: (0, 2, 1), 4: (0, 2, 3, 1), 5: (0, 2, 3, 4, 1)}
@@ -75,6 +84,8 @@ def _convert(path: tuple, value: np.ndarray, collection: str):
         if leaf != "noise" or value.ndim not in _NOISE_TO_TORCH:
             raise KeyError(f"unknown buffer {'/'.join(path)}")
         return ".".join(path), value.transpose(_NOISE_TO_TORCH[value.ndim])
+    if leaf in _PACKED_KERNELS and value.ndim == 3:
+        return ".".join(path), value
     if leaf.endswith("_kernel"):   # the conv stacks' bias-free kernels
         if value.ndim == 4:        # [3, 1, I, O] -> OIW
             return ".".join(path), value[:, 0].transpose(2, 1, 0)
@@ -167,7 +178,8 @@ def adam_state_from_numpy(state, device=None) -> AdamState:
 
 
 def _flax_leaf(module: nn.Module, leaf: str, value: np.ndarray):
-    if leaf in _KEPT:
+    if leaf in _KEPT or (leaf in _PACKED_KERNELS
+                         and isinstance(module, SpatialAttention)):
         return leaf, value
     if leaf.endswith("_kernel"):
         if value.ndim == 3:   # OIW -> [3, 1, I, O]

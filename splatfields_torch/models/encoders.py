@@ -17,15 +17,16 @@
 - ``HashGridEncoder`` and ``NGPMLP``, the NGP variant: a multi-resolution
   hash grid (dense levels indexed directly, the others by the instant-ngp
   xor-prime hash) gathered from the level-flattened f32 table, then a
-  small ReLU MLP. The table's gradient is ``_SortedGather``'s VJP: one
-  stable sort of the gathered row ids with the gradient rows as payload,
-  then one ``ops/segsum.sorted_segment_sum`` over the whole table (the
-  CUDA kernel on the card), never autograd's scatter.
+  small ReLU MLP. On the card the table's gradient is
+  ``_SortedGather``'s VJP: one stable sort of the gathered row ids with
+  the gradient rows as payload, then one ``ops/segsum.sorted_segment_sum``
+  over the whole table (the CUDA kernel), not autograd's scatter.
 
 Sampling is torch's grid_sample (bilinear, zeros padding,
-align_corners=False). The plane features [N, P, C] are fused by
-``_fuse``'s modes with the JAX package's quirks: ``add`` and ``mean`` both
-sum, ``space_cat`` is space planes times time planes. ``out_dim`` is the
+align_corners=False) unless a plane option below says otherwise. The
+plane features [N, P, C] are fused by ``_fuse``'s modes with the JAX
+package's quirks: ``add`` and ``mean`` both sum, ``space_cat`` is space
+planes times time planes. ``out_dim`` is the
 JAX property, which for VarTriPlane's ``space_cat`` says C although the
 fuse returns 3C; ``width`` is what ``forward`` returns, and the field's
 first refine layer reads that. The generated encoders sample at detached
@@ -36,12 +37,44 @@ last column, which JAX clamps to z, and so does the port.
 The hash grid gathers from a bf16 copy of the f32 table by the JAX
 package's ``SPLATFIELDS_NGP_BF16_TABLE`` rule (``ngp_bf16_table``: on for
 CUDA tensors under ``auto``); the gradient stays f32 through the sorted
-segment sum. The JAX package's quad-packed samplers and its
-channel-packed decoder (``SPLATFIELDS_PACKED_CNN``) are TPU A/B options
-and not ported: the port runs one decoder per plane, the JAX CPU default.
+segment sum. ``SPLATFIELDS_NGP_SORTED_GRAD`` picks the table's VJP as the
+JAX package does: ``on`` is ``_SortedGather``, ``off`` the plain gather
+(f32, autograd's scatter), and ``auto`` (the default and any other value)
+``_SortedGather`` for CUDA tables and the scatter for CPU ones. The bf16
+source applies to ``_SortedGather`` only, as in JAX.
+
+The generated encoders (VarTriPlane, VarHexPlane; not TriPlane or
+HexPlane, as in JAX) take the JAX package's plane options, each read once
+when the encoder is built (``PlaneOptions``), with JAX's names and values:
+
+- ``SPLATFIELDS_QUAD_SAMPLE``: ``off`` samples with ``F.grid_sample`` and
+  ignores the options below; any other value samples through the quad
+  table (``ops/grid_sample.grid_sample_2d_quad``). One difference from
+  JAX is kept on purpose: unset, with none of the options below on, the
+  port keeps ``F.grid_sample``, the same function as JAX's default quad
+  route, so that the port's default path stays as it was. Unset with any
+  option below on, or set to anything but ``off``, takes the quad route.
+- ``SPLATFIELDS_PLANE_BF16=on``: the quad table is rounded to bf16 inside
+  the forward; the plane gradient stays f32.
+- ``SPLATFIELDS_QUAD_MULTI=on`` (with ``SPLATFIELDS_QUAD_SAMPLE`` unset or
+  ``on``): every plane's table in one, one gather and one VJP for all.
+- ``SPLATFIELDS_PLANE_GRAD_PALLAS=on``: the table's VJP through the
+  sorted segment sum (``csrc/segsum.cu`` on the card);
+  ``SPLATFIELDS_SORTED_PLANE_GRAD=on``: through the scatter-free f32
+  prefix sums. Both on raises ``ValueError`` when the encoder is built.
+- ``SPLATFIELDS_PACKED_CNN=on`` (VarTriPlane only, as in JAX): the
+  ``n_planes`` decoders run as one channel-packed ``Tensorial2D``
+  (``subs_packed``, ``n_packs=n_planes``: grouped convs, ``gn * P``
+  GroupNorm groups, block-diagonal attention); ``planes()`` un-packs its
+  pack-major channels. Its parameters are those of the JAX package's
+  packed tree, so a ``deform.msgpack`` written under the option loads
+  under the option.
+- ``SPLATFIELDS_CNN_BF16=on``: bf16 convs in the decoders
+  (``models/decoder.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -51,7 +84,13 @@ import torch.nn.functional as F
 
 from splatfields_torch.models.decoder import Tensorial2D, Tensorial3D
 from splatfields_torch.models.initializers import torch_linear_
-from splatfields_torch.ops.grid_sample import grid_sample_3d, grid_sample_planes
+from splatfields_torch.ops.grid_sample import (
+    grid_sample_2d_quad,
+    grid_sample_2d_quad_multi,
+    grid_sample_3d,
+    grid_sample_planes,
+    plane_grad_route,
+)
 from splatfields_torch.ops.segsum import sorted_segment_sum
 
 _SPACE_AXES = ((0, 1), (1, 2), (2, 0))   # xy, yz, zx
@@ -83,13 +122,65 @@ def fuse_width(mode: str, n_planes: int, channels: int) -> int:
     raise NotImplementedError(f"fuse mode {mode!r} over {n_planes} planes")
 
 
-def _sample(planes: torch.Tensor, pts: torch.Tensor, axes) -> torch.Tensor:
-    """Planes [P, C, H, W] at the per-plane columns ``axes`` of ``pts``
-    (an index past the last column reads the last, as JAX clamps it) ->
-    [N, P, C]."""
+def _coords(pts: torch.Tensor, axes) -> torch.Tensor:
+    """The per-plane columns ``axes`` of ``pts`` (an index past the last
+    column reads the last, as JAX clamps it) -> [P, N, 2]."""
     last = pts.shape[1] - 1
-    coords = torch.stack([pts[:, [min(a, last) for a in ax]] for ax in axes])
-    return grid_sample_planes(planes, coords)
+    return torch.stack([pts[:, [min(a, last) for a in ax]] for ax in axes])
+
+
+def _sample(planes: torch.Tensor, pts: torch.Tensor, axes) -> torch.Tensor:
+    """Planes [P, C, H, W] at the per-plane columns ``axes`` of ``pts`` ->
+    [N, P, C]."""
+    return grid_sample_planes(planes, _coords(pts, axes))
+
+
+def _on(name: str) -> bool:
+    return os.environ.get(name, "off") == "on"
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneOptions:
+    """The generated encoders' plane options, read from the environment
+    once (``read``): ``quad`` samples through the quad table, with
+    ``gather_dtype`` (bf16 or None), ``multi`` (one table for every plane)
+    and ``grad`` (the table VJP's route, ``ops/grid_sample.GRAD_ROUTES``);
+    ``packed`` runs VarTriPlane's decoders as one channel-packed net."""
+    quad: bool = False
+    gather_dtype: torch.dtype | None = None
+    multi: bool = False
+    grad: str = "scatter"
+    packed: bool = False
+
+    @classmethod
+    def read(cls) -> "PlaneOptions":
+        env = os.environ.get("SPLATFIELDS_QUAD_SAMPLE")
+        subs = ("SPLATFIELDS_PLANE_BF16", "SPLATFIELDS_QUAD_MULTI",
+                "SPLATFIELDS_PLANE_GRAD_PALLAS",
+                "SPLATFIELDS_SORTED_PLANE_GRAD")
+        packed = _on("SPLATFIELDS_PACKED_CNN")
+        if env == "off" or (env is None and not any(map(_on, subs))):
+            return cls(packed=packed)
+        return cls(quad=True,
+                   gather_dtype=(torch.bfloat16
+                                 if _on("SPLATFIELDS_PLANE_BF16") else None),
+                   multi=(_on("SPLATFIELDS_QUAD_MULTI")
+                          and env in (None, "on")),
+                   grad=plane_grad_route(), packed=packed)
+
+    def sample(self, planes: torch.Tensor, pts: torch.Tensor,
+               axes) -> torch.Tensor:
+        """Planes [P, C, H, W] at the per-plane columns ``axes`` of the
+        (detached) points ``pts`` -> [N, P, C]."""
+        if not self.quad:
+            return _sample(planes, pts, axes)
+        coords = _coords(pts, axes)
+        if self.multi:
+            return grid_sample_2d_quad_multi(planes, coords,
+                                             self.gather_dtype, self.grad)
+        return torch.stack([grid_sample_2d_quad(planes[i], coords[i],
+                                                self.gather_dtype, self.grad)
+                            for i in range(planes.shape[0])], dim=1)
 
 
 def _with_time(pts: torch.Tensor, input_time) -> torch.Tensor:
@@ -173,22 +264,33 @@ class VarGridEncoder(nn.Module):
 
 
 class _GeneratedPlanes(nn.Module):
-    """``n_planes`` Tensorial2D generators ``subs_<i>`` sampled at
-    ``axes``."""
+    """``n_planes`` Tensorial2D generators ``subs_<i>`` (or, ``packed``,
+    one ``subs_packed`` of ``n_planes`` packs) sampled at ``axes`` by the
+    plane options read when the encoder is built."""
 
     def __init__(self, n_planes, axes, in_ch, out_ch, noise_res, fuse_mode,
-                 n_frames, strategy, generator):
+                 n_frames, strategy, generator, packable=False):
         super().__init__()
         self.n_planes, self.axes, self.fuse_mode = n_planes, axes, fuse_mode
+        self.out_ch = out_ch
         self.width = fuse_width(fuse_mode, n_planes, out_ch)
+        self.options = PlaneOptions.read()
+        self.packed = packable and self.options.packed
+        tc = dict(n_frames=n_frames, strategy=strategy, generator=generator)
+        if self.packed:
+            self.subs_packed = Tensorial2D(in_ch, out_ch, noise_res,
+                                           n_packs=n_planes, **tc)
+            return
         for i in range(n_planes):
-            self.add_module(f"subs_{i}", Tensorial2D(
-                in_ch, out_ch, noise_res, n_frames=n_frames,
-                strategy=strategy, generator=generator))
+            self.add_module(f"subs_{i}", Tensorial2D(in_ch, out_ch, noise_res,
+                                                     **tc))
 
     def planes(self, frame_id: int | None = None) -> torch.Tensor:
         """All planes, [n_planes, C, H, W]. Independent of the points: run
         once a step and reuse across point batches."""
+        if self.packed:   # [1, P*C, H, W], pack-major
+            out = self.subs_packed(frame_id)
+            return out.reshape(self.n_planes, self.out_ch, *out.shape[2:])
         return torch.cat([getattr(self, f"subs_{i}")(frame_id)
                           for i in range(self.n_planes)], dim=0)
 
@@ -197,12 +299,14 @@ class _GeneratedPlanes(nn.Module):
             planes = self.planes(frame_id)
         # sample positions carry no gradient (the field conditions on
         # detached splat xyz), as in the JAX encoder
-        return _fuse(_sample(planes, pts.detach(), self.axes), self.fuse_mode)
+        return _fuse(self.options.sample(planes, pts.detach(), self.axes),
+                     self.fuse_mode)
 
 
 class VarTriPlaneEncoder(_GeneratedPlanes):
     """Generated planes: n_planes x Tensorial2D (noise 8x20x20 ->
-    16x160x160), the space planes, then time planes past 3."""
+    16x160x160), the space planes, then time planes past 3; one packed
+    Tensorial2D under ``SPLATFIELDS_PACKED_CNN=on``."""
 
     def __init__(self, in_ch: int = 8, out_ch: int = 16, noise_res: int = 20,
                  fuse_mode: str = "cat", n_frames: int = 0,
@@ -211,7 +315,7 @@ class VarTriPlaneEncoder(_GeneratedPlanes):
         super().__init__(n_planes,
                          _SPACE_AXES[:n_planes] + _TIME_AXES[:n_planes - 3],
                          in_ch, out_ch, noise_res, fuse_mode, n_frames,
-                         strategy, generator)
+                         strategy, generator, packable=True)
         self.out_dim = n_planes * out_ch if fuse_mode == "cat" else out_ch
 
     def forward(self, pts, input_time=None, frame_id=None, planes=None):
@@ -219,7 +323,8 @@ class VarTriPlaneEncoder(_GeneratedPlanes):
 
 
 class VarHexPlaneEncoder(_GeneratedPlanes):
-    """Six generated planes (xy / yz / zx, xt / yt / zt) for 4-D points."""
+    """Six generated planes (xy / yz / zx, xt / yt / zt) for 4-D points
+    (no packed form, as in JAX)."""
 
     def __init__(self, in_ch: int = 8, out_ch: int = 16, noise_res: int = 20,
                  fuse_mode: str = "cat", n_frames: int = 0,
@@ -253,6 +358,14 @@ def _sort_rows(ids: torch.Tensor, rows: torch.Tensor):
     """One stable sort of the row ids, the rows following as payload."""
     sidx, perm = torch.sort(ids, stable=True)
     return sidx, rows.index_select(0, perm)
+
+
+def ngp_sorted_grad(env: str, table: torch.Tensor) -> bool:
+    """``SPLATFIELDS_NGP_SORTED_GRAD``'s rule (JAX ``models/encoders.py:
+    455-459``) for the value ``env`` read when the encoder was built:
+    ``on``, ``off``, or ``auto`` (the default and any other value), which
+    takes the sorted VJP off the CPU: for CUDA tables."""
+    return env == "on" or (env != "off" and table.is_cuda)
 
 
 def ngp_bf16_table(table: torch.Tensor) -> bool:
@@ -299,6 +412,8 @@ class HashGridEncoder(nn.Module):
         self.n_levels, self.n_features = n_levels, n_features
         self.table_size = 2 ** log2_hashmap_size
         self.out_dim = n_levels * n_features
+        self.sorted_grad = os.environ.get("SPLATFIELDS_NGP_SORTED_GRAD",
+                                          "auto")
         self.table = nn.Parameter(torch.empty(
             n_levels, self.table_size, n_features).uniform_(
                 -1e-4, 1e-4, generator=generator))
@@ -337,10 +452,13 @@ class HashGridEncoder(nn.Module):
         n = pts01.shape[0]
         ids, f = self.corner_ids(pts01)
         flat_ids = (ids + self.level_offset[:, None, None]).reshape(-1)
-        gathered = _SortedGather.apply(
-            self.table.reshape(-1, self.n_features), flat_ids,
-            ngp_bf16_table(self.table)).reshape(
-                self.n_levels, n, 8, self.n_features)
+        flat = self.table.reshape(-1, self.n_features)
+        if ngp_sorted_grad(self.sorted_grad, self.table):
+            gathered = _SortedGather.apply(flat, flat_ids,
+                                           ngp_bf16_table(self.table))
+        else:   # JAX's plain gather: f32, autograd's scatter
+            gathered = flat.index_select(0, flat_ids)
+        gathered = gathered.reshape(self.n_levels, n, 8, self.n_features)
         w = torch.where(self.corners.bool(), f[:, :, None, :],
                         1.0 - f[:, :, None, :]).prod(dim=-1)   # [L, N, 8]
         feats = (gathered * w[..., None]).sum(dim=2)           # [L, N, F]

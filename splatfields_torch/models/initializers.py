@@ -20,8 +20,11 @@ def torch_linear_(weight: torch.Tensor, bias: torch.Tensor | None,
 
 
 @torch.no_grad()
-def kaiming_normal_fan_out_(weight: torch.Tensor, gen: torch.Generator) -> None:
+def kaiming_normal_fan_out_(weight: torch.Tensor, gen: torch.Generator,
+                            groups: int = 1) -> None:
     """mmcv kaiming_init defaults (normal, fan_out, relu gain) on an OIHW
-    conv weight: std = sqrt(2 / (kh * kw * out))."""
+    conv weight: std = sqrt(2 / (kh * kw * out)); a grouped conv's fan_out
+    is a group's, out / groups."""
     out, _, kh, kw = weight.shape
-    weight.normal_(0.0, math.sqrt(2.0 / (kh * kw * out)), generator=gen)
+    weight.normal_(0.0, math.sqrt(2.0 / (kh * kw * (out // groups))),
+                   generator=gen)

@@ -18,6 +18,11 @@ cast once and the skip concatenates that cast; each plain layer is
 ``resfields.bf16_linear`` (bf16 operands summed in f32, f32 bias); the
 activation runs in f32 and its result is cast to bf16; the last output
 is cast back to f32 before ``out_activation``.
+
+``fused_mlp_heads`` (JAX ``models/mlp.py:48-105``) runs several rank-0
+heads as one batched product a depth level: ``SplatFields(fuse_heads=
+True)``. It is not the fused CUDA kernel (``ops/fused_mlp.py``), and it
+always runs in f32: it never applies ``SPLATFIELDS_MLP_BF16``.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from splatfields_torch.models.resfields import ResFieldLinear, _out_act
 
@@ -66,6 +72,7 @@ class GeneralMLP(nn.Module):
                  generator: torch.Generator):
         super().__init__()
         self.n_frames = n_frames
+        self.hidden = hidden_features
         self.multires = multires
         self.skips = tuple(skips)
         self.act = _out_act(act)
@@ -106,3 +113,47 @@ class GeneralMLP(nn.Module):
             if i in self.skips and i != self.n_layers - 1:
                 h = torch.cat([h_in, h], dim=-1)
         return self.out_activation(h.float() if bf16 else h)
+
+
+def fused_mlp_heads(heads: Sequence["GeneralMLP"], h_in_list):
+    """Run rank-0 ``GeneralMLP`` heads of equal hidden width on their
+    embedded inputs ``h_in_list`` [N, in_j] as one ``torch.bmm`` a depth
+    level: each level's weights [in, out] and inputs are zero-padded to
+    the level's widest and stacked, so the heads' math is unchanged
+    (padded columns meet zero weights). Every layer, the last included,
+    is followed by the head's activation; the skips concatenate the
+    embedded input in front. Returns each head's output before its
+    ``out_activation``, in f32."""
+    n_layers = [h.n_layers for h in heads]
+    hs = list(h_in_list)
+    outs = [None] * len(heads)
+    for lvl in range(max(n_layers)):
+        active = [j for j in range(len(heads)) if lvl < n_layers[j]]
+        layers = [getattr(heads[j], f"net_{lvl}") for j in active]
+        if len(active) == 1:
+            j, = active
+            new = {j: heads[j].act(hs[j] @ layers[0].weight.t()
+                                   + layers[0].bias)}
+        else:
+            wi = max(layer.weight.shape[1] for layer in layers)
+            wo = max(layer.weight.shape[0] for layer in layers)
+            h_st = torch.stack([F.pad(hs[j], (0, wi - hs[j].shape[1]))
+                                for j in active])
+            w_st = torch.stack([F.pad(layer.weight.t(),
+                                      (0, wo - layer.weight.shape[0], 0,
+                                       wi - layer.weight.shape[1]))
+                                for layer in layers])
+            b_st = torch.stack([F.pad(layer.bias,
+                                      (0, wo - layer.bias.shape[0]))
+                                for layer in layers])
+            out = torch.bmm(h_st, w_st) + b_st[:, None, :]
+            new = {j: heads[j].act(out[k][:, :layers[k].weight.shape[0]])
+                   for k, j in enumerate(active)}
+        for j, h in new.items():
+            if lvl == n_layers[j] - 1:
+                outs[j] = h
+            elif lvl in heads[j].skips:
+                hs[j] = torch.cat([h_in_list[j], h], dim=-1)
+            else:
+                hs[j] = h
+    return outs

@@ -30,6 +30,18 @@ the attribute) runs the heads through ``ops/fused_mlp.py``: one fused call
 for ``mlp_deform`` on pe(xyz) and one for the other four heads on
 pe(xyz_can), hand-written CUDA kernels on the card. ``"auto"`` means off,
 as in the JAX package.
+
+``fuse_heads=True`` (off by default, as in JAX) is another thing: the
+heads of equal hidden width run as one batched product a depth level
+(``mlp.fused_mlp_heads``, ``torch.bmm``), with the same math. It applies
+when the ResField ranks are inactive (``composition_rank == 0`` or a
+static field): the scale, opacity and rotation heads when their widths
+are equal, and on a 4-D field ``mlp_rgb`` with ``mlp_flow`` when
+``rgb_w == flow_w`` (the defaults, 128). Traps, as in JAX: the fused CUDA
+path wins when both are set; and ``fused_mlp_heads`` runs in f32, so
+under ``fuse_heads`` the fused heads ignore ``SPLATFIELDS_MLP_BF16``
+while the others (``mlp_deform``, and on a static field ``mlp_rgb``)
+follow its rule.
 """
 from __future__ import annotations
 
@@ -51,7 +63,12 @@ from splatfields_torch.models.encoders import (
 )
 from splatfields_torch.models.flow import FlowHead
 from splatfields_torch.models.initializers import torch_linear_
-from splatfields_torch.models.mlp import GeneralMLP, positional_embed
+from splatfields_torch.models.mlp import (
+    GeneralMLP,
+    embed_dim,
+    fused_mlp_heads,
+    positional_embed,
+)
 from splatfields_torch.models.resfields import _normalize
 from splatfields_torch.ops.fused_mlp import (
     fused_heads,
@@ -116,9 +133,12 @@ class SplatFields(nn.Module):
                  dct_basis: int = 4, contract_ngp: bool = False,
                  log2_hashmap_size: int = 20, n_levels: int = 16,
                  fused_pallas: str = "auto", fused_block: int = 2048,
-                 fused_compute_dtype=None, *,
+                 fused_compute_dtype=None, fuse_heads: bool = False, *,
                  generator: torch.Generator):
         super().__init__()
+        # the batched heads apply while the ResField ranks are inactive
+        self.fuse_heads = fuse_heads and (composition_rank == 0
+                                          or n_frames <= 0)
         self.fused_pallas = fused_pallas
         self.fused_block = fused_block
         self.fused_compute_dtype = fused_compute_dtype
@@ -228,7 +248,8 @@ class SplatFields(nn.Module):
     def _call_unfused(self, xyz_in: torch.Tensor,
                       pts_feat: torch.Tensor | None, t=None,
                       frame_id: int | None = None) -> Dict[str, Any]:
-        """The heads one GeneralMLP at a time."""
+        """The heads one GeneralMLP at a time, or with ``fuse_heads``
+        those of equal width batched a depth level."""
         xyz_can = xyz_in
         if self.mlp_deform is not None:
             xyz_can = xyz_in + self.deform_weight * self.mlp_deform(
@@ -237,18 +258,40 @@ class SplatFields(nn.Module):
         can_emb = positional_embed(xyz_can, self.max_multires)
         geo = ((pts_feat, None, None) if self.geo_model_disable_pts
                else (xyz_can, pts_feat, can_emb))
-        out = {name: getattr(self, f"mlp_{head}")(*geo, frame_id=frame_id)
-               for name, head in (("scales", "scale"), ("opacity", "opacity"),
-                                  ("rotations", "rotation"))}
-        out[self._rgb_key()] = self.mlp_rgb(xyz_can, pts_feat, can_emb,
-                                            frame_id=frame_id)
+        heads = (("scales", self.mlp_scale), ("opacity", self.mlp_opacity),
+                 ("rotations", self.mlp_rotation))
+        if self.fuse_heads and len({h.hidden for _, h in heads}) == 1:
+            outs = fused_mlp_heads([h for _, h in heads],
+                                   [self._head_in(h, *geo) for _, h in heads])
+            out = {name: h.out_activation(o)
+                   for (name, h), o in zip(heads, outs)}
+        else:
+            out = {name: h(*geo, frame_id=frame_id) for name, h in heads}
+        if (self.fuse_heads and self.mlp_flow is not None
+                and self.mlp_rgb.hidden == self.mlp_flow.hidden):
+            pair = (self.mlp_rgb, self.mlp_flow)
+            rgb, hidden = fused_mlp_heads(
+                pair, [self._head_in(h, xyz_can, pts_feat, can_emb)
+                       for h in pair])
+            out[self._rgb_key()] = self.mlp_rgb.out_activation(rgb)
+        else:
+            out[self._rgb_key()] = self.mlp_rgb(xyz_can, pts_feat, can_emb,
+                                                frame_id=frame_id)
+            hidden = (None if self.mlp_flow is None else
+                      self.mlp_flow(xyz_can, pts_feat, can_emb,
+                                    frame_id=frame_id))
         out["flow"], out["means3D"] = None, xyz_can
         if self.mlp_flow is not None:
-            hidden = self.mlp_flow(xyz_can, pts_feat, can_emb,
-                                   frame_id=frame_id)
             out["flow"], out["means3D"] = self.mlp_flow_head(
                 hidden, xyz_can, time_step=t[:1], frame_id=frame_id)
         return out
+
+    @staticmethod
+    def _head_in(head: GeneralMLP, xyz, feat, emb) -> torch.Tensor:
+        """A head's embedded input, as ``GeneralMLP.forward`` builds it."""
+        h_in = (xyz if head.multires <= 0 else
+                emb[:, :embed_dim(head.multires, xyz.shape[-1])])
+        return h_in if feat is None else torch.cat([h_in, feat], dim=-1)
 
     def _fused_pallas_active(self) -> bool:
         """The fused path covers the static rank-0 point-conditioned

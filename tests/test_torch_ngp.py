@@ -8,9 +8,10 @@ interpret-mode Pallas grid stays short). Everything runs in f32.
 
 The table gradient: the JAX package on the CPU takes autograd's scatter
 (``SPLATFIELDS_NGP_SORTED_GRAD`` auto), or with the knob on the sort +
-Pallas segment sum in interpret mode; the port sorts the ids with the
-gradient rows and sums them with ``ops/segsum.sorted_segment_sum`` (its
-plain version on CPU tensors). All three add the same terms per row in
+Pallas segment sum in interpret mode; the port, with the knob on, sorts
+the ids with the gradient rows and sums them with
+``ops/segsum.sorted_segment_sum`` (its plain version on CPU tensors), and
+under ``auto`` takes the scatter on the CPU as JAX does. All three add the same terms per row in
 other orders: rtol 1e-5, atol 1e-6 (tests/test_fields.py's tolerance for
 the two JAX VJPs). The net's outputs and other gradients agree like the
 VarTriPlane net's (tests/test_torch_fields.py): 1e-5.
@@ -107,7 +108,11 @@ def test_hash_features_match_jax(log2_size):
 def test_table_grad_matches_jax(monkeypatch, jax_vjp):
     """d sum(tanh(enc(pts)) * w) / d table against the JAX VJP: the
     scatter (knob off) or the Pallas segment sum in interpret mode (knob
-    on); and the port's gradient goes through one segment sum."""
+    on); and the port's gradient goes through one segment sum (the port
+    reads ``SPLATFIELDS_NGP_SORTED_GRAD`` when the encoder is built: on,
+    its sorted route; ``auto`` would take the scatter on the CPU, as JAX
+    does)."""
+    monkeypatch.setenv("SPLATFIELDS_NGP_SORTED_GRAD", "on")
     enc, v, port = _hash_pair(12, seed=4)
     pts = _points(5)
     w = np.random.RandomState(6).randn(N, 8).astype(np.float32)
