@@ -1,7 +1,9 @@
 """Image files by their first bytes, as PIL and cv2 choose a decoder:
-the PNG signature goes to ``data/png.py``, ``FF D8 FF`` to the baseline
-JPEG decoder (``data/jpeg.py``); anything else raises NotImplementedError
-naming the file, whatever its extension."""
+the PNG signature goes to ``data/png.py``, ``FF D8 FF`` to the JPEG
+decoder (``data/jpeg.py``); anything else raises NotImplementedError
+naming the file, whatever its extension. ``read`` and ``read_color``
+give what cv2's ``imread`` and PIL's ``convert`` see, ``read_pil`` what
+``np.array(PIL.Image.open(path))`` holds."""
 from __future__ import annotations
 
 import numpy as np
@@ -24,6 +26,17 @@ def decode(data: bytes, where: str = "image data") -> np.ndarray:
 def read(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode(f.read(), path)
+
+
+def read_pil(path: str, palette: bool = False) -> np.ndarray:
+    """[H, W, C] as ``np.array(PIL.Image.open(path))`` holds it: a PNG by
+    ``png.decode_pil`` (palette indices, 1-bit gray as 0 / 1; ``palette``:
+    looked up, as imageio gives it), a JPEG as ``read``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == png.SIGNATURE:
+        return png.decode_pil(data, palette)
+    return decode(data, path)
 
 
 def read_color(path: str) -> np.ndarray:

@@ -1,12 +1,16 @@
-"""Baseline JPEG decoding for the readers, in the port's host library
+"""JPEG decoding for the readers, in the port's host library
 (``native/jpeg.cpp``).
 
-``decode`` gives what PIL's ``np.array(Image.open(p))`` gives for a
-baseline file (8-bit SOF0 / SOF1, Huffman, 1 or 3 components, sampling
-factors up to 2x2, restart intervals), pixel for pixel: the ISLOW IDCT,
-fancy upsampling and the YCbCr tables of libjpeg-turbo's defaults, which
-cv2 shares. Progressive, arithmetic-coded, 12-bit, lossless and CMYK /
-Adobe RGB files raise NotImplementedError naming the file and the marker.
+``decode`` gives what PIL's ``np.array(Image.open(p))`` (and cv2, which
+shares libjpeg-turbo's defaults) gives, pixel for pixel: 8-bit Huffman
+frames, sequential (SOF0 / SOF1) or progressive (SOF2, with
+libjpeg-turbo's block smoothing of a file whose scans leave coefficients
+incomplete); 1 component, or 3 as YCbCr or RGB (an Adobe marker with
+transform 0, or ids R, G, B without JFIF / Adobe markers); sampling
+factors 1-4 with integral ratios (4:1:1 included), restart intervals;
+the ISLOW IDCT, fancy upsampling and the YCbCr tables of libjpeg-turbo.
+CMYK / YCCK, arithmetic-coded, 12-bit, lossless and hierarchical files
+raise NotImplementedError naming the file and the marker.
 """
 from __future__ import annotations
 

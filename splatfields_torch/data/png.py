@@ -3,15 +3,26 @@ which reads and writes images through PIL and cv2; the GPU machine has
 neither).
 
 Decoding takes the five colour types (gray, gray+alpha, RGB, RGBA,
-palette, with a ``tRNS`` chunk) at bit depth 8, the four non-palette
-types at bit depth 16 (as uint16, what ``cv2.imread(...,
+palette, with a ``tRNS`` chunk) at every bit depth PNG allows (1, 2, 4
+and 8 for gray and palette, 8 and 16 for the rest), non-interlaced or
+Adam7-interlaced, and all five row filters. Each of the seven Adam7
+passes is a small image of its own, unfiltered alone and scattered to
+its pixels; samples under 8 bits are unpacked with ``np.unpackbits``. A
+file whose rows use only None, Sub and Up unfilters row by row with
+vector ops (Sub as a cumulative sum mod 256 along the row). Average and
+Paeth depend on the reconstructed pixel to the left, so a file with such
+rows unfilters along anti-diagonals: every pixel of diagonal y + x = d
+depends only on diagonals d - 1 and d - 2, so H + W - 1 vector steps
+rebuild the image, each row with its own filter.
+
+The readers see a file as the library their JAX counterpart calls sees
+it. ``decode`` is libpng's expansion, what cv2's ``imread`` and PIL's
+``convert`` give: gray under 8 bits scaled to 0-255, a palette looked
+up, ``tRNS`` as alpha, 16 bits as uint16 (what ``cv2.imread(...,
 IMREAD_UNCHANGED)`` gives for a 16-bit depth map, channels in the file's
-order), non-interlaced, and all five row filters. A file whose rows use only None, Sub and Up unfilters
-row by row with vector ops (Sub as a cumulative sum mod 256 along the
-row). Average and Paeth depend on the reconstructed pixel to the left,
-so a file with such rows unfilters along anti-diagonals: every pixel of
-diagonal y + x = d depends only on diagonals d - 1 and d - 2, so
-H + W - 1 vector steps rebuild the image, each row with its own filter.
+order). ``decode_pil`` is ``np.array(PIL.Image.open(p))``: palette
+indices, 1-bit gray as 0 / 1, 2- and 4-bit gray scaled, no ``tRNS``,
+16-bit colour to its high byte (gray+alpha as RGBA).
 
 Encoding takes uint8 (bit depth 8) or uint16 (bit depth 16) images,
 writes one filter for every row (0, None, by default; the others exist so
@@ -72,61 +83,127 @@ def _unfilter_diagonal(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return rec[1:, 1:].astype(np.uint8)
 
 
-def decode(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 [H, W, C] (uint16 at bit depth 16): C = 1 (gray),
-    2 (gray+alpha), 3 (RGB) or 4 (RGBA); a palette image comes back as
-    RGB, or RGBA when it has a ``tRNS`` chunk."""
-    if data[:8] != SIGNATURE:
-        raise ValueError("not a PNG file")
-    pos, idat, palette, trns, hdr = 8, [], None, None, None
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"tRNS":
-            trns = body
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if hdr is None:
-        raise ValueError("PNG without IHDR")
-    w, h, depth, ctype, _, _, interlace = hdr
-    if (ctype not in _CHANNELS or interlace or depth not in (8, 16)
-            or (depth == 16 and ctype == 3)):
-        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type "
-                         f"{ctype}, interlace {interlace} (8-bit, or 16-bit "
-                         "without a palette, non-interlaced only)")
-    ch = _CHANNELS[ctype]
-    nb = ch * depth // 8    # bytes a pixel: the filters' left neighbour
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows[:h * (w * nb + 1)].reshape(h, w * nb + 1)
-    ftype, raw = rows[:, 0], rows[:, 1:].reshape(h, w, nb)
+# Adam7's passes: (x0, y0, dx, dy) of each pass's pixels
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unfilter(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """Filtered rows [h, 1 + row bytes] -> samples [h, w, ch] at the
+    file's depth (uint8 under 16 bits, values unscaled)."""
+    h = rows.shape[0]
+    nb = max(1, ch * depth // 8)   # the filters' left neighbour, in bytes
+    ftype, raw = rows[:, 0], rows[:, 1:].reshape(h, -1, nb)
     if ftype.max(initial=0) > 4:
         raise ValueError("bad PNG row filter")
     unfilter = _unfilter_rows if ftype.max(initial=0) <= 2 \
         else _unfilter_diagonal
-    img = unfilter(raw, ftype)
+    img = unfilter(raw, ftype).reshape(h, -1)
     if depth == 16:
-        img = img.view(">u2").astype(np.uint16)   # big-endian samples
+        return img.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth < 8:
+        bits = np.unpackbits(img, axis=1)[:, :w * depth].reshape(h, w, depth)
+        img = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+            -1, dtype=np.uint8)
+    return img.reshape(h, w, ch)
+
+
+class Raw:
+    """A PNG's samples at its own depth ([H, W, C], uint8 or uint16, not
+    scaled), its colour type, depth, palette [N, 3] and ``tRNS`` bytes."""
+
+    def __init__(self, data: bytes):
+        if data[:8] != SIGNATURE:
+            raise ValueError("not a PNG file")
+        pos, idat, self.palette, self.trns, hdr = 8, [], None, None, None
+        while pos < len(data):
+            (length,) = struct.unpack(">I", data[pos:pos + 4])
+            kind = data[pos + 4:pos + 8]
+            body = data[pos + 8:pos + 8 + length]
+            pos += 12 + length
+            if kind == b"IHDR":
+                hdr = struct.unpack(">IIBBBBB", body)
+            elif kind == b"PLTE":
+                self.palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            elif kind == b"tRNS":
+                self.trns = body
+            elif kind == b"IDAT":
+                idat.append(body)
+            elif kind == b"IEND":
+                break
+        if hdr is None:
+            raise ValueError("PNG without IHDR")
+        w, h, depth, ctype, _, _, interlace = hdr
+        depths = (1, 2, 4, 8, 16) if ctype == 0 else (
+            (1, 2, 4, 8) if ctype == 3 else (8, 16))
+        if ctype not in _CHANNELS or depth not in depths or interlace > 1:
+            raise ValueError(f"bad PNG header: bit depth {depth}, colour "
+                             f"type {ctype}, interlace {interlace}")
+        self.ctype, self.depth = ctype, depth
+        ch = _CHANNELS[ctype]
+        stream = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+        passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+        self.samples = np.zeros((h, w, ch), np.uint16 if depth == 16
+                                else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in passes:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue   # an empty pass has no bytes, not even filters
+            n = ph * (1 + (pw * ch * depth + 7) // 8)
+            if pos + n > len(stream):
+                raise ValueError("truncated PNG image data")
+            rows = stream[pos:pos + n].reshape(ph, -1)
+            self.samples[y0::dy, x0::dx] = _unfilter(rows, pw, ch, depth)
+            pos += n
+
+
+def decode(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 [H, W, C] (uint16 at bit depth 16): C = 1 (gray),
+    2 (gray+alpha), 3 (RGB) or 4 (RGBA); gray under 8 bits scaled to
+    0-255; a palette image comes back as RGB, or RGBA when it has a
+    ``tRNS`` chunk; gray or RGB with ``tRNS`` gains an alpha channel."""
+    raw = Raw(data)
+    img, ctype, trns = raw.samples, raw.ctype, raw.trns
     if ctype == 3:
         idx = img[..., 0]
-        rgb = palette[idx]
+        rgb = raw.palette[idx]
         if trns is None:
             return rgb
         alpha = np.full(256, 255, np.uint8)
         alpha[:len(trns)] = np.frombuffer(trns, np.uint8)
         return np.concatenate([rgb, alpha[idx][..., None]], -1)
+    clear = None
     if trns is not None and ctype in (0, 2):
-        key = np.array(struct.unpack(f">{ch}H", trns), np.uint16)
-        opaque = np.iinfo(img.dtype).max
-        alpha = np.where((img == key).all(-1), 0, opaque).astype(img.dtype)
-        return np.concatenate([img, alpha[..., None]], -1)
+        key = np.array(struct.unpack(f">{img.shape[-1]}H", trns), np.uint16)
+        clear = (img == key).all(-1)
+    if raw.depth < 8:   # libpng's expansion: the bits repeated
+        img = img * np.uint8(255 // (2 ** raw.depth - 1))
+    if clear is not None:
+        alpha = np.where(clear, 0, np.iinfo(img.dtype).max)
+        img = np.concatenate([img, alpha.astype(img.dtype)[..., None]], -1)
+    return img
+
+
+def decode_pil(data: bytes, palette: bool = False) -> np.ndarray:
+    """PNG bytes -> [H, W, C] as ``np.array(PIL.Image.open(...))`` gives
+    it (one channel kept): palette indices (uint8), 1-bit gray as 0 / 1,
+    2- and 4-bit gray scaled to 0-255, 16-bit gray as uint16, 16-bit
+    colour to its high byte (gray+alpha as RGBA), ``tRNS`` ignored. With
+    ``palette``, a palette image as RGB, as imageio's PIL plugin gives
+    it."""
+    raw = Raw(data)
+    img = raw.samples
+    if raw.ctype == 3 and palette:
+        return raw.palette[img[..., 0]]
+    if raw.ctype == 3 or raw.depth == 1:
+        return img
+    if raw.depth < 8:
+        return img * np.uint8(255 // (2 ** raw.depth - 1))
+    if raw.depth == 16 and raw.ctype != 0:
+        img = (img >> 8).astype(np.uint8)
+        if raw.ctype == 4:   # PIL opens 16-bit gray+alpha as RGBA
+            img = img[..., [0, 0, 0, 1]]
     return img
 
 

@@ -14,9 +14,9 @@ anything else (HyperNeRF) every 4th id at ratio 0.5 with no test set.
 random colours. The pred cameras follow a spline
 (``utils/camera_paths.generate_interpolated_path``) through the fid-0
 cameras of the rig in ``VIS_CAM_ORDER``, or are the test cameras when a
-rig id is missing. Images, PNG or baseline JPEG by their first bytes,
-are read by ``data/images.py`` and divided by 255, as the JAX reader's
-PIL array.
+rig id is missing. Images, PNG or JPEG by their first bytes, are read
+by ``data/images.read_pil`` and divided by 255, as the JAX reader's PIL
+array (a palette PNG's indices, a 1-bit PNG's 0 / 1).
 """
 from __future__ import annotations
 
@@ -59,7 +59,7 @@ def camera_nerfies_from_json(path, scale):
 def _read_image(path: str) -> np.ndarray:
     """float32 [H, W, C] / 255 of a PNG or JPEG, as ``np.array(PIL.Image.
     open(path), np.float32) / 255`` (one channel squeezed)."""
-    img = images.read(path)
+    img = images.read_pil(path)
     if img.shape[-1] == 1:
         img = img[..., 0]
     return np.array(img, np.float32) / 255.0

@@ -26,15 +26,16 @@ ResFields/Owlii multi-camera video (counterpart of
   camera lists, the ``f < load_time_step`` filter, radius 1, and the
   point init (``vertices``, ``random``, ``hull``, ``depth``).
 
-Images, masks and depths are read by ``data/png.py``, and the ResFields
-frames (``rgb/*.jpg`` too) by ``data/images.py``, where the JAX package
-uses PIL, imageio and cv2; the values are cv2's: ``imread``'s
-colour route (grey replicated, alpha dropped, 16-bit samples shifted to
-8 bits; the mask is its blue channel) and ``IMREAD_UNCHANGED``'s uint16
-depth. The JAX reader stacks a camera's frames in float64 before it
-casts each to float32; here each frame is computed in float64 and cast
-on its own, so the values are equal and a directory never sits in
-memory in float64.
+Images, masks and depths are read by ``data/images.py`` and
+``data/png.py``, where the JAX package uses PIL, imageio and cv2, each
+as the library the JAX reader calls sees it: a DTU scan's images as
+PIL's array and its masks as imageio's (``images.read_pil``); the
+ResFields frames (``rgb/*.jpg`` too) as cv2's ``imread`` colour route
+(grey replicated, alpha dropped, 16-bit samples shifted to 8 bits; the
+mask is its blue channel) and ``IMREAD_UNCHANGED``'s uint16 depth. The
+JAX reader stacks a camera's frames in float64 before it casts each to
+float32; here each frame is computed in float64 and cast on its own, so
+the values are equal and a directory never sits in memory in float64.
 """
 from __future__ import annotations
 
@@ -128,8 +129,8 @@ def read_dtu_cameras(path, render_camera="cameras_sphere.npz"):
     n_images = len(images_lis)
     cam_infos = []
     for idx in range(n_images):
-        image = png.read(images_lis[idx])
-        mask = png.read(masks_lis[idx]) / 255.0
+        image = images.read_pil(images_lis[idx])
+        mask = images.read_pil(masks_lis[idx], palette=True) / 255.0
         image = (image * mask).astype(np.uint8)
         world_mat = cam_dict[f"world_mat_{idx}"].astype(np.float32)
         if f"fid_{idx}" in cam_dict:
@@ -192,13 +193,13 @@ def read_neus_dtu_scene(path, render_camera="cameras_sphere.npz",
 
 def _imread_unchanged(path: str) -> np.ndarray:
     """``cv2.imread(path, IMREAD_UNCHANGED)``: one channel squeezed, more
-    in cv2's BGR(A) order."""
+    in cv2's BGR(A) order (gray+alpha as BGRA)."""
     img = png.read(path)
     if img.shape[-1] == 1:
         return img[..., 0]
-    if img.shape[-1] >= 3:
-        return np.concatenate([img[..., 2::-1], img[..., 3:]], -1)
-    return img
+    if img.shape[-1] == 2:
+        return img[..., [0, 0, 0, 1]]
+    return np.concatenate([img[..., 2::-1], img[..., 3:]], -1)
 
 
 def read_cameras_from_neus(data_dir, white_background, keep_fid=None,

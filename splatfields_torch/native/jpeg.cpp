@@ -1,19 +1,30 @@
-// Baseline JPEG decoder (host), for the readers' JPEG captures.
+// JPEG decoder (host), for the readers' JPEG captures.
 //
-// Scope: 8-bit sequential DCT frames (SOF0, SOF1) with Huffman coding; 1
-// or 3 components with sampling factors up to 2x2; interleaved and
-// non-interleaved scans; any number of DQT (8- or 16-bit) and DHT tables,
-// redefined between scans; DRI restart intervals; partial MCUs at the
-// right and bottom edges. Anything else (progressive SOF2, arithmetic
-// coding, 12-bit samples, lossless, hierarchical, CMYK, Adobe RGB) is
-// refused with status 1 and a message naming the marker.
+// Scope: 8-bit DCT frames with Huffman coding, sequential (SOF0, SOF1) or
+// progressive (SOF2, spectral selection and successive approximation);
+// 1 or 3 components (YCbCr, or RGB where libjpeg-turbo reads RGB: an Adobe
+// marker with transform 0, or no JFIF / Adobe marker and component ids
+// 'R', 'G', 'B'), sampling factors 1-4 with integral ratios; interleaved
+// and non-interleaved scans; any number of DQT (8- or 16-bit) and DHT
+// tables, redefined between scans (a component keeps the quantization
+// table of its first scan); DRI restart intervals; partial MCUs at the
+// right and bottom edges. Anything else (arithmetic coding, 12-bit
+// samples, lossless, hierarchical, CMYK / YCCK, fractional sampling
+// ratios) is refused with status 1 and a message naming the marker.
 //
 // The output equals libjpeg-turbo's with its defaults (what PIL's
 // Image.open(p).convert("RGB") and cv2.imread give), pixel for pixel:
 //   - the ISLOW integer IDCT of jidctint.c, with its range-limit table;
-//   - "fancy" (triangular) upsampling of jdsample.c for h2v1, h1v2 and
-//     h2v2 chroma, box replication for h2 components 2 samples wide or
-//     less, the first and last sample rows replicated at the edges;
+//   - a progressive frame's coefficients gathered over its scans (the
+//     four decoders of jdphuff.c), then, where any of coefficients 1-9 of
+//     a component is still incomplete after the last scan, the block
+//     smoothing of jdcoefct.c (decompress_smooth_data, libjpeg-turbo
+//     2.1+: AC estimates from the 5x5 neighbourhood's DC values, and DC
+//     interpolation when no AC data came at all) before the IDCT;
+//   - the upsampler jdsample.c picks: "fancy" (triangular) h2v1, h1v2
+//     and h2v2, box replication for h2 components 2 samples wide or less,
+//     the first and last sample rows replicated at the edges; any other
+//     integral ratio by replication (int_upsample);
 //   - the fixed-point YCbCr -> RGB tables of jdcolor.c.
 //
 // Exposed via ctypes (data/jpeg.py): jpeg_header reads the frame's size,
@@ -76,8 +87,20 @@ struct Component {
   int td = 0, ta = 0;
   int pw = 0, ph = 0;          // MCU-padded plane size
   int dw = 0, dh = 0;          // downsampled size (libjpeg's)
+  int bw = 0, bh = 0;          // its own blocks (width_in_blocks, height_)
   int pred = 0;
+  bool latched = false;
+  uint16_t qt[64] = {};        // the quant table of its first scan
+  // progressive: each coefficient's Al of its last scan (-1: none yet,
+  // zigzag order), and the coefficients of the MCU-padded block grid,
+  // [ph / 8][pw / 8][64] in natural order
+  int coef_bits[64];
+  std::vector<int16_t> coef;
   std::vector<uint8_t> plane;
+
+  int16_t* block(int row, int col) {
+    return coef.data() + ((size_t)row * (pw / 8) + col) * 64;
+  }
 };
 
 struct BitReader {
@@ -323,11 +346,10 @@ class Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
           frame(s, body, m);
           if (header_only) return;
           break;
-        case 0xC2:
-          throw Error{1, "progressive JPEG (SOF2 marker) is not supported"};
         case 0xC3:
           throw Error{1, "lossless JPEG (SOF3 marker) is not supported"};
         case 0xC5: case 0xC6: case 0xC7:
@@ -363,6 +385,10 @@ class Decoder {
     }
     if (!header_only && !scanned_) throw Error{2, "no scan in the file"};
     if (header_only && comps_.empty()) throw Error{2, "no frame header"};
+    if (progressive_) {
+      bool smooth = smoothing_ok();
+      for (auto& c : comps_) idct_coefficients(c, smooth);
+    }
   }
 
   int width() const { return width_; }
@@ -380,6 +406,11 @@ class Decoder {
     }
     std::vector<uint8_t> full[3];
     for (int k = 0; k < 3; ++k) full[k] = upsample(comps_[k]);
+    if (rgb_) {
+      for (size_t i = 0, n = (size_t)W * H; i < n; ++i)
+        for (int k = 0; k < 3; ++k) out[3 * i + k] = full[k][i];
+      return;
+    }
     for (size_t i = 0, n = (size_t)W * H; i < n; ++i) {
       int y = full[0][i], cb = full[1][i], cr = full[2][i];
       out[3 * i + 0] = clamp255(y + kColor.cr_r[cr]);
@@ -417,10 +448,13 @@ class Decoder {
     int nc = s[5];
     if (height_ == 0) throw Error{1, "a height set by DNL is not supported"};
     if (width_ == 0) throw Error{2, "zero image width"};
-    if (nc == 4) throw Error{1, "CMYK / YCCK JPEG (4 components) is not "
-                                "supported"};
-    if (nc != 1 && nc != 3) throw Error{1, "only 1 or 3 components are "
-                                           "supported"};
+    if (nc != 1 && nc != 3) {
+      char msg[96];
+      std::snprintf(msg, sizeof msg, "%s (%d components, SOF%d marker) is "
+                    "not supported", nc == 4 ? "CMYK / YCCK JPEG" : "JPEG",
+                    nc, marker - 0xC0);
+      throw Error{1, msg};
+    }
     if (body < 6 + 3 * (size_t)nc) throw Error{2, "short SOF segment"};
     for (int i = 0; i < nc; ++i) {
       Component c;
@@ -428,9 +462,10 @@ class Decoder {
       c.h = s[7 + 3 * i] >> 4;
       c.v = s[7 + 3 * i] & 15;
       c.tq = s[8 + 3 * i];
-      if (c.h < 1 || c.h > 2 || c.v < 1 || c.v > 2)
-        throw Error{1, "sampling factors above 2 are not supported"};
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
+        throw Error{2, "bad sampling factors (1-4)"};
       if (c.tq > 3) throw Error{2, "bad quantization table id"};
+      for (int& b : c.coef_bits) b = -1;
       comps_.push_back(c);
     }
     hmax_ = vmax_ = 1;
@@ -438,14 +473,11 @@ class Decoder {
       hmax_ = c.h > hmax_ ? c.h : hmax_;
       vmax_ = c.v > vmax_ ? c.v : vmax_;
     }
-    if (nc == 3 && !jfif_) {
-      if (adobe_ == 0)
-        throw Error{1, "Adobe RGB JPEG (APP14 transform 0) is not "
-                       "supported"};
-      if (adobe_ < 0 && comps_[0].id == 'R' && comps_[1].id == 'G' &&
-          comps_[2].id == 'B')
-        throw Error{1, "RGB JPEG (component ids R, G, B) is not supported"};
-    }
+    for (auto& c : comps_)
+      if (hmax_ % c.h || vmax_ % c.v)
+        throw Error{1, "fractional sampling ratios (SOF sampling factors) "
+                       "are not supported"};
+    progressive_ = marker == 0xC2;
     mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
     mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
     for (auto& c : comps_) {
@@ -453,8 +485,23 @@ class Decoder {
       c.ph = mcuy_ * c.v * 8;
       c.dw = (width_ * c.h + hmax_ - 1) / hmax_;
       c.dh = (height_ * c.v + vmax_ - 1) / vmax_;
+      c.bw = (c.dw + 7) / 8;
+      c.bh = (c.dh + 7) / 8;
       c.plane.assign((size_t)c.pw * c.ph, 0);
+      if (progressive_) c.coef.assign((size_t)c.pw * c.ph, 0);
     }
+  }
+
+  // jdapimin.c's default_decompress_parms, at the first scan: three
+  // components are RGB under an Adobe marker with transform 0 (a JFIF
+  // marker wins), or with neither marker and ids 'R', 'G', 'B'
+  void color_space() {
+    if (comps_.size() != 3 || jfif_) return;
+    if (adobe_ >= 0)
+      rgb_ = adobe_ == 0;
+    else
+      rgb_ = comps_[0].id == 'R' && comps_[1].id == 'G' &&
+             comps_[2].id == 'B';
   }
 
   void dqt(const uint8_t* s, size_t body) {
@@ -493,7 +540,28 @@ class Decoder {
     int ns = body ? s[0] : 0;
     if (ns < 1 || ns > 4 || body < 4 + 2 * (size_t)ns)
       throw Error{2, "bad SOS segment"};
+    if (!scanned_) color_space();
+    int ss = s[1 + 2 * ns], se = s[2 + 2 * ns];
+    int ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+    bool dc = ss == 0;
+    if (!progressive_) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        throw Error{2, "bad spectral selection for a sequential scan"};
+    } else {
+      // jdphuff.c's start_pass_phuff_decoder: a DC scan codes coefficient
+      // 0 alone and may interleave; an AC scan has one component; a
+      // refinement codes the bit below the last
+      bool bad = dc ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+      if (bad) {
+        char msg[96];
+        std::snprintf(msg, sizeof msg, "bad progression (Ss %d, Se %d, Ah "
+                      "%d, Al %d)", ss, se, ah, al);
+        throw Error{2, msg};
+      }
+    }
     std::vector<Component*> sc;
+    int mcu_blocks = 0;
     for (int i = 0; i < ns; ++i) {
       int id = s[1 + 2 * i];
       Component* c = nullptr;
@@ -502,46 +570,67 @@ class Decoder {
       if (!c) throw Error{2, "SOS names an unknown component"};
       c->td = s[2 + 2 * i] >> 4;
       c->ta = s[2 + 2 * i] & 15;
-      if (c->td > 3 || c->ta > 3 || !dc_[c->td].defined ||
-          !ac_[c->ta].defined)
+      // the tables this scan decodes with: both in a sequential scan, the
+      // DC table in a first DC scan, none in a DC refinement, the AC
+      // table in an AC scan
+      bool need_dc = !progressive_ || (dc && ah == 0);
+      bool need_ac = !progressive_ || !dc;
+      if (c->td > 3 || c->ta > 3 || (need_dc && !dc_[c->td].defined) ||
+          (need_ac && !ac_[c->ta].defined))
         throw Error{2, "SOS uses an undefined Huffman table"};
-      if (!qdefined_[c->tq])
-        throw Error{2, "a component uses an undefined quantization table"};
+      // jdinput.c's latch_quant_tables: a component keeps the table as
+      // its first scan starts
+      if (!c->latched) {
+        if (!qdefined_[c->tq])
+          throw Error{2, "a component uses an undefined quantization table"};
+        std::memcpy(c->qt, quant_[c->tq], sizeof(c->qt));
+        c->latched = true;
+      }
+      if (progressive_)
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
       c->pred = 0;
+      mcu_blocks += c->h * c->v;
       sc.push_back(c);
     }
-    int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ahal = s[3 + 2 * ns];
-    if (ss != 0 || se != 63 || ahal != 0)
-      throw Error{2, "bad spectral selection for a sequential scan"};
-    // the quant tables as this scan starts (libjpeg latches them per
-    // component; a sequential component has one scan)
-    for (Component* c : sc) std::memcpy(qt_[c - comps_.data()],
-                                        quant_[c->tq], sizeof(quant_[0]));
+    if (ns > 1 && mcu_blocks > 10)
+      throw Error{2, "too many blocks in an MCU (more than 10)"};
 
     BitReader br{d_, n_, pos_};
     int mx, my, units;
     if (ns == 1) {
       Component* c = sc[0];
-      mx = (c->dw + 7) / 8;
-      my = (c->dh + 7) / 8;
+      mx = c->bw;
+      my = c->bh;
     } else {
       mx = mcux_;
       my = mcuy_;
     }
     units = mx * my;
+    eobrun_ = 0;
     int16_t coef[64];
     for (int u = 0; u < units; ++u) {
       if (restart_ && u > 0 && u % restart_ == 0) restart(br, sc);
       int ux = u % mx, uy = u / mx;
       for (Component* c : sc) {
-        const uint16_t* q = qt_[c - comps_.data()];
         int bh = ns == 1 ? 1 : c->h, bv = ns == 1 ? 1 : c->v;
         for (int by = 0; by < bv; ++by)
           for (int bx = 0; bx < bh; ++bx) {
-            block(br, *c, coef);
-            int x0 = (ux * bh + bx) * 8, y0 = (uy * bv + by) * 8;
-            idct_islow(coef, q, c->plane.data() + (size_t)y0 * c->pw + x0,
-                       c->pw);
+            int col = ux * bh + bx, row = uy * bv + by;
+            if (!progressive_) {
+              block(br, *c, coef);
+              idct_islow(coef, c->qt, c->plane.data() +
+                         (size_t)row * 8 * c->pw + col * 8, c->pw);
+              continue;
+            }
+            int16_t* b = c->block(row, col);
+            if (dc && ah == 0)
+              dc_first(br, *c, b, al);
+            else if (dc)
+              b[0] = (int16_t)(b[0] | (br.bits(1) << al));
+            else if (ah == 0)
+              ac_first(br, *c, b, ss, se, al);
+            else
+              ac_refine(br, *c, b, ss, se, al);
           }
       }
     }
@@ -558,6 +647,235 @@ class Decoder {
     br.pos = p + 2;
     br.reset();
     for (Component* c : sc) c->pred = 0;
+    eobrun_ = 0;
+  }
+
+  // jdphuff.c's decode_mcu_DC_first: the DC difference of the value
+  // shifted right by al
+  void dc_first(BitReader& br, Component& c, int16_t* b, int al) {
+    int t = br.decode(dc_[c.td]);
+    if (t > 15) throw Error{2, "corrupt DC difference"};
+    c.pred += t ? extend(br.bits(t), t) : 0;
+    b[0] = (int16_t)((unsigned)c.pred << al);
+  }
+
+  // decode_mcu_AC_first: run/size codes of band ss..se, ZRL, and EOB runs
+  // (EOBn: 2^n blocks plus n appended bits) that skip whole blocks
+  void ac_first(BitReader& br, Component& c, int16_t* b, int ss, int se,
+                int al) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(ac_[c.ta]);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        b[kZigzag[k]] = (int16_t)((unsigned)extend(br.bits(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun_ = (1 << r) + br.bits(r) - 1;
+        break;
+      }
+    }
+  }
+
+  // decode_mcu_AC_refine: newly nonzero coefficients (+-1 << al, after
+  // their run of zero-history coefficients) and a correction bit for
+  // every coefficient already nonzero that the decoder passes over,
+  // within the block's codes and, for the rest of the band, in an EOB run
+  void ac_refine(BitReader& br, Component& c, int16_t* b, int ss, int se,
+                 int al) {
+    const int p1 = 1 << al, m1 = -p1;
+    auto correct = [&](int16_t* x) {
+      if (br.bits(1) && (*x & p1) == 0)
+        *x = (int16_t)(*x + (*x >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun_ == 0) {
+      for (; k <= se; ++k) {
+        int rs = br.decode(ac_[c.ta]);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.bits(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun_ = (1 << r) + br.bits(r);
+          break;
+        }
+        do {
+          int16_t* x = b + kZigzag[k];
+          if (*x != 0)
+            correct(x);
+          else if (--r < 0)
+            break;
+          ++k;
+        } while (k <= se);
+        if (s) b[kZigzag[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se; ++k) {
+        int16_t* x = b + kZigzag[k];
+        if (*x != 0) correct(x);
+      }
+      --eobrun_;
+    }
+  }
+
+  // jdcoefct.c's smoothing_ok: every component has its quant table and
+  // some DC data, the quantizers of coefficients 0-9 are nonzero, and one
+  // of coefficients 1-9 of some component is still incomplete
+  bool smoothing_ok() const {
+    bool useful = false;
+    for (const auto& c : comps_) {
+      if (!c.latched) return false;
+      for (int k = 0; k < 10; ++k)
+        if (c.qt[kZigzag[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful |= c.coef_bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // A progressive component's blocks -> its plane: jdcoefct.c's
+  // decompress_data, or decompress_smooth_data with ``smooth``
+  void idct_coefficients(Component& c, bool smooth) {
+    if (!smooth) {
+      for (int r = 0; r < c.bh; ++r)
+        for (int col = 0; col < c.bw; ++col)
+          idct_islow(c.block(r, col), c.qt, c.plane.data() +
+                     (size_t)r * 8 * c.pw + col * 8, c.pw);
+      return;
+    }
+    const int* bits = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc &= bits[k] == -1;
+    const int64_t Q00 = c.qt[0], Q01 = c.qt[1], Q10 = c.qt[8],
+                  Q20 = c.qt[16], Q11 = c.qt[9], Q02 = c.qt[2],
+                  Q03 = c.qt[3], Q12 = c.qt[10], Q21 = c.qt[17],
+                  Q30 = c.qt[24];
+    // a coefficient's estimate num / (Q << 8), rounded, clamped below
+    // 2^Al where Al > 0
+    auto est = [](int64_t num, int64_t q, int al) {
+      int pred = (int)(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      return num >= 0 ? pred : -pred;
+    };
+    const int T = mcuy_, last_col = c.bw - 1;
+    int16_t ws[64];
+    for (int im = 0; im < T; ++im) {
+      // the rows above and below as decompress_smooth_data picks them:
+      // the last iMCU row counts only its own block rows, and the row two
+      // below a block can be a padding row of the MCU grid
+      int block_rows = im < T - 1 ? c.v : (c.bh % c.v ? c.bh % c.v : c.v);
+      int image_rows = block_rows * T;
+      for (int br = 0; br < block_rows; ++br) {
+        int r = im * c.v + br, ir = im * block_rows + br;
+        int16_t* cur = c.block(r, 0);
+        int16_t* prev = ir > 0 ? c.block(r - 1, 0) : cur;
+        int16_t* pprev = ir > 1 ? c.block(r - 2, 0) : prev;
+        int16_t* next = ir < image_rows - 1 ? c.block(r + 1, 0) : cur;
+        int16_t* nnext = ir < image_rows - 2 ? c.block(r + 2, 0) : next;
+        // the 5x5 DC window, rows pprev..nnext, columns -2..+2, slid
+        // along the row; columns past either end replicate the edge (at
+        // the first column both right neighbours start as column 1)
+        int dc[5][5];
+        int16_t* rows[5] = {pprev, prev, cur, next, nnext};
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) dc[i][j] = rows[i][0];
+        for (int col = 0; col <= last_col; ++col) {
+          std::memcpy(ws, c.block(r, col), sizeof ws);
+          if (col == 0 && col < last_col)
+            for (int i = 0; i < 5; ++i) dc[i][3] = dc[i][4] = rows[i][64];
+          if (col + 1 < last_col)
+            for (int i = 0; i < 5; ++i)
+              dc[i][4] = rows[i][(size_t)(col + 2) * 64];
+#define DC(i, j) ((int64_t)dc[(i) - 1][(j) - 1])
+          int al;
+          if ((al = bits[1]) != 0 && ws[1] == 0) {
+            int64_t num = change_dc ?
+                -DC(1, 1) - DC(1, 2) + DC(1, 4) + DC(1, 5) - 3 * DC(2, 1) +
+                13 * DC(2, 2) - 13 * DC(2, 4) + 3 * DC(2, 5) - 3 * DC(3, 1) +
+                38 * DC(3, 2) - 38 * DC(3, 4) + 3 * DC(3, 5) - 3 * DC(4, 1) +
+                13 * DC(4, 2) - 13 * DC(4, 4) + 3 * DC(4, 5) - DC(5, 1) -
+                DC(5, 2) + DC(5, 4) + DC(5, 5) :
+                -7 * DC(3, 1) + 50 * DC(3, 2) - 50 * DC(3, 4) + 7 * DC(3, 5);
+            ws[1] = (int16_t)est(Q00 * num, Q01, al);
+          }
+          if ((al = bits[2]) != 0 && ws[8] == 0) {
+            int64_t num = change_dc ?
+                -DC(1, 1) - 3 * DC(1, 2) - 3 * DC(1, 3) - 3 * DC(1, 4) -
+                DC(1, 5) - DC(2, 1) + 13 * DC(2, 2) + 38 * DC(2, 3) +
+                13 * DC(2, 4) - DC(2, 5) + DC(4, 1) - 13 * DC(4, 2) -
+                38 * DC(4, 3) - 13 * DC(4, 4) + DC(4, 5) + DC(5, 1) +
+                3 * DC(5, 2) + 3 * DC(5, 3) + 3 * DC(5, 4) + DC(5, 5) :
+                -7 * DC(1, 3) + 50 * DC(2, 3) - 50 * DC(4, 3) + 7 * DC(5, 3);
+            ws[8] = (int16_t)est(Q00 * num, Q10, al);
+          }
+          if ((al = bits[3]) != 0 && ws[16] == 0) {
+            int64_t num = change_dc ?
+                DC(1, 3) + 2 * DC(2, 2) + 7 * DC(2, 3) + 2 * DC(2, 4) -
+                5 * DC(3, 2) - 14 * DC(3, 3) - 5 * DC(3, 4) + 2 * DC(4, 2) +
+                7 * DC(4, 3) + 2 * DC(4, 4) + DC(5, 3) :
+                -DC(1, 3) + 13 * DC(2, 3) - 24 * DC(3, 3) + 13 * DC(4, 3) -
+                DC(5, 3);
+            ws[16] = (int16_t)est(Q00 * num, Q20, al);
+          }
+          if ((al = bits[4]) != 0 && ws[9] == 0) {
+            int64_t num = change_dc ?
+                -DC(1, 1) + DC(1, 5) + 9 * DC(2, 2) - 9 * DC(2, 4) -
+                9 * DC(4, 2) + 9 * DC(4, 4) + DC(5, 1) - DC(5, 5) :
+                DC(2, 5) + DC(4, 1) - 10 * DC(4, 2) + 10 * DC(4, 4) -
+                DC(1, 2) - DC(4, 5) + DC(5, 2) - DC(5, 4) + DC(1, 4) -
+                DC(2, 1) + 10 * DC(2, 2) - 10 * DC(2, 4);
+            ws[9] = (int16_t)est(Q00 * num, Q11, al);
+          }
+          if ((al = bits[5]) != 0 && ws[2] == 0) {
+            int64_t num = change_dc ?
+                2 * DC(2, 2) - 5 * DC(2, 3) + 2 * DC(2, 4) + DC(3, 1) +
+                7 * DC(3, 2) - 14 * DC(3, 3) + 7 * DC(3, 4) + DC(3, 5) +
+                2 * DC(4, 2) - 5 * DC(4, 3) + 2 * DC(4, 4) :
+                -DC(3, 1) + 13 * DC(3, 2) - 24 * DC(3, 3) + 13 * DC(3, 4) -
+                DC(3, 5);
+            ws[2] = (int16_t)est(Q00 * num, Q02, al);
+          }
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && ws[3] == 0)
+              ws[3] = (int16_t)est(Q00 * (DC(2, 2) - DC(2, 4) + 2 * DC(3, 2) -
+                                          2 * DC(3, 4) + DC(4, 2) - DC(4, 4)),
+                                   Q03, al);
+            if ((al = bits[7]) != 0 && ws[10] == 0)
+              ws[10] = (int16_t)est(Q00 * (DC(2, 2) - 3 * DC(2, 3) + DC(2, 4) -
+                                           DC(4, 2) + 3 * DC(4, 3) - DC(4, 4)),
+                                    Q12, al);
+            if ((al = bits[8]) != 0 && ws[17] == 0)
+              ws[17] = (int16_t)est(Q00 * (DC(2, 2) - DC(2, 4) - 3 * DC(3, 2) +
+                                           3 * DC(3, 4) + DC(4, 2) - DC(4, 4)),
+                                    Q21, al);
+            if ((al = bits[9]) != 0 && ws[24] == 0)
+              ws[24] = (int16_t)est(Q00 * (DC(2, 2) + 2 * DC(2, 3) + DC(2, 4) -
+                                           DC(4, 2) - 2 * DC(4, 3) - DC(4, 4)),
+                                    Q30, al);
+            int64_t num = 0;
+            static const int kW[5][5] = {{-2, -6, -8, -6, -2},
+                                         {-6, 6, 42, 6, -6},
+                                         {-8, 42, 152, 42, -8},
+                                         {-6, 6, 42, 6, -6},
+                                         {-2, -6, -8, -6, -2}};
+            for (int i = 0; i < 5; ++i)
+              for (int j = 0; j < 5; ++j) num += kW[i][j] * (int64_t)dc[i][j];
+            ws[0] = (int16_t)est(Q00 * num, Q00, 0);
+          }
+#undef DC
+          idct_islow(ws, c.qt, c.plane.data() + (size_t)r * 8 * c.pw +
+                     col * 8, c.pw);
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 4; ++j) dc[i][j] = dc[i][j + 1];
+        }
+      }
+    }
   }
 
   void block(BitReader& br, Component& c, int16_t* coef) {
@@ -581,7 +899,8 @@ class Decoder {
     }
   }
 
-  // the component at full size, W x H, as jdsample.c upsamples it
+  // the component at full size, W x H, as jdsample.c upsamples it: the
+  // fancy h2v1, h1v2 and h2v2 upsamplers, int_upsample for other ratios
   std::vector<uint8_t> upsample(const Component& c) {
     const int W = width_, H = height_;
     std::vector<uint8_t> out((size_t)W * H);
@@ -592,10 +911,17 @@ class Decoder {
     auto src = [&](int r) {
       return p + (size_t)(r < 0 ? 0 : (r >= dh ? dh - 1 : r)) * pw;
     };
+    const bool fancy = (rh == 2 && rv == 1) || (rh == 1 && rv == 2) ||
+                       (rh == 2 && rv == 2);
     for (int y = 0; y < H; ++y) {
       uint8_t* o = out.data() + (size_t)y * W;
       if (rh == 1 && rv == 1) {
         std::memcpy(o, src(y), W);
+        continue;
+      }
+      if (!fancy) {  // int_upsample: replication by integral ratios
+        const uint8_t* in = src(y / rv);
+        for (int i = 0; i < W; ++i) o[i] = in[i / rh];
         continue;
       }
       if (rv == 1) {  // h2v1
@@ -654,10 +980,10 @@ class Decoder {
   size_t n_, pos_ = 0;
   int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_ = 0, adobe_ = -1;
-  bool jfif_ = false, scanned_ = false;
+  int eobrun_ = 0;
+  bool jfif_ = false, scanned_ = false, progressive_ = false, rgb_ = false;
   bool qdefined_[4] = {false, false, false, false};
   uint16_t quant_[4][64];
-  uint16_t qt_[3][64];
   Huffman dc_[4], ac_[4];
   std::vector<Component> comps_;
 };

@@ -124,13 +124,20 @@ def query_nn(points: torch.Tensor, n_neighbors: int = 5, eps: float = 1e-5):
     _, idx = knn_self(points, k=n_neighbors - 1)
     self_idx = torch.arange(points.shape[0], device=idx.device)[:, None]
     idx = torch.cat([self_idx, idx], dim=-1)
+    return neighbourhood_weights(points, idx, eps), idx
+
+
+def neighbourhood_weights(points: torch.Tensor, idx: torch.Tensor,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """``query_nn``'s weights of the neighbourhoods ``idx`` [N, K] of
+    ``points`` [N, 3] -> [N, K, K]."""
     nbr = points[idx]                                        # [N, K, 3]
     diff = nbr[:, :, None, :] - nbr[:, None, :, :]
     cross = torch.sqrt(torch.clamp_min((diff * diff).sum(dim=-1), 0.0))
     weights = torch.where(cross > eps, 1.0 / torch.clamp_min(cross, eps),
                           torch.full_like(cross, eps))
     norm = torch.clamp_min(weights.sum(dim=(1, 2), keepdim=True), 1e-5)
-    return weights / norm, idx
+    return weights / norm
 
 
 def neighborhood_morans(weights: torch.Tensor, feats_nn: torch.Tensor,

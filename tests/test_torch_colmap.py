@@ -267,8 +267,9 @@ def test_text_fallback_matches_jax(scan, tmp_path, how):
 
 def test_jpeg_raises_naming_the_file(scan, tmp_path):
     """A baseline JPEG frame, named .png (the format goes by the first
-    bytes, as in PIL), reads as the JAX reader reads it; a progressive one
-    raises naming the file and the marker."""
+    bytes, as in PIL), reads as the JAX reader reads it; a CMYK one (a
+    kind the port still refuses) raises naming the file and the
+    marker."""
     PIL = pytest.importorskip("PIL.Image")
     root = str(tmp_path / "scan")
     shutil.copytree(scan, root)
@@ -280,9 +281,10 @@ def test_jpeg_raises_naming_the_file(scan, tmp_path):
     assert "025" in [c.image_name for c in want.train_cameras]  # the JPEG
     for split in ("train_cameras", "test_cameras"):
         _same_infos(getattr(got, split), getattr(want, split))
-    PIL.fromarray(frame).save(path, "JPEG", progressive=True)
+    PIL.fromarray(frame).convert("CMYK").save(path, "JPEG")
     with pytest.raises(NotImplementedError,
-                       match="025.png.*progressive JPEG .SOF2"):
+                       match="025.png.*CMYK / YCCK JPEG .4 components, "
+                             "SOF0 marker"):
         colmap.read_colmap_scene_sparse(root, n_views=3)
 
 
