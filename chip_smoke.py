@@ -100,13 +100,13 @@ Phases, each raising on failure:
     the backward twice bitwise equal.
 16. SplatFields3D with the script's second command line (VarTriPlane,
     ``lambda_norm`` 0.01, init from phase 15's PLY), 30 iterations, then
-    ``--resume`` to 50; the kernels on the loop's inputs as in phase 15;
+    ``--resume`` to 40; the kernels on the loop's inputs as in phase 15;
     ``splatfields_torch.render.main`` on the run at 100: results.yaml's
     PSNR within the uint8 PNG round trip's bound of the loop's
     evaluation, its frames within one level of the loop's own state
     rendered here (and their PSNR within 1e-3 dB), ``deform.msgpack``
     read back equal; ms/it and the render CLI's ms/frame.
-17. ``train.training`` for 5 iterations of a 64x64 scene, 3DGS and
+17. ``train.training`` for 3 iterations of a 64x64 scene, 3DGS and
     SplatFields3D, on the card and on the CPU with the same seeds:
     per-iteration losses within phase 7's 1e-5 relative (``card_vs_cpu``).
 18. ``scripts/run_blender.sh``'s third command line (3DGS + Moran,
@@ -296,6 +296,16 @@ Phases, each raising on failure:
     ``run_dtu.sh``'s 3DGS line on the twin through ``train.main``: blend
     launches equal to its iterations, and the kernels on the loop's
     inputs and partial tiles as in phase 32.
+46. ``scripts/longrun_torch.py`` (the JAX repo's ``longrun_30k.py``: the
+    train loop on the seed-42 400x400 scene, SplatFields3D, 20,000 hull
+    points, ``--dup_factor 64``) with its iterations cut to
+    ``LONGRUN_ITERS`` and its densify start and interval cut so that a
+    densify-and-prune pass falls in each of two legs, the second through
+    ``--resume`` (``longrun_phase``): the legs join (the resumed
+    iteration, the view order's state and ``dup_factor`` as the first
+    leg saved them), blend launches equal to each leg's steps and
+    evaluation frames, and the kernels on each leg's last step and
+    evaluation frame against their plain versions as in phase 15.
 
 Phases 43-44 set each option themselves and refuse to run with one set
 in the environment. Every phase before 40 runs with both bf16 options
@@ -307,7 +317,7 @@ must return with it off (``F32Mains``): the CLIs turn it off themselves.
 
 The line before the last is a JSON object of the kernels (the blend
 kernels' ``loop_launches``: their counts in phases 15, 16, 18, 20, 23,
-25, 27, 29, 30, 32, 33, 35 and 45, ``loop_max_abs_err``: their errors on
+25, 27, 29, 30, 32, 33, 35, 45 and 46, ``loop_max_abs_err``: their errors on
 those phases' inputs, and ``partial_tile_max_abs_err`` /
 ``partial_tile_max_err``: their errors on phases 20, 32, 33 and 45's
 partial tiles, and phases 40-42's launches; the segment sum's
@@ -3085,7 +3095,7 @@ PROTOCOL_GT_SPLATS = 30_000
 PROTOCOL_3DGS = ("--white_background --eval --is_static --n_views 10 "
                  "--pts_samples hull --max_num_pts 300000 --load_time_step 0 "
                  "--composition_rank 0").split()
-# phase 16's iterations, and 20 more resumed
+# phase 16's iterations, and 10 more resumed
 PROTOCOL_FIELD_ITERS = 30
 PROTOCOL_FIELD = ("--white_background --eval --encoder_type "
                   "VarTriPlaneEncoder --lambda_norm 0.01 --n_views 10 "
@@ -3247,13 +3257,13 @@ def protocol_phases(dev, smi):
                   for k, v in at_default.items()}
     trained = {k: v.detach().cpu().clone()
                for k, v in deform.net.state_dict().items()}
-    resumed = train.main(argv + ["--iterations", str(it + 20), "--resume"])
+    resumed = train.main(argv + ["--iterations", str(it + 10), "--resume"])
     if resumed.start_iteration != it + 1:
         raise AssertionError(f"phase 16: --resume started at "
                              f"{resumed.start_iteration}, not {it + 1}")
     steps = [s for s, _ in read_metrics(out_field)[
         "train_loss_patches/total_loss"]]
-    if steps[-2:] != [it + 10, it + 20] or steps.count(it) != 1:
+    if steps[-2:] != [it, it + 10] or steps.count(it) != 1:
         raise AssertionError(f"phase 16: resumed steps {steps[-4:]}")
     t0 = time.time()
     render.main(["-s", root, "-m", out_field, "--skip_train",
@@ -3292,7 +3302,7 @@ def protocol_phases(dev, smi):
         if not torch.equal(v.cpu(), trained[k]):
             raise AssertionError(f"phase 16: deform.msgpack {k} differs")
     print(f"phase 16: SplatFields3D {it} iterations, {ms_it:.3f} ms/it; "
-          f"resumed to {it + 20}; render CLI {n_frames} test frames in "
+          f"resumed to {it + 10}; render CLI {n_frames} test frames in "
           f"{render_s:.3f} s ({render_s * 1000 / n_frames:.1f} ms/frame, "
           f"scene load, PNG writes and metrics included); results.yaml PSNR "
           f"{yaml['psnr']:.4f}, SSIM {yaml['ssim']:.4f}, evaluate PSNR "
@@ -4388,7 +4398,7 @@ def resumed_card_vs_cpu(label, argv, base, dev, iters=3):
     return float(rel.max())
 
 
-def card_vs_cpu(label, argv, out_root, dev, iters=5):
+def card_vs_cpu(label, argv, out_root, dev, iters=3):
     """``train.training`` for ``iters`` iterations of the command line
     ``argv`` on the card and on the CPU with the same seeds: the losses of
     every iteration within phase 7's 1e-5 relative -> the worst."""
@@ -5427,7 +5437,7 @@ def profile_phase(dev, smi, counted):
 # the native carver at 256^3 over phase 14's 100 masks
 NATIVE_LIBS = ("hullcarve", "jpeg", "gif")
 CARVE_RES = 256
-CARVE_NUMPY_MASKS = 10       # of them, carved by both routes and compared
+CARVE_NUMPY_MASKS = 5        # of them, carved by both routes and compared
 CARVE_TIE_BAND = 1e-3        # tests/test_native.py's band of rounding ties
 # phase 37: a COLMAP capture of JPEG frames (phase 32's size and counts)
 JPEG_QUALITY = 90
@@ -6851,6 +6861,88 @@ def plane_phases(dev, smi):
     return entry, launches
 
 
+LONGRUN_ITERS = 6         # phase 46's run, cut from 30,000: two legs of 3
+LONGRUN_FLAGS = ["--eval_every", "3", "--save_every", "3",
+                 "--densify_from_iter", "2", "--densification_interval", "3"]
+LONGRUN_EVAL_FRAMES = 2 + 5   # evaluate(): the test views and 5 train views
+
+
+def longrun_phase(dev, smi):
+    """Phase 46: ``scripts/longrun_torch.py`` at full width in two legs.
+    Returns ({kernel name: {phase: launches}}, {phase: check_loop_blends'
+    errors})."""
+    import importlib.util
+    import shutil
+    import time
+
+    import torch
+
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+
+    t_phase = time.time()
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "longrun_torch", os.path.join(here, "scripts", "longrun_torch.py"))
+    longrun = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(longrun)
+    base = os.path.join(here, "build", "longrun")
+    shutil.rmtree(base, ignore_errors=True)
+    run = os.path.join(base, "run")
+    argv = ["--iters", str(LONGRUN_ITERS), "--scene_dir",
+            os.path.join(base, "scene"), "--run_dir", run] + LONGRUN_FLAGS
+    half = LONGRUN_ITERS // 2
+    launches = {"blend_fwd": {}, "blend_bwd": {}}
+    loop_errs, legs = {}, []
+    for leg, extra in ((1, ["--leg_until", str(half)]), (2, ["--resume"])):
+        phase = f"46 leg {leg}"
+        torch.cuda.synchronize()
+        blend_fwd.launches = blend_bwd.launches = 0
+        with LoopBlends() as cap:
+            out = longrun.main(argv + extra)
+        torch.cuda.synchronize()
+        got = (blend_fwd.launches, blend_bwd.launches)
+        launches["blend_fwd"][phase], launches["blend_bwd"][phase] = got
+        if got != (half + LONGRUN_EVAL_FRAMES, half):
+            raise AssertionError(f"phase {phase}: blend launches {got}")
+        legs.append(out["legs"][-1])
+        loop_errs[phase] = check_loop_blends(f"phase {phase}", cap)
+        del cap
+    first, second = legs
+    with open(os.path.join(run, "train_state", f"iteration_{half}",
+                           "meta.json")) as f:
+        saved = json.load(f)
+    joins = {
+        "resumed at": (second["from"], half + 1),
+        "view order": (second["view_rng_start"], first["view_rng_end"]),
+        "view order saved": (longrun.digest(saved["view_rng"]),
+                             first["view_rng_end"]),
+        "dup_factor": (second["dup_factor_start"], first["dup_factor_end"]),
+        "dup_factor saved": (saved["dup_factor"], first["dup_factor_end"]),
+        "densify passes": ((first["densify_passes"],
+                            second["densify_passes"]), (1, 1)),
+        "evaluations": ([t["iter"] for t in out["trajectory"]],
+                        [half, LONGRUN_ITERS])}
+    for what, (a, b) in joins.items():
+        if a != b:
+            raise AssertionError(f"phase 46: the legs do not join: {what} "
+                                 f"{a} against {b}")
+    if not (out["done"] and math.isfinite(out["final_psnr_db"])
+            and out["final_points"] > 0 and out["dup_factor"] >= 64):
+        raise AssertionError(f"phase 46: {json.dumps(out)[:2000]}")
+    psnr = {t["iter"]: t["psnr_db"] for t in out["trajectory"]}
+    print(f"phase 46: scripts/longrun_torch.py at "
+          f"{out['protocol']['resolution']}, {out['protocol']['init_pts']} "
+          f"hull points, dup_factor {first['dup_factor_start']} -> "
+          f"{out['dup_factor']}, {LONGRUN_ITERS} iterations in two legs "
+          f"({first['ms_per_it']:.3f} and {second['ms_per_it']:.3f} ms/it, "
+          f"steps {first['step_ms']:.3f} and {second['step_ms']:.3f} ms); "
+          f"resumed at {second['from']} with the saved view order and "
+          f"dup_factor; test PSNR {psnr}; {out['final_points']} splats, "
+          f"capacity {out['capacity']}; blend launches {launches}; "
+          f"{time.time() - t_phase:.1f} s; {smi}")
+    return launches, loop_errs
+
+
 class F32Mains:
     """Every call of ``train.main``, ``render.main`` and
     ``extract_geo.main`` while entered starts with TF32 turned on and must
@@ -7090,6 +7182,9 @@ def main() -> int:
     # --- 43-44. the off-by-default field options ------------------------------
     plane_entry, plane_launches = plane_phases(dev, smi)
     took("43-44")
+    # --- 46. the long run in legs -------------------------------------------
+    longrun_launches, longrun_errs = longrun_phase(dev, smi)
+    took("46")
     f32_mains.__exit__(None, None, None)
     print(f"TF32 off after each of {f32_mains.calls} CLI mains (each "
           "started with TF32 on)")
@@ -7102,6 +7197,7 @@ def main() -> int:
         loop_launches[k].update(bf16_launches[k])
         loop_launches[k].update(mesh_launches[k])
         loop_launches[k].update(plane_launches[k])
+        loop_launches[k].update(longrun_launches[k])
     segsum_entry["zoo_launches"] = tail_launches["segsum"]
     segsum_entry["zoo_max_abs_err"] = max(zoo_segsum_errs)
     segsum_entry["bf16_table_launches"] = bf16_launches["segsum"]
@@ -7114,6 +7210,7 @@ def main() -> int:
     loop_errs.update(option_errs)
     loop_errs.update(dataset_errs)
     loop_errs.update(tail_errs)
+    loop_errs.update(longrun_errs)
     partial_errs.update(dataset_partial)
     partial_errs.update(tail_partial)
     for entry in fused_entries:

@@ -2,7 +2,8 @@
 the PNG signature goes to ``data/png.py``, ``FF D8 FF`` to the JPEG
 decoder (``data/jpeg.py``); anything else raises NotImplementedError
 naming the file, whatever its extension. ``read`` and ``read_color``
-give what cv2's ``imread`` and PIL's ``convert`` see, ``read_pil`` what
+give what cv2's ``imread`` and PIL's ``convert`` see, ``read_rgba`` what
+PIL's ``convert("RGBA")`` gives, ``read_pil`` what
 ``np.array(PIL.Image.open(path))`` holds."""
 from __future__ import annotations
 
@@ -48,3 +49,15 @@ def read_color(path: str) -> np.ndarray:
     if img.shape[-1] <= 2:
         return np.repeat(img[..., :1], 3, -1)
     return img[..., :3]
+
+
+def read_rgba(path: str) -> np.ndarray:
+    """uint8 RGBA [H, W, 4] as ``PIL.Image.open(path).convert("RGBA")``
+    gives it: a PNG by ``png.decode_rgba`` (16-bit gray clipped at 255,
+    other 16-bit samples to their high byte), a JPEG with alpha 255. Its
+    first three channels are ``convert("RGB")``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == png.SIGNATURE:
+        return png.decode_rgba(data)
+    return png.to_rgba(decode(data, path))

@@ -163,7 +163,11 @@ def decode(data: bytes) -> np.ndarray:
     2 (gray+alpha), 3 (RGB) or 4 (RGBA); gray under 8 bits scaled to
     0-255; a palette image comes back as RGB, or RGBA when it has a
     ``tRNS`` chunk; gray or RGB with ``tRNS`` gains an alpha channel."""
-    raw = Raw(data)
+    return _expand(Raw(data))
+
+
+def _expand(raw: Raw) -> np.ndarray:
+    """``decode``'s expansion of a parsed file."""
     img, ctype, trns = raw.samples, raw.ctype, raw.trns
     if ctype == 3:
         idx = img[..., 0]
@@ -205,6 +209,24 @@ def decode_pil(data: bytes, palette: bool = False) -> np.ndarray:
         if raw.ctype == 4:   # PIL opens 16-bit gray+alpha as RGBA
             img = img[..., [0, 0, 0, 1]]
     return img
+
+
+def decode_rgba(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 RGBA [H, W, 4] as PIL's ``convert("RGBA")`` gives
+    it: below 16 bits ``decode``'s expansion (``tRNS`` as alpha), but for
+    2- and 4-bit gray PIL holds the unscaled key against the scaled
+    samples; at 16 bits ``tRNS`` ignored, gray clipped at 255 and every
+    other sample (gray+alpha, RGB, RGBA) to its high byte."""
+    raw = Raw(data)
+    if raw.depth != 16:
+        img = _expand(raw)
+        if raw.ctype == 0 and raw.depth in (2, 4) and raw.trns is not None:
+            key = struct.unpack(">H", raw.trns[:2])[0]
+            img[..., 1] = np.where(img[..., 0] == key, 0, 255)
+        return to_rgba(img)
+    img = raw.samples
+    img = np.minimum(img, 255) if raw.ctype == 0 else img >> 8
+    return to_rgba(img.astype(np.uint8))
 
 
 def to_rgba(img: np.ndarray) -> np.ndarray:

@@ -11,7 +11,7 @@
 - ``read_cameras_from_transforms`` / ``read_nerf_synthetic``, the D-NeRF
   convention ("Blender").
 
-Images are read by the port's own PNG decoder (``data/png.py``) and the
+Images are read by the port's own PNG decoder (``data/images.read_rgba``) and the
 views picked by its own k-means (``kmeans``), where the JAX package uses
 PIL and ``sklearn.cluster.KMeans``.
 """
@@ -25,7 +25,7 @@ from pathlib import Path
 
 import numpy as np
 
-from splatfields_torch.data import images, png
+from splatfields_torch.data import images
 from splatfields_torch.data.ply import fetch_pointcloud, store_pointcloud
 from splatfields_torch.data.point_init import (
     mask_filter_points,
@@ -131,7 +131,7 @@ def nerfpp_norm_from_infos(cam_infos) -> dict:
 
 
 def _read_rgba(image_path: str) -> np.ndarray:
-    return png.to_rgba(images.read(image_path)).astype(np.float32) / 255.0
+    return images.read_rgba(image_path).astype(np.float32) / 255.0
 
 
 def _composite(im: np.ndarray, white_background: bool):

@@ -28,7 +28,7 @@ import uuid
 
 import numpy as np
 
-from splatfields_torch.data import colmap_io, images, png
+from splatfields_torch.data import colmap_io, images
 from splatfields_torch.data.ply import fetch_pointcloud, store_pointcloud
 from splatfields_torch.data.readers.blender import nerfpp_norm_from_infos
 from splatfields_torch.data.types import BasicPointCloud, CameraInfo, SceneInfo
@@ -40,12 +40,9 @@ PIXELNERF_EXCLUDE_IDX = [3, 4, 5, 6, 7, 16, 17, 18, 19, 20, 21, 36, 37, 38, 39]
 
 def read_image_rgba(path: str) -> np.ndarray:
     """uint8 RGBA [H, W, 4] of a PNG or JPEG, as PIL's ``convert("RGBA")``
-    gives it (16-bit samples to their high byte, alpha 255 without one);
-    any other format raises."""
-    img = images.read(path)
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    return png.to_rgba(img)
+    gives it (``images.read_rgba``; its RGB is ``convert("RGB")``); any
+    other format raises."""
+    return images.read_rgba(path)
 
 
 def read_colmap_cameras(cam_extrinsics, cam_intrinsics, images_folder,

@@ -117,6 +117,7 @@ class TrainResult:
     # (iteration, valid splats before, after, splats dropped for capacity)
     densified: list = dataclasses.field(default_factory=list)
     step_ms: float = 0.0    # mean wall time of a step, its sync included
+    dup_factor: int = 0     # the instance budget the loop ended with
 
 
 def build_view_batch(cams, num_views, bg, with_mask, with_depth):
@@ -166,7 +167,7 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
              progress_callback=None, resume=False,
              rng: random.Random | None = None, device=None,
              watchdog_min: float = 0.0, mesh=None,
-             ring: bool = False) -> TrainResult:
+             ring: bool = False, until: int | None = None) -> TrainResult:
     """Train one scene.
 
     ``rng`` orders the views and shuffles the cameras (a fresh
@@ -174,9 +175,12 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
     noise (a ``torch.Generator`` on the device) come from seed 0, as the
     JAX loop's from its fixed key; ``device=None`` means the GPU.
     ``progress_callback(iteration, loss, params, stats)`` runs after
-    every iteration. With ``watchdog_min`` > 0 a ``StallWatchdog`` exits
-    the process (code 114) when no iteration ends for that many minutes;
-    it stops with the loop, also when the loop raises.
+    every iteration. ``until``: stop after that iteration, a leg of the
+    run that ``--resume`` continues; every schedule and event stays that
+    of the whole ``opt_cfg.iterations``. With ``watchdog_min`` > 0 a
+    ``StallWatchdog`` exits the process (code 114) when no iteration ends
+    for that many minutes; it stops with the loop, also when the loop
+    raises.
 
     ``mesh`` (``parallel.mesh.make_mesh``; every rank of its process group
     calls ``training``): the sharded step on this rank's chunk of the
@@ -348,7 +352,9 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
     watchdog = (StallWatchdog(watchdog_min).start()
                 if watchdog_min and watchdog_min > 0 else None)
     try:
-        for iteration in range(start_iteration, opt_cfg.iterations + 1):
+        last = opt_cfg.iterations if until is None else min(
+            until, opt_cfg.iterations)
+        for iteration in range(start_iteration, last + 1):
             if watchdog is not None:
                 watchdog.beat()
             ev = iteration_events(iteration, is_static, opt_cfg, test_set,
@@ -483,7 +489,8 @@ def training(model_cfg, hidden_cfg, opt_cfg, pipe_cfg, test_iterations,
               f"{np.median(times) * 1000:.3f} ms median")
     return TrainResult(params, stats, deform, best_psnr, start_iteration,
                        ms_per_it, dup_growth, densified,
-                       float(np.mean(times)) * 1000 if times else 0.0)
+                       float(np.mean(times)) * 1000 if times else 0.0,
+                       pipe_cfg.dup_factor)
 
 
 @torch.no_grad()

@@ -90,6 +90,7 @@ def _yaml_allowed(tree):
 def test_sources_import_no_host_libraries():
     files = sorted((ROOT / "splatfields_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "scripts").glob("*_torch.py"))
     bad = []
     for f in files:
         tree = ast.parse(f.read_text(), filename=str(f))
@@ -119,6 +120,7 @@ def _imports(path):
 def test_sources_import_no_jax():
     files = sorted((ROOT / "splatfields_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "scripts").glob("*_torch.py"))
     assert len(files) > 20
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
