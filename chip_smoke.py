@@ -306,6 +306,13 @@ Phases, each raising on failure:
     leg saved them), blend launches equal to each leg's steps and
     evaluation frames, and the kernels on each leg's last step and
     evaluation frame against their plain versions as in phase 15.
+47. One step of the 4-D quality gate's regime, card against CPU from the
+    same state (``gate_step_phase``): ``scripts/quality_gate_torch.py``'s
+    owlii4d scene and trainee at 400x400 with 20,000 splats at the default
+    ``dup_factor`` 5, whose 100,000-row budget the untrained field
+    overflows, at frame 3; the same dropped count above 0 on both, the
+    step held as phase 7's, both blend kernels against their plain
+    versions on the card step's inputs.
 
 Phases 43-44 set each option themselves and refuse to run with one set
 in the environment. Every phase before 40 runs with both bf16 options
@@ -3509,8 +3516,8 @@ def phase19_failures(field_gap, report, cpu_on_card, flips):
     return out
 
 
-def moran_equal_inputs(ply, model, it, hidden, report, cpu_deform, cpu_attrs,
-                       cpu_pts, cpu_nn, dev, smi):
+def moran_equal_inputs(ply, model, it, hidden, report, cpu_attrs, cpu_pts,
+                       cpu_nn, dev, smi):
     """Phase 19's SplatFields3D check of the card's ``extract_geo`` report
     (``phase19_failures``): the card's field outputs of the saved state
     against the CPU's (``cpu_attrs``, ``cpu_pts``), Moran's I on the CPU
@@ -3522,8 +3529,7 @@ def moran_equal_inputs(ply, model, it, hidden, report, cpu_deform, cpu_attrs,
     for a static field) against the CPU's f32 ones, and a neighbour
     swapped for a far point. Also prints the field gap card against CPU
     with cuDNN's TF32 (torch's default: what a run without ``main``'s
-    settings sees) and with the bf16 MLP on both sides, and the rows where
-    the CPU's KNN on the card's outputs differs from the card's."""
+    settings sees)."""
     import torch
 
     from splatfields_torch import extract_geo
@@ -3533,7 +3539,6 @@ def moran_equal_inputs(ply, model, it, hidden, report, cpu_deform, cpu_attrs,
     params, stats, _ = splats.load_ply(ply, device=dev)
     deform = DeformModel(hidden, radius=1.0, device=dev)
     deform.load_weights(model, it)
-    cpu_params, cpu_stats, _ = splats.load_ply(ply, device="cpu")
 
     def field_gap(attrs, pts, ref_attrs, ref_pts):
         """Largest |card - CPU| over the CPU's largest |value|, per output."""
@@ -3552,28 +3557,23 @@ def moran_equal_inputs(ply, model, it, hidden, report, cpu_deform, cpu_attrs,
     w_gap = float((w.cpu() - cpu_w).abs().max() / cpu_w.abs().max())
     cpu_on_card = extract_geo.morans_of({k: v.cpu() for k, v in attrs.items()},
                                         cpu_w, card_nn.cpu())
-    _, nn = knn_ops.query_nn(pts.cpu(), n_neighbors=5)
     f32_gap = field_gap(attrs, pts, cpu_attrs, cpu_pts)
     flips = neighbour_flips(pts, card_nn, cpu_pts, cpu_nn)
     other = {}
     tf32 = torch.backends.cudnn.allow_tf32
     with Env({"SPLATFIELDS_MLP_BF16": "on"}):
-        bf16_attrs, bf16_pts = extract_geo.moran_inputs(
-            cpu_params, cpu_stats, cpu_deform, 0)
         for label, mlp, conv_tf32 in (("TF32 convs", "off", True),
-                                      ("bf16 MLP", "on", False),
-                                      ("bf16 MLP and TF32 convs", "on", True)):
+                                      ("bf16 MLP", "on", False)):
             os.environ["SPLATFIELDS_MLP_BF16"] = mlp
             torch.backends.cudnn.allow_tf32 = conv_tf32
             try:
                 got = extract_geo.moran_inputs(params, stats, deform, 0)
             finally:
                 torch.backends.cudnn.allow_tf32 = tf32
-            other[label] = field_gap(*got, *((bf16_attrs, bf16_pts)
-                                           if mlp == "on"
-                                           else (cpu_attrs, cpu_pts)))
             if label == "bf16 MLP":   # the witness: bf16 on the card alone
                 bf16_gap = field_gap(*got, cpu_attrs, cpu_pts)
+            else:
+                other[label] = field_gap(*got, cpu_attrs, cpu_pts)
     failures = phase19_failures(f32_gap, report, cpu_on_card, flips)
     # the witnesses: a known fault in the field, a neighbour that is no tie
     bf16_fails = phase19_failures(bf16_gap, report, cpu_on_card, flips)
@@ -3593,12 +3593,10 @@ def moran_equal_inputs(ply, model, it, hidden, report, cpu_deform, cpu_attrs,
           f"{moran_gaps(report, cpu_on_card)} (TOL_MORAN {TOL_MORAN}); the "
           f"card's own recomputation {card}; the weights card against "
           f"CPU {w_gap:.4g} of the largest; neighbourhoods card against "
-          f"CPU: {flips['rows']} of {nn.shape[0]} rows differ, "
+          f"CPU: {flips['rows']} of {card_nn.shape[0]} rows differ, "
           f"{len(flips['non_ties'])} not near ties, worst "
           f"{flips['worst']:.4g} of the slack, position gap "
-          f"{flips['position_gap']:.4g}; the CPU's KNN on the card's "
-          f"outputs against the card's "
-          f"{int((card_nn.cpu() != nn).any(1).sum())} rows; witnesses: the "
+          f"{flips['position_gap']:.4g}; witnesses: the "
           f"card's field with the bf16 MLP against "
           f"the CPU's f32 {bf16_gap}: {bf16_fails}, row {row}'s last "
           f"neighbour swapped for point {far} {swap_fails}; field outputs "
@@ -3744,7 +3742,7 @@ def static_phases(dev, smi):
                     and max(gap.values()) <= TOL_MORAN):
                 raise AssertionError(f"phase 19 {name}: card and CPU differ")
         else:
-            moran_equal_inputs(ply, model, it, hidden, report, deform, attrs,
+            moran_equal_inputs(ply, model, it, hidden, report, attrs,
                                pts, nn_ix, dev, smi)
         del params, stats, deform, attrs, pts, w, nn_ix
 
@@ -6871,7 +6869,6 @@ def longrun_phase(dev, smi):
     """Phase 46: ``scripts/longrun_torch.py`` at full width in two legs.
     Returns ({kernel name: {phase: launches}}, {phase: check_loop_blends'
     errors})."""
-    import importlib.util
     import shutil
     import time
 
@@ -6880,12 +6877,9 @@ def longrun_phase(dev, smi):
     from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
 
     t_phase = time.time()
-    here = os.path.dirname(os.path.abspath(__file__))
-    spec = importlib.util.spec_from_file_location(
-        "longrun_torch", os.path.join(here, "scripts", "longrun_torch.py"))
-    longrun = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(longrun)
-    base = os.path.join(here, "build", "longrun")
+    longrun = _script("longrun_torch")
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "longrun")
     shutil.rmtree(base, ignore_errors=True)
     run = os.path.join(base, "run")
     argv = ["--iters", str(LONGRUN_ITERS), "--scene_dir",
@@ -6941,6 +6935,101 @@ def longrun_phase(dev, smi):
           f"capacity {out['capacity']}; blend launches {launches}; "
           f"{time.time() - t_phase:.1f} s; {smi}")
     return launches, loop_errs
+
+
+GATE_STEP_VIEW = 3        # phase 47's view: frame 3 of the gate's 6 (fid 0.6)
+GATE_STEP_SEED = 42       # the JAX gate's default scene seed
+
+
+def _script(name):
+    """``scripts/<name>.py`` as a module."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(here, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gate_step_phase(dev, smi):
+    """Phase 47: one step of the 4-D quality gate's regime on the card
+    against the CPU from the same state: the ``owlii4d`` scene and trainee
+    of ``scripts/quality_gate_torch.py``'s ``Gate``, which the gate and
+    ``scripts/gate_parity_cpu.py`` build from too, at full size (400x400,
+    3,000 true Gaussians, 20,000 splats, VarTriPlane at its default 20x20
+    noise, 6 frames, ResField rank 40, offset flow; ``tile_cap`` 1024 and the
+    default ``dup_factor`` 5, a 100,000-row budget the untrained field
+    overflows), one view at frame 3. The splats, the net and Adam states
+    with non-zero moments (``nonzero_adam``) are made on the CPU and copied
+    to the card, so both devices start bit for bit alike. Both steps must
+    drop the same instance count, above 0; the step is held as phase 7's
+    (``check_small_step``), and both blend kernels against their plain
+    versions on the card step's own inputs (``check_loop_blends``).
+    Returns ({kernel name: {phase: launches}}, {phase: errors})."""
+    import copy
+    import time
+
+    import torch
+
+    from splatfields_torch.models import splats
+    from splatfields_torch.ops.raster.blend_cuda import blend_bwd, blend_fwd
+
+    t_phase = time.time()
+    qg = _script("quality_gate_torch")
+    cpu = torch.device("cpu")
+    gate = qg.Gate("owlii4d", GATE_STEP_SEED, dev)
+    fid = gate.cams[GATE_STEP_VIEW].fid
+    params, stats, _, deform = gate.trainee(cpu)
+    fparams = {k: v.detach() for k, v in deform.params.items()}
+    start = (params, stats, nonzero_adam(params, 1), fparams,
+             nonzero_adam(fparams, 2))
+
+    def on(device, tree):
+        if isinstance(tree, dict):
+            return {k: v.to(device) for k, v in tree.items()}
+        if isinstance(tree, splats.AdamState):
+            return splats.AdamState(count=tree.count, mu=on(device, tree.mu),
+                                    nu=on(device, tree.nu))
+        if isinstance(tree, splats.SplatStats):
+            return splats.SplatStats(**{
+                f.name: getattr(tree, f.name).to(device)
+                for f in dataclasses.fields(tree)})
+        return splats.tree_like(tree, on(device, splats.tree_items(tree)))
+
+    res, launches = {}, {"blend_fwd": {}, "blend_bwd": {}}
+    for name, device, net in (("cuda", dev, copy.deepcopy(deform.net).to(
+            dev)), ("cpu", cpu, deform.net)):
+        args = (*[on(device, t) for t in start],
+                gate.batch([GATE_STEP_VIEW], device),
+                splats.splat_lr_tree(*qg.SPLAT_LRS), qg.FIELD_LR)
+        step = gate.train_step(net)
+        if name == "cuda":
+            torch.cuda.synchronize()
+            blend_fwd.launches = blend_bwd.launches = 0
+            with LoopBlends() as cap:
+                res[name] = step(*args)
+            torch.cuda.synchronize()
+            got = (blend_fwd.launches, blend_bwd.launches)
+            launches["blend_fwd"]["47"], launches["blend_bwd"]["47"] = got
+            if got != (1, 1):
+                raise AssertionError(f"phase 47: blend launches {got}")
+        else:
+            res[name] = step(*args)
+    dropped = {k: int(v[5].loss_dict["bin_dropped"]) for k, v in res.items()}
+    print(f"phase 47: the 4-D gate's step (owlii4d, {gate.res}x{gate.res}, "
+          f"{gate.n_splats} splats, dup_factor {gate.pipe.dup_factor}, frame "
+          f"{round(fid * (gate.n_frames - 1))}), card against CPU: dropped "
+          f"{dropped}")
+    if not (dropped["cuda"] == dropped["cpu"] > 0):
+        raise AssertionError(f"phase 47: dropped instances {dropped}")
+    check_small_step(res["cuda"], res["cpu"])
+    errs = {"47": check_loop_blends("phase 47", cap)}
+    del res, cap
+    torch.cuda.empty_cache()
+    print(f"phase 47: blend launches {launches}, {time.time() - t_phase:.1f}"
+          f" s; {smi}")
+    return launches, errs
 
 
 class F32Mains:
@@ -7185,6 +7274,9 @@ def main() -> int:
     # --- 46. the long run in legs -------------------------------------------
     longrun_launches, longrun_errs = longrun_phase(dev, smi)
     took("46")
+    # --- 47. the 4-D quality gate's step, card against CPU ---------------
+    gate_launches, gate_errs = gate_step_phase(dev, smi)
+    took("47")
     f32_mains.__exit__(None, None, None)
     print(f"TF32 off after each of {f32_mains.calls} CLI mains (each "
           "started with TF32 on)")
@@ -7198,6 +7290,7 @@ def main() -> int:
         loop_launches[k].update(mesh_launches[k])
         loop_launches[k].update(plane_launches[k])
         loop_launches[k].update(longrun_launches[k])
+        loop_launches[k].update(gate_launches[k])
     segsum_entry["zoo_launches"] = tail_launches["segsum"]
     segsum_entry["zoo_max_abs_err"] = max(zoo_segsum_errs)
     segsum_entry["bf16_table_launches"] = bf16_launches["segsum"]
@@ -7211,6 +7304,7 @@ def main() -> int:
     loop_errs.update(dataset_errs)
     loop_errs.update(tail_errs)
     loop_errs.update(longrun_errs)
+    loop_errs.update(gate_errs)
     partial_errs.update(dataset_partial)
     partial_errs.update(tail_partial)
     for entry in fused_entries:

@@ -19,8 +19,13 @@ groups of N consecutive train views in turn, or, with ``owlii4d``, 6 x N
 views in same-time groups (N a frame) and two held-out views at the
 first and last frame (JAX ``quality_gate.py:129-160``).
 
-``--ab`` trains, at each seed of ``--seeds`` (the scene, the initial
-cloud and the net's weights), once with every bf16 option off and once
+``--seeds`` varies the scene and the initial cloud. The net is drawn at
+seed 0 for every scene seed (``NET_SEED``), as the JAX gate builds its net
+at seed 0 whatever its ``--seed`` (``scripts/quality_gate.py``), so the
+two gates' spreads come from the same source.
+
+``--ab`` trains, at each seed of ``--seeds``, once with every bf16 option
+off and once
 with each of the variant's bf16 options on alone (the field:
 ``SPLATFIELDS_MLP_BF16``, ``SPLATFIELDS_CNN_BF16``,
 ``SPLATFIELDS_PLANE_BF16``; NGP: ``SPLATFIELDS_NGP_BF16_TABLE``;
@@ -73,18 +78,25 @@ HEADS = ("mlp_deform", "mlp_rgb", "mlp_scale", "mlp_opacity", "mlp_rotation")
 HEADS_4D = HEADS + ("mlp_flow",)
 OWLII_FRAMES = 6
 N_TRUE, N_SPLATS, RES, FOV = 3000, 20_000, 400, 0.8
+NET_SEED = 0   # the JAX gate's DeformModel seed, for every scene seed
+SPLAT_LRS = (1.6e-4, 2.5e-3, 0.05, 1e-3, 1e-3)   # the gate's splat lrs
+FIELD_LR = 1e-3
 
 
-def hidden_config(variant):
-    """The trainee's ``HiddenConfig`` (JAX ``quality_gate.py:185-197``)."""
-    from splatfields_torch import config
+def hidden_kwargs(variant, noise_res=None):
+    """The trainee's ``HiddenConfig`` fields (JAX
+    ``quality_gate.py:185-197``), the same in both packages; ``noise_res``
+    sets VarTriPlane's noise size (default: the encoder's own, the JAX
+    gate's TPU size)."""
     if variant == "owlii4d":
-        return config.HiddenConfig(
-            encoder_type="VarTriPlaneEncoder", composition_rank=40,
-            n_frames=OWLII_FRAMES, flow_model="offset")
-    return config.HiddenConfig(
-        encoder_type="NGPMLP" if variant == "ngp" else "VarTriPlaneEncoder",
-        composition_rank=0, n_frames=0)
+        kw = dict(encoder_type="VarTriPlaneEncoder", composition_rank=40,
+                  n_frames=OWLII_FRAMES, flow_model="offset")
+    else:
+        kw = dict(encoder_type="NGPMLP" if variant == "ngp"
+                  else "VarTriPlaneEncoder", composition_rank=0, n_frames=0)
+    if noise_res is not None and variant != "ngp":
+        kw["encoder_args"] = {"noise_res": noise_res}
+    return kw
 
 
 def scene_spec(variant, num_views):
@@ -228,86 +240,126 @@ def launch_counts():
             "segsum": segsum.sorted_segment_sum.launches}
 
 
-def train_and_eval(variant, seed, iters, dev, bf16_heads=(), num_views=1):
-    """One gate run -> (held-out PSNR per view, final loss, train s, the
-    kernels' launches over the training loop); ``bf16_heads``: heads run
-    with the bf16 MLP alone."""
-    import torch
+class Gate:
+    """The gate's scene and trainee at one size (JAX
+    ``quality_gate.py:101-210``): the true cloud, the cameras, the ground
+    truth rendered on ``dev``, the train groups and held-out views, the
+    initial cloud, and the trainee's configs. The card's gate, phase 47 of
+    ``chip_smoke.py`` and ``scripts/gate_parity_cpu.py`` build from it.
+    The defaults are the card's size; the JAX gate's CPU size is ``res``
+    64, ``n_true`` 256, ``n_splats`` 512, ``noise_res`` 4, ``tile_cap``
+    256."""
 
-    from splatfields_torch import config, train_lib
-    from splatfields_torch.models import splats
-    from splatfields_torch.models.deform_model import DeformModel
-    from splatfields_torch.ops.ssim import psnr as psnr_fn
-    from splatfields_torch.render_lib import render_camera
-    rng = np.random.RandomState(seed)
-    pts = rng.uniform(-0.7, 0.7, (N_TRUE, 3)).astype(np.float32)
-    cols = (0.5 + 0.5 * np.sin(3.0 * pts + np.array(
-        [0.0, 2.1, 4.2], np.float32))).astype(np.float32)
-    scales = np.full((N_TRUE, 3), 0.035, np.float32)
-    rots = np.tile(np.array([1, 0, 0, 0], np.float32), (N_TRUE, 1))
-    opac = np.full((N_TRUE,), 0.8, np.float32)
-    specs, n_frames = scene_spec(variant, num_views)
-    cams = []
-    for az, el, fid, _ in specs:
-        cams.append(OrbitCam(az, el, 4.0, FOV, RES, RES))
-        cams[-1].fid = fid
-    with torch.no_grad():
-        gts = [render_plain(cloud_at(pts, c.fid, n_frames), scales, rots,
-                            opac, cols, c, dev)[0] for c in cams]
+    def __init__(self, variant, seed, dev, res=RES, n_true=N_TRUE,
+                 n_splats=N_SPLATS, noise_res=None, tile_cap=1024,
+                 num_views=1):
+        import torch
 
-    pts0 = rng.uniform(-0.8, 0.8, (N_SPLATS, 3)).astype(np.float32)
-    params, stats = splats.create_from_pcd(pts0, np.abs(pts0), 0,
-                                           capacity=N_SPLATS, device=dev)
-    sopt = splats.adam_init(params)
-    deform = DeformModel(hidden_config(variant), radius=1.0, seed=seed,
-                         device=dev)
-    for name in bf16_heads:
-        bf16_head(deform.net, name)
-    fp, fopt = deform.params, deform.opt_state
-    pipe = config.PipelineConfig(tile_size=16, tile_cap=1024, k_chunk=128)
-    groups = view_groups(specs, n_frames, num_views)
-    step = train_lib.make_train_step(
-        deform.net, config.OptimizationConfig(lambda_mask=0.0,
-                                              lambda_norm=0.01),
-        pipe, RES, RES, len(groups[0]), True, n_frames, 0)
-    lrs = splats.splat_lr_tree(1.6e-4, 2.5e-3, 0.05, 1e-3, 1e-3)
-    bg = torch.zeros(3, device=dev)
+        from splatfields_torch import config
+        self.variant, self.seed, self.res = variant, seed, res
+        self.n_splats, self.noise_res = n_splats, noise_res
+        rng = np.random.RandomState(seed)
+        pts = rng.uniform(-0.7, 0.7, (n_true, 3)).astype(np.float32)
+        cols = (0.5 + 0.5 * np.sin(3.0 * pts + np.array(
+            [0.0, 2.1, 4.2], np.float32))).astype(np.float32)
+        scales = np.full((n_true, 3), 0.035, np.float32)
+        rots = np.tile(np.array([1, 0, 0, 0], np.float32), (n_true, 1))
+        opac = np.full((n_true,), 0.8, np.float32)
+        self.specs, self.n_frames = scene_spec(variant, num_views)
+        self.cams = []
+        for az, el, fid, _ in self.specs:
+            self.cams.append(OrbitCam(az, el, 4.0, FOV, res, res))
+            self.cams[-1].fid = fid
+        with torch.no_grad():
+            self.gts = [render_plain(cloud_at(pts, c.fid, self.n_frames),
+                                     scales, rots, opac, cols, c, dev)[0]
+                        for c in self.cams]
+        self.pts0 = rng.uniform(-0.8, 0.8, (n_splats, 3)).astype(np.float32)
+        self.groups = view_groups(self.specs, self.n_frames, num_views)
+        self.test_v = [v for v, s in enumerate(self.specs) if s[3] == "test"]
+        self.pipe = config.PipelineConfig(   # dup_factor: the default 5
+            tile_size=16, tile_cap=tile_cap, k_chunk=128)
+        self.opt = config.OptimizationConfig(lambda_mask=0.0,
+                                             lambda_norm=0.01)
 
-    def batch(views):
-        """Same-fid views in one step (reference train.py:157-163)."""
+    def hidden(self):
+        """The trainee's ``HiddenConfig`` fields."""
+        return hidden_kwargs(self.variant, self.noise_res)
+
+    def trainee(self, dev):
+        """The initial state on ``dev``: (splats, statistics, their Adam
+        state, the ``DeformModel``, drawn at ``NET_SEED``)."""
+        from splatfields_torch import config
+        from splatfields_torch.models import splats
+        from splatfields_torch.models.deform_model import DeformModel
+        params, stats = splats.create_from_pcd(
+            self.pts0, np.abs(self.pts0), 0, capacity=self.n_splats,
+            device=dev)
+        deform = DeformModel(config.HiddenConfig(**self.hidden()),
+                             radius=1.0, seed=NET_SEED, device=dev)
+        return params, stats, splats.adam_init(params), deform
+
+    def train_step(self, net):
+        """``train_lib.make_train_step`` for ``net`` at the gate's views."""
+        from splatfields_torch import train_lib
+        return train_lib.make_train_step(
+            net, self.opt, self.pipe, self.res, self.res,
+            len(self.groups[0]), True, self.n_frames, 0)
+
+    def batch(self, views, dev):
+        """The step's batch of ``views``, same-fid views in one step
+        (reference train.py:157-163)."""
+        import torch
+
         def f32(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
-        sel = [cams[v] for v in views]
+        sel = [self.cams[v] for v in views]
         return {"viewmatrix": f32([c.world_view_transform for c in sel]),
                 "projmatrix": f32([c.full_proj_transform for c in sel]),
                 "campos": f32([c.camera_center for c in sel]),
                 "tanfovx": [c.tanfovx for c in sel],
                 "tanfovy": [c.tanfovy for c in sel],
                 "fid": float(np.float32(sel[0].fid)),
-                "image": torch.stack([gts[v] for v in views]), "bg": bg}
+                "image": torch.stack([self.gts[v] for v in views]).to(dev),
+                "bg": torch.zeros(3, device=dev)}
 
-    batches = [batch(views) for views in groups]
+
+def train_and_eval(variant, seed, iters, dev, bf16_heads=(), num_views=1):
+    """One gate run -> (held-out PSNR per view, final loss, train s, the
+    kernels' launches over the training loop); ``bf16_heads``: heads run
+    with the bf16 MLP alone."""
+    import torch
+
+    from splatfields_torch.models import splats
+    from splatfields_torch.ops.ssim import psnr as psnr_fn
+    from splatfields_torch.render_lib import render_camera
+    gate = Gate(variant, seed, dev, num_views=num_views)
+    params, stats, sopt, deform = gate.trainee(dev)
+    for name in bf16_heads:
+        bf16_head(deform.net, name)
+    fp, fopt = deform.params, deform.opt_state
+    step = gate.train_step(deform.net)
+    lrs = splats.splat_lr_tree(*SPLAT_LRS)
+    batches = [gate.batch(views, dev) for views in gate.groups]
     torch.cuda.synchronize()
     before = launch_counts()
     t0 = time.time()
     for it in range(iters):
         params, stats, sopt, fp, fopt, out = step(
             params, stats, sopt, fp, fopt, batches[it % len(batches)], lrs,
-            1e-3)
+            FIELD_LR)
     final_loss = float(out.loss)
     train_s = time.time() - t0
     launches = {k: v - before[k] for k, v in launch_counts().items()}
     deform.params = fp
     psnrs = []
-    for v, spec in enumerate(specs):
-        if spec[3] != "test":
-            continue
-        img = render_camera(cams[v], params, stats, deform, pipe,
+    for v in gate.test_v:
+        img = render_camera(gate.cams[v], params, stats, deform, gate.pipe,
                             np.zeros(3, np.float32),
-                            n_frames=n_frames)["render"]
+                            n_frames=gate.n_frames)["render"]
         psnrs.append(float(psnr_fn(torch.clamp(img, 0, 1),
-                                   torch.clamp(gts[v], 0, 1))))
+                                   torch.clamp(gate.gts[v], 0, 1))))
     return psnrs, final_loss, train_s, launches
 
 
@@ -325,7 +377,8 @@ def main(argv=None) -> int:
     ap.add_argument("--num_views", type=int, default=1,
                     help="views a train step (owlii4d: views a frame)")
     ap.add_argument("--seeds", default="42",
-                    help="comma-separated seeds, e.g. 0,1,2,3,4")
+                    help="comma-separated scene seeds, e.g. 0,1,2,3,4 "
+                         "(the net: seed 0)")
     ap.add_argument("--ab", action="store_true",
                     help="every bf16 option off, then each option on")
     args = ap.parse_args(argv)
@@ -358,7 +411,7 @@ def main(argv=None) -> int:
 
     result = {"variant": args.variant, "num_views": max(1, args.num_views),
               "iters": args.iters, "resolution": f"{RES}x{RES}",
-              "n_splats": N_SPLATS, "seeds": seeds,
+              "n_splats": N_SPLATS, "seeds": seeds, "net_seed": NET_SEED,
               "card": smi, "device": torch.cuda.get_device_name(0)}
     if not args.ab:
         result["runs"] = {s: run(s, forced=False) for s in seeds}

@@ -15,7 +15,9 @@ gradients and steps leave the encoder out because the JAX compile of the
 plane decoder's backward costs ~10 s a program; the decoder's gradient
 does not depend on the frame (strategy 'none') and is held in field mode
 by tests/test_torch_train.py, and the 4-D VarTriPlane step on the card
-against the CPU by ``chip_smoke.py`` phase 24.
+against the CPU by ``chip_smoke.py`` phases 24 and 47. The 4-D gate's
+own step, encoder included, is held against JAX's at every frame by
+tests/test_torch_gate_steps_4d.py.
 
 The steps are test_torch_train's harness with two views a step and a
 time step per step (fids 1/3, 2/3, 1: frames 1, 2, 3): 2,000 splats

@@ -16,14 +16,17 @@
   evaluation lines and the same final PLY and field weights, byte for
   byte. Torch runs on one thread, where its CPU kernels are
   deterministic.
-- The 4-D gate's scene (``--variant owlii4d``) at 1 and 4 views a step,
-  and the field gate at 2: the cameras (azimuth, elevation, time, split),
-  the cloud at each view's time and the camera matrices equal the JAX
-  gate's, read from its ``main`` as it reaches the trainee; each step's
-  views share a time, and the groups cover the train views.
+- The 4-D gate's scene and trainee (``--variant owlii4d``) at 1 and 4
+  views a step, and the field gate's at 2, as ``quality_gate_torch.Gate``
+  builds them: the cameras (azimuth, elevation, time, split), the cloud at
+  each view's time, the camera matrices, the initial cloud, the configs,
+  the learning rates and the first batch equal the JAX gate's, read from
+  its ``main`` as it reaches its first step; each step's views share a
+  time, and the groups cover the train views.
 """
 import dataclasses
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -189,26 +192,51 @@ def test_two_legs_equal_one_run(tmp_path):
 @pytest.mark.parametrize("variant,num_views",
                          [("owlii4d", 1), ("owlii4d", 4), ("field", 2)])
 def test_gate_scene_matches_the_jax_gate(variant, num_views, monkeypatch):
+    """``quality_gate_torch.Gate`` (the builder of the card's gate, of
+    ``scripts/gate_parity_cpu.py`` and of ``chip_smoke.py`` phase 47)
+    against the JAX gate's ``main`` at its TPU size, stopped at its first
+    step: the true cloud's attributes, the cloud at each view's time, the
+    cameras, the initial cloud, the trainee's ``HiddenConfig``, loss and
+    pipeline configs, the learning rates and the first step's batch."""
     import jax
 
+    from splatfields_torch.models import splats as tsplats
+    from splatfields_tpu import train_lib as jtrain
+    from splatfields_tpu.models import deform_model as jdeform
     from splatfields_tpu.models import splats as jsplats
     from splatfields_tpu.ops.raster import api as japi
     gate = _jax_script("quality_gate", monkeypatch)
-    drawn = []
+    drawn, seen = [], {}
 
     def record(*args, **kw):
-        drawn.append([np.asarray(a) for a in args[:7]])
+        drawn.append([np.asarray(a) for a in args[:7]] + [
+            np.asarray(kw["colors_precomp"])])
 
         class Out:
             color = np.zeros((3, 1, 1), np.float32)
         return Out()
 
-    def trainee(*a, **k):
-        raise Reached
+    class Deform:
+        net, variables, opt_state = None, {}, None
+
+        def __init__(self, hidden, **kw):
+            seen["hidden"] = hidden
+
+    def make_step(net, opt_cfg, pipe_cfg, *args, **kw):
+        seen.update(opt=opt_cfg, pipe=pipe_cfg)
+
+        def step(*a):
+            seen.update(batch=a[5], lrs=a[6], field_lr=a[7])
+            raise Reached
+        return step
 
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(japi, "rasterize", record)
-    monkeypatch.setattr(jsplats, "create_from_pcd", trainee)
+    monkeypatch.setattr(jsplats, "create_from_pcd", lambda pts0, *a, **k: (
+        seen.setdefault("pts0", pts0), None))
+    monkeypatch.setattr(jsplats, "adam_init", lambda *a, **k: None)
+    monkeypatch.setattr(jdeform, "DeformModel", Deform)
+    monkeypatch.setattr(jtrain, "make_train_step", make_step)
     monkeypatch.setattr(sys, "argv", ["quality_gate.py", "--variant",
                                       variant, "--num_views",
                                       str(num_views)])
@@ -216,25 +244,92 @@ def test_gate_scene_matches_the_jax_gate(variant, num_views, monkeypatch):
         gate.main()
     want = _main_locals(exc.value)
 
-    specs, n_frames = quality_gate_torch.scene_spec(variant, num_views)
-    assert n_frames == want["n_frames"]
-    assert specs == want["cam_specs"]
-    assert len(drawn) == len(specs)
-    pts = want["pts"]
-    for (az, el, fid, _), (cloud, _, _, _, w2v, full, campos) in zip(
-            specs, drawn):
-        np.testing.assert_array_equal(
-            quality_gate_torch.cloud_at(pts, fid, n_frames), cloud)
-        cam = quality_gate_torch.OrbitCam(az, el, 4.0, 0.8, 400, 400)
+    ours = []
+    monkeypatch.setattr(quality_gate_torch, "render_plain", lambda *a, **k: (
+        ours.append(a) or torch.zeros(3, 1, 1), None))
+    g = quality_gate_torch.Gate(variant, 42, torch.device("cpu"),
+                                num_views=num_views)
+    assert g.n_frames == want["n_frames"]
+    assert g.specs == want["cam_specs"]
+    assert len(drawn) == len(ours) == len(g.cams) == len(g.specs)
+    for cam, mine, (cloud, sc, rot, op, w2v, full, campos, col) in zip(
+            g.cams, ours, drawn):
+        np.testing.assert_array_equal(mine[0], cloud)
+        for x, y in zip(mine[1:5], (sc, rot, op, col)):
+            np.testing.assert_array_equal(x, y)
         np.testing.assert_allclose(cam.world_view_transform, w2v,
                                    rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(cam.full_proj_transform, full,
                                    rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(cam.camera_center, campos, rtol=1e-6,
                                    atol=1e-6)
-    groups = quality_gate_torch.view_groups(specs, n_frames, num_views)
-    assert all(len(g) == num_views for g in groups)
-    assert all(len({specs[v][2] for v in g}) == 1 for g in groups)
-    assert sorted({v for g in groups for v in g}) == want["train_v"]
-    assert [v for v, s in enumerate(specs) if s[3] == "test"] == \
-        want["test_v"]
+    assert all(len(v) == num_views for v in g.groups)
+    assert all(len({g.specs[v][2] for v in views}) == 1
+               for views in g.groups)
+    assert sorted({v for views in g.groups for v in views}) == \
+        want["train_v"]
+    assert g.test_v == want["test_v"]
+    np.testing.assert_array_equal(g.pts0, seen["pts0"])
+    # the trainee's configs, field for field
+    h = seen["hidden"]
+    assert jcfg.HiddenConfig(**g.hidden()) == h
+    assert dataclasses.asdict(g.opt) == dataclasses.asdict(seen["opt"])
+    assert dataclasses.asdict(g.pipe) == dataclasses.asdict(seen["pipe"])
+    lrs = tsplats.splat_lr_tree(*quality_gate_torch.SPLAT_LRS)
+    assert tsplats.tree_items(lrs) == {
+        k: float(getattr(seen["lrs"], k))
+        for k in tsplats.tree_items(lrs)}
+    assert np.float32(quality_gate_torch.FIELD_LR) == np.asarray(
+        seen["field_lr"])
+    # the first step's batch: the first group's views
+    b, jb = g.batch(g.groups[0], torch.device("cpu")), seen["batch"]
+    for k in ("viewmatrix", "projmatrix", "campos", "bg"):
+        np.testing.assert_array_equal(b[k].numpy(), np.asarray(jb[k]), k)
+    for k in ("tanfovx", "tanfovy"):
+        np.testing.assert_array_equal(np.float32(b[k]), np.asarray(jb[k]))
+    assert np.float32(b["fid"]) == np.asarray(jb["fid"])
+
+
+@pytest.mark.parametrize("seed", [42, 3])
+def test_gate_net_seed_matches_the_jax_gate(seed, monkeypatch):
+    """Both gates draw the net at the same seed whatever the scene seed:
+    the JAX gate's ``DeformModel`` keeps its default seed 0, and the
+    port's is built at ``NET_SEED`` 0 (the scene and the initial cloud
+    follow ``--seed`` / ``--seeds``)."""
+    from splatfields_torch.models import deform_model as tdeform
+    from splatfields_torch.models import splats as tsplats
+    from splatfields_tpu.models import deform_model as jdeform
+    from splatfields_tpu.ops.raster import api as japi
+    gate = _jax_script("quality_gate", monkeypatch)
+    seeds = {}
+
+    def catch(package, cls):
+        def build(*args, **kw):
+            # the seed as the real constructor would take it, default and all
+            bound = inspect.signature(cls).bind(*args, **kw)
+            bound.apply_defaults()
+            seeds[package] = bound.arguments["seed"]
+            raise Reached
+        return build
+
+    class Out:
+        color = np.zeros((3, 1, 1), np.float32)
+
+    monkeypatch.setattr(japi, "rasterize", lambda *a, **k: Out())
+    monkeypatch.setattr(jdeform, "DeformModel",
+                        catch("jax", jdeform.DeformModel))
+    monkeypatch.setattr(sys, "argv", ["quality_gate.py", "--seed",
+                                      str(seed)])
+    with pytest.raises(Reached):
+        gate.main()
+    monkeypatch.setattr(quality_gate_torch, "render_plain",
+                        lambda *a, **k: (torch.zeros(3, 1, 1), None))
+    monkeypatch.setattr(tsplats, "create_from_pcd", lambda *a, **k: (
+        None, None))
+    monkeypatch.setattr(tsplats, "adam_init", lambda *a, **k: None)
+    monkeypatch.setattr(tdeform, "DeformModel",
+                        catch("port", tdeform.DeformModel))
+    with pytest.raises(Reached):
+        quality_gate_torch.train_and_eval("field", seed, 1,
+                                          torch.device("cpu"))
+    assert seeds == {"jax": 0, "port": 0}
